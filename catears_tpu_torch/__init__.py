@@ -10,9 +10,12 @@ generators, errors, logging, the native loader) are imported, not copied.
 
 What this package carries so far is the offline batched decode
 (`cli.py --batch`): fbank -> TDNN acoustic model (float, or int8 with
-`quantized = true`) -> eps-free WFST beam search, LM off.  The int8 GEMM
-(`am.quant.matmul_s8`) is a hand-written CUDA kernel for sm_90a
-(`csrc/matmul_s8.cu`); everything else is plain PyTorch.
+`quantized = true`, its activation ranges dynamic or calibrated by
+`AcousticModel.calibrate`) -> eps-free WFST beam search, LM off or
+rescored on the fly by a delta-LM (`large_lm` + `original_lm`).  The int8
+GEMM (`am.quant.matmul_s8`) is a hand-written CUDA kernel for sm_90a
+(`csrc/matmul_s8.cu`); everything else, the LM walk included, is plain
+PyTorch.
 
 Precision: importing this package turns TF32 off for CUDA matmuls and
 cuDNN (`torch.backends.cuda.matmul.allow_tf32 = False`,

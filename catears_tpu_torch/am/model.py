@@ -16,7 +16,7 @@ from torch import nn
 from catears_tpu.io.binfmt import read_nnet_file, read_vec0_file
 from catears_tpu.io.config import Configuration
 from catears_tpu_torch.am.nnet import NnetDef, Nnet, build_nnet
-from catears_tpu_torch.am.quant import quantize_params
+from catears_tpu_torch.am.quant import calibrate_ranges, quantize_params
 
 FEAT_DIM = 40
 
@@ -27,12 +27,14 @@ class AcousticModel(nn.Module):
                  chunk_size: int, num_pdfs: int, quantized: bool = False,
                  device: torch.device = torch.device("cpu")):
         """params: per-layer dicts of numpy float arrays (build_nnet);
-        quantized=True quantizes every linear's weights to int8 here."""
+        quantized=True quantizes every linear's weights to int8 here and
+        keeps the float stack too, for `calibrate`."""
         super().__init__()
         self.nnet_def = nnet_def
         self.quantized = quantized
+        self.float_nnet = Nnet(nnet_def, params)
         self.nnet = (quantize_params(nnet_def, params) if quantized
-                     else Nnet(nnet_def, params))
+                     else self.float_nnet)
         self.register_buffer("log_prior", torch.as_tensor(
             np.asarray(log_prior, np.float32)))
         self.tid2pdf = np.asarray(tid2pdf, np.int32)
@@ -62,6 +64,23 @@ class AcousticModel(nn.Module):
             "true", "1", "yes")
         return cls(nnet_def, params, log_prior, tid2pdf, left, right, chunk,
                    num_pdfs, quantized=quantized, device=device)
+
+    def calibrate(self, padded_feats, margin: float = 0.05,
+                  guard: bool = False) -> None:
+        """Calibrate the int8 activation ranges on representative
+        features: [L + T + R, 40] context-padded fbank rows, or a list of
+        them.  Afterwards every linear quantizes with a static range
+        (guard=True: widened to any input that exceeds it; see
+        quant.calibrate_ranges).  No-op on the float AM."""
+        if not self.quantized:
+            return
+        if not isinstance(padded_feats, (list, tuple)):
+            padded_feats = [padded_feats]
+        calibrate_ranges(self.nnet_def, self.float_nnet, self.nnet,
+                         [torch.as_tensor(x, dtype=torch.float32,
+                                          device=self.device)
+                          for x in padded_feats],
+                         margin=margin, guard=guard)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """Context-padded features -> log-likelihoods (see module doc)."""

@@ -126,13 +126,16 @@ class Nnet(nn.Module):
     def params(self, i: int) -> Dict[str, torch.Tensor]:
         return dict(self.layer_params[i].named_buffers())
 
+    def forward_layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Layer i alone."""
+        layer, p = self.nnet_def[i], self.params(i)
+        if layer[0] == "linear":
+            return torch.matmul(x, p["w"]) + p["b"]
+        return apply_layer(layer[0], layer, x, p)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i, layer in enumerate(self.nnet_def):
-            p = self.params(i)
-            if layer[0] == "linear":
-                x = torch.matmul(x, p["w"]) + p["b"]
-            else:
-                x = apply_layer(layer[0], layer, x, p)
+        for i in range(len(self.nnet_def)):
+            x = self.forward_layer(i, x)
         return x
 
 

@@ -12,19 +12,24 @@ Batched: an activation tensor [B, M, K] is quantized per utterance (min and
 max over each utterance's own [M, K] rows), exactly what the JAX batch path
 computes under vmap; a weight matrix [K, N] gets one scale.  The int8 dot
 a'b' is `matmul_s8`, whose CUDA tensors run the hand-written Hopper kernel
-in csrc/matmul_s8.cu.  Only the dynamic (per-call min/max) path is ported;
-the calibrated static ranges wait.
+in csrc/matmul_s8.cu.
+
+Activations quantize dynamically (per-call min/max) by default.
+`calibrate_ranges` records each linear's input range from float passes;
+the layer then quantizes with that static range (`rng`, one scale for the
+whole batch, out-of-range values saturate) or, guarded (`grng`), with the
+range widened per utterance to its own min/max.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from catears_tpu_torch.am.nnet import NnetDef, apply_layer
+from catears_tpu_torch.am.nnet import Nnet, NnetDef, apply_layer
 
 
 class QuantizedTensor(NamedTuple):
@@ -47,6 +52,26 @@ def quantize(x: torch.Tensor) -> QuantizedTensor:
                     + zero_point[..., None, None], 0, 255)
     return QuantizedTensor((q - 128).to(torch.int8), scale.float(),
                            zero_point)
+
+
+def quantize_static(x: torch.Tensor, mn: torch.Tensor,
+                    mx: torch.Tensor) -> QuantizedTensor:
+    """Affine quantization with a given float32 range (per matrix: mn and mx
+    have the shape of x's leading dims, or are scalars).
+
+    The scale and zero point come from float32 tensors, as JAX computes
+    them under jit: a scale rounded from float64 could differ by an ulp
+    and flip rounded values.
+    """
+    mn = mn.to(torch.float32)
+    mx = mx.to(torch.float32)
+    flat_scale = torch.where(mn == 0, torch.ones_like(mn),
+                             torch.abs(mn) / 128.0)
+    scale = torch.where(mx - mn <= 0, flat_scale, (mx - mn) / 255.0)
+    zero_point = torch.round(-mn / scale).to(torch.int32)
+    q = torch.clamp(torch.round(x / scale[..., None, None])
+                    + zero_point[..., None, None], 0, 255)
+    return QuantizedTensor((q - 128).to(torch.int8), scale, zero_point)
 
 
 def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -133,8 +158,9 @@ def qmatmul(aq: QuantizedTensor, bq: QuantizedTensor,
 
 class QuantNnet(nn.Module):
     """The int8 layer stack: per linear, the quantized weight (`wq` values
-    [in, out] int8, scale, zero point), its f32 column sums and the f32
-    bias; other layers keep their float parameters."""
+    [in, out] int8, scale, zero point), its f32 column sums, the f32 bias
+    and, once calibrated, the f32 input range `rng` or `grng` ([lo, hi]);
+    other layers keep their float parameters."""
 
     def __init__(self, nnet_def: NnetDef, qparams: List[Dict]):
         super().__init__()
@@ -153,6 +179,16 @@ class QuantNnet(nn.Module):
 
     def params(self, i: int) -> Dict[str, torch.Tensor]:
         return dict(self.layer_params[i].named_buffers())
+
+    def set_range(self, i: int, key: str, lo: float, hi: float) -> None:
+        """Attach a calibrated input range to linear i under `key` ("rng"
+        or "grng"), replacing either one already there."""
+        holder = self.layer_params[i]
+        for old in ("rng", "grng"):
+            if old in holder._buffers:
+                del holder._buffers[old]
+        holder.register_buffer(key, torch.tensor(
+            [lo, hi], dtype=torch.float32, device=holder.wq_values.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nnet_forward_quant(self, x)
@@ -179,31 +215,105 @@ def quantize_params(nnet_def: NnetDef, params) -> QuantNnet:
 
 def from_jax_qparams(nnet_def: NnetDef, qparams) -> QuantNnet:
     """The port's int8 stack from the JAX `quantize_params` output: carries
-    wq.values, scale, zero_point, colsum and the bias across unchanged."""
+    wq.values, scale, zero_point, colsum, the bias and a calibrated range
+    (`rng` or `grng`, rounded to float32 as JAX uses it) across."""
     out = []
     for layer, p in zip(nnet_def, qparams):
         if layer[0] == "linear":
             wq = p["wq"]
-            out.append({
+            q = {
                 "wq": QuantizedTensor(
                     torch.tensor(np.asarray(wq.values)),
                     torch.tensor(np.asarray(wq.scale, np.float32)),
                     torch.tensor(np.asarray(wq.zero_point, np.int32))),
                 "b": torch.tensor(np.asarray(p["b"], np.float32)),
-                "colsum": torch.tensor(np.asarray(p["colsum"], np.float32))})
+                "colsum": torch.tensor(np.asarray(p["colsum"], np.float32))}
+            for key in ("rng", "grng"):
+                if key in p:
+                    q[key] = torch.tensor(np.asarray(p[key], np.float32))
+            out.append(q)
         else:
             out.append({k: torch.tensor(np.asarray(v, np.float32))
                         for k, v in p.items()})
     return QuantNnet(nnet_def, out)
 
 
+def calibrate_ranges(nnet_def: NnetDef, float_nnet: Nnet, qnet: QuantNnet,
+                     xs, margin: float = 0.05, guard: bool = False) -> None:
+    """Record each linear's input (min, max) from float forward passes.
+
+    Runs the float stack layer by layer on representative features (one
+    [T, D] tensor or a list of per-utterance ones; the range is the running
+    min/max over all of them), widens it by `margin` of its span and
+    attaches it to the linear in `qnet`: under "grng" with guard=True (the
+    range then widens per call to cover its input), else "rng" (static,
+    out-of-range inputs saturate).  The arithmetic is the JAX function's:
+    float32 extremes, then Python floats.
+    """
+    if not isinstance(xs, (list, tuple)):
+        xs = [xs]
+    ranges: List[Optional[Tuple[float, float]]] = [None] * len(nnet_def)
+    with torch.no_grad():
+        for x in xs:
+            for i, layer in enumerate(nnet_def):
+                if layer[0] == "linear":
+                    mn, mx = float(torch.min(x)), float(torch.max(x))
+                    if ranges[i] is None:
+                        ranges[i] = (mn, mx)
+                    else:
+                        ranges[i] = (min(ranges[i][0], mn),
+                                     max(ranges[i][1], mx))
+                x = float_nnet.forward_layer(i, x)
+    key = "grng" if guard else "rng"
+    for i, r in enumerate(ranges):
+        if r is not None:
+            pad = margin * max(r[1] - r[0], 1e-6)
+            qnet.set_range(i, key, r[0] - pad, r[1] + pad)
+
+
+def calibration_coverage(nnet_def: NnetDef, float_nnet: Nnet,
+                         qnet: QuantNnet, xs) -> List[float]:
+    """Fraction of activations inside each calibrated linear's range, from
+    float passes over held-out features (one tensor or a list)."""
+    if not isinstance(xs, (list, tuple)):
+        xs = [xs]
+    inside = [0] * len(nnet_def)
+    total = [0] * len(nnet_def)
+    with torch.no_grad():
+        for x in xs:
+            for i, layer in enumerate(nnet_def):
+                p = qnet.params(i)
+                rng = p.get("rng", p.get("grng"))
+                if layer[0] == "linear" and rng is not None:
+                    inside[i] += int(torch.sum((x >= rng[0]) & (x <= rng[1])))
+                    total[i] += x.numel()
+                x = float_nnet.forward_layer(i, x)
+    return [inside[i] / total[i] for i in range(len(nnet_def)) if total[i]]
+
+
+def _quantize_input(x: torch.Tensor, p: Dict[str, torch.Tensor]):
+    """The activation quantization of one linear: guarded static ("grng":
+    the range widened to each matrix's own min/max, as JAX computes it per
+    utterance under vmap), static ("rng": one range for the whole batch),
+    or dynamic."""
+    if "grng" in p:
+        lo, hi = p["grng"][0], p["grng"][1]
+        return quantize_static(
+            x, torch.minimum(torch.amin(x, dim=(-2, -1)), lo),
+            torch.maximum(torch.amax(x, dim=(-2, -1)), hi))
+    if "rng" in p:
+        return quantize_static(x, p["rng"][0], p["rng"][1])
+    return quantize(x)
+
+
 def nnet_forward_quant(qnet: QuantNnet, x: torch.Tensor) -> torch.Tensor:
-    """Layer stack with int8 linears and dynamic per-matrix quantization of
-    the activations (per utterance for a [B, T, D] batch)."""
+    """Layer stack with int8 linears; each linear's activations quantize
+    per matrix (per utterance for a [B, T, D] batch) by its calibrated
+    range when it has one, else dynamically."""
     for i, layer in enumerate(qnet.nnet_def):
         p = qnet.params(i)
         if layer[0] == "linear":
-            xq = quantize(x)
+            xq = _quantize_input(x, p)
             wq = QuantizedTensor(p["wq_values"], p["wq_scale"],
                                  p["wq_zero_point"])
             x = qmatmul(xq, wq, colsum_b=p["colsum"]) + p["b"]

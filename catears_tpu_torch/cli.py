@@ -9,10 +9,11 @@ Usage: python -m catears_tpu_torch.cli --batch[=N] [--device=cuda|cpu]
                run without a CUDA device fails; it never falls back to the
                CPU.
 
-Inputs the port does not carry yet fail with a one-line `catears:` error:
-a .wav input or an scp without --batch (the streaming Utterance path),
-delta-LM (`large_lm`), `cmvn_stats`, and graphs whose epsilon removal does
-not reach the eps-free mode.
+The config may name a delta-LM (`large_lm` + `original_lm`): the decode is
+then rescored by it, as the JAX CLI's is.  Inputs the port does not carry
+yet fail with a one-line `catears:` error: a .wav input or an scp without
+--batch (the streaming Utterance path), `cmvn_stats`, and graphs whose
+epsilon removal does not reach the eps-free mode.
 """
 
 from __future__ import annotations

@@ -1,27 +1,32 @@
-"""Batched frame-synchronous Viterbi beam search, LM off (port of
-catears_tpu/decode/beam.py for eps-free graphs).
+"""Batched frame-synchronous Viterbi beam search with optional delta-LM
+rescoring (port of catears_tpu/decode/beam.py for eps-free graphs).
 
 The JAX decoder vmaps one utterance's frame step and scans it over frames;
 here the batch dimension is written out (every beam array is [B, K]) and
 the scan is a Python loop over frames.  Semantics follow the JAX code
-statement by statement, so per-frame states, costs, backpointers, words,
-overflow flags and high-water marks are identical:
+statement by statement, so per-frame states, LM states, costs,
+backpointers, words, overflow flags and high-water marks are identical:
 
   frame = expand emitting arcs (extracted self-loop + first-G block row +
           CSR overflow) -> cost = token + arc weight - am_scale*logp[pdf]
-          -> exact dedup by state (min cost, stable) + top-K + beam
-          threshold; padded and dead frames keep the previous beam.
+          (+ the delta-LM walks of the arc's output labels) -> exact dedup
+          by (state, lm) (min cost, stable) + top-K + beam threshold;
+          padded and dead frames keep the previous beam.
 
 Notes on matching the reference bit for bit:
 * Sorts: `lax.sort` is stable and compares floats as IEEE numbers (-0.0 ==
-  +0.0).  The dedup sort on (state, cost) is one stable sort of an int64
-  key (state in the high half, order-preserving cost bits in the low
-  half, -0.0 folded onto +0.0); the prune is a stable sort of the
-  effective costs.  Payloads are gathered from the unsorted columns.
+  +0.0).  LM off, the dedup sort on (state, cost) is one stable sort of an
+  int64 key (state in the high half, order-preserving cost bits in the low
+  half, -0.0 folded onto +0.0).  LM on, (state, lm, cost) needs about 94
+  bits, so it is two stable passes, least significant key first: by the
+  cost key, then by (state, lm) in one int64.  The prune is a stable sort
+  of the effective costs.  Payloads are gathered from the unsorted
+  columns.
 * Acoustic term: a plain gather logp[b, pdf] (the JAX one-hot matmul
   lookup is exact, and so is a gather).  XLA contracts `cost - am_scale *
   logp` into one fused multiply-add; `_fms` computes that single rounding
-  exactly, in float64 with round-to-odd, on any device.
+  exactly, in float64 with round-to-odd, on any device.  The LM weights
+  are then added one walk at a time, as JAX adds them.
 * Integer fields are int32 as in JAX; logical shifts are `>>` plus the
   field's mask, since torch's `>>` on int32 is arithmetic.
 """
@@ -34,7 +39,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from catears_tpu_torch.graph.device import DeviceFst
+from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
+                                            lm_propagate_capped)
 
 INF = float("inf")
 SENTINEL_STATE = 2**30  # sorts after every real state
@@ -43,12 +49,16 @@ I32 = torch.int32
 
 @dataclass(frozen=True)
 class BeamConfig:
-    """Static decoder geometry (the JAX fields and defaults that LM-off
-    decoding reads)."""
+    """Static decoder geometry (the JAX fields and defaults that the
+    eps-free decode reads)."""
 
     beam_size: int = 4096  # K: max active tokens
     expand_size: int = 8192  # emitting-arc CSR overflow capacity
     eps_expand_size: int = 8192  # epsilon-closure expansion capacity
+    # Delta-LM walk capacity: the word-emitting lanes of an expansion are
+    # compacted into this many slots before the walk; 0 walks every lane.
+    # Truncation sets the overflow flag (hiwater slot 2).
+    lm_expand_size: int = 0
     max_eps_iters: int = 6  # closure round bound
     beam: float = 16.0  # beam width
     am_scale: float = 0.1  # acoustic scale
@@ -89,6 +99,7 @@ class Cands(NamedTuple):
     olabel: torch.Tensor  # i32
     pdf: torch.Tensor  # i32
     eps: Optional[torch.Tensor]  # i32 lane 4 (olabel2 / dest eps meta)
+    lm: Optional[torch.Tensor]  # i32 the source token's LM state
     bp: Optional[torch.Tensor]
     overflow: torch.Tensor  # bool [B]
     needed: torch.Tensor  # i32 [B] arc slots this expansion wanted
@@ -139,21 +150,33 @@ def _ordered_i64(c: torch.Tensor) -> torch.Tensor:
     return ordered.to(torch.int64) + 2**31
 
 
-def _select_sorts(cfg: BeamConfig, states, costs, payloads,
+def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
                   report_demand: bool = False):
-    """Exact dedup by state (min cost, earliest wins ties) + top-K by cost.
+    """Exact dedup by (state, lm) (min cost, earliest wins ties) + top-K by
+    cost; lms None means LM off (dedup by state, lms out all 0).
 
     Returns ((states, lms, costs, *payload_columns) at the kept K slots,
     demand [B]): demand = post-dedup beam-threshold survivor count when
     report_demand is set, else 0.
     """
     k = cfg.beam_size
-    key = states.to(torch.int64) * 2**32 + _ordered_i64(costs)
-    s_iota = torch.sort(key, dim=1, stable=True).indices
+    if lms is None:
+        key = states.to(torch.int64) * 2**32 + _ordered_i64(costs)
+        s_iota = torch.sort(key, dim=1, stable=True).indices
+    else:
+        # Two stable passes, least significant key first: (state, lm,
+        # cost, index) order, as the JAX 3-key stable sort.
+        c_iota = torch.sort(_ordered_i64(costs), dim=1, stable=True).indices
+        key = states.to(torch.int64) * 2**32 + (lms.to(torch.int64) + 2**31)
+        s_iota = _take(c_iota, torch.sort(_take(key, c_iota), dim=1,
+                                          stable=True).indices)
     s_states = _take(states, s_iota)
     s_costs = _take(costs, s_iota)
     first = torch.ones_like(s_states, dtype=torch.bool)
     first[:, 1:] = s_states[:, 1:] != s_states[:, :-1]
+    if lms is not None:
+        s_lms = _take(lms, s_iota)
+        first[:, 1:] |= s_lms[:, 1:] != s_lms[:, :-1]
     eff_cost = torch.where(first & (s_states < SENTINEL_STATE), s_costs,
                            torch.full_like(s_costs, INF))
     if report_demand:
@@ -170,14 +193,16 @@ def _select_sorts(cfg: BeamConfig, states, costs, payloads,
     valid = torch.isfinite(top_costs)
     out = (
         torch.where(valid, _take(states, top_iota), -1),
-        torch.zeros_like(top_iota, dtype=I32),
+        (torch.zeros_like(top_iota, dtype=I32) if lms is None
+         else torch.where(valid, _take(lms, top_iota), 0)),
         torch.where(valid, top_costs, INF),
     ) + tuple(_take(p, top_iota) for p in payloads)
     return out, demand
 
 
 def _expand_csr(table: torch.Tensor, g: int, capacity: int, row_lo, n_arcs,
-                costs, bps, need_bp: bool, need_eps: bool) -> Cands:
+                costs, lms, bps, need_lm: bool, need_bp: bool,
+                need_eps: bool) -> Cands:
     """CSR expansion over per-source spans (row_lo in grouped-row units).
 
     Slot -> source ownership: a scatter-max of span starts + cummax fill
@@ -234,6 +259,7 @@ def _expand_csr(table: torch.Tensor, g: int, capacity: int, row_lo, n_arcs,
         olabel=ap[..., 1].reshape(b, capacity),
         pdf=ap[..., 3].reshape(b, capacity),
         eps=ap[..., 4].reshape(b, capacity) if need_eps else None,
+        lm=rep(_take(lms, tok_c)) if need_lm else None,
         bp=rep(_take(bps, tok_c)) if need_bp else None,
         overflow=overflow,
         needed=(rows_needed * g).to(I32),
@@ -241,17 +267,19 @@ def _expand_csr(table: torch.Tensor, g: int, capacity: int, row_lo, n_arcs,
 
 
 def _expand_eps_carried(dfst: DeviceFst, beam: BeamState, capacity: int,
-                        eps_meta: torch.Tensor, need_eps: bool) -> Cands:
+                        eps_meta: torch.Tensor, need_lm: bool,
+                        need_eps: bool) -> Cands:
     """Epsilon expansion from carried per-slot packed eps metadata
     (eps_row_lo << 9 | n_eps)."""
     eps_lo = eps_meta >> 9
     n = torch.where(beam.states >= 0, eps_meta & 511, 0)
     return _expand_csr(dfst.eps_packed, dfst.eps_group, capacity, eps_lo, n,
-                       beam.costs, beam.bp, True, need_eps)
+                       beam.costs, beam.lm, beam.bp, need_lm, True, need_eps)
 
 
 def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
-            emitting: bool, need_bp: bool, need_eps: bool = False) -> Cands:
+            emitting: bool, need_lm: bool, need_bp: bool,
+            need_eps: bool = False) -> Cands:
     """Expand the beam's arcs: for emitting arcs the extracted self-loop and
     the first-G block (one row gather per token) + the CSR overflow pass;
     for epsilon arcs the state_packed-driven CSR pass."""
@@ -265,8 +293,8 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         sp = dfst.state_packed[state_c.long()]  # [B, K, 4]
         n_eps = torch.where(valid_tok, sp[..., 1], 0)
         return _expand_csr(dfst.eps_packed, dfst.eps_group, capacity,
-                           sp[..., 0], n_eps, beam.costs, beam.bp, need_bp,
-                           need_eps)
+                           sp[..., 0], n_eps, beam.costs, beam.lm, beam.bp,
+                           need_lm, need_bp, need_eps)
 
     eb = dfst.emit_block[state_c.long()]  # [B, K, lanes] row gather
     if dfst.emit_compact:
@@ -326,6 +354,7 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         olabel=cat(self_ol, flat(blk_ol)),
         pdf=cat(self_pdf, flat(blk_pdf)),
         eps=cat(eps_meta_self, flat(blk_l4)) if need_eps else None,
+        lm=cat(beam.lm, repk(beam.lm)) if need_lm else None,
         bp=cat(beam.bp, repk(beam.bp)) if need_bp else None,
         overflow=torch.zeros(b, dtype=torch.bool, device=dev),
         needed=torch.zeros(b, dtype=I32, device=dev),
@@ -335,8 +364,8 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
     if dfst.max_emit_fanout <= g:
         return pass_sa
     pass_b = _expand_csr(dfst.over_packed, dfst.csr_group, capacity, over_lo,
-                         torch.clamp(n_emit - g, min=0), beam.costs, beam.bp,
-                         need_bp, need_eps)
+                         torch.clamp(n_emit - g, min=0), beam.costs, beam.lm,
+                         beam.bp, need_lm, need_bp, need_eps)
 
     def cat_opt(x, y):
         return cat(x, y) if x is not None else None
@@ -349,6 +378,7 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         olabel=cat(pass_sa.olabel, pass_b.olabel),
         pdf=cat(pass_sa.pdf, pass_b.pdf),
         eps=cat_opt(pass_sa.eps, pass_b.eps),
+        lm=cat_opt(pass_sa.lm, pass_b.lm),
         bp=cat_opt(pass_sa.bp, pass_b.bp),
         overflow=pass_b.overflow,
         needed=pass_b.needed,
@@ -370,23 +400,56 @@ def _max_at(hiwater: torch.Tensor, slot: int, value: torch.Tensor):
     return out
 
 
-def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
-                   logp: torch.Tensor):
+def _lm(cfg: BeamConfig, dlm: DeviceLm, lm: torch.Tensor,
+        olabel: torch.Tensor, valid: torch.Tensor):
+    """Capped delta-LM walk + (overflow [B], needed [B]) for the beam
+    telemetry.  Invalid expansion lanes carry garbage table reads for
+    olabel: they are masked so they neither walk nor count."""
+    ns, w, needed = lm_propagate_capped(dlm, lm, torch.where(valid, olabel, 0),
+                                        cfg.lm_expand_size)
+    if cfg.lm_expand_size > 0:
+        over = needed > cfg.lm_expand_size
+    else:
+        over = torch.zeros_like(needed, dtype=torch.bool)
+    return ns, w, over, needed
+
+
+def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
+                   beam: BeamState, logp: torch.Tensor):
     """One-selection frame for eps-removed graphs: expand emitting arcs
-    (each carrying up to two output labels), add the acoustic term, then
-    one exact dedup + top-K + beam threshold.
+    (each carrying up to two output labels), add the acoustic term and,
+    with an LM, the two delta-LM walks, then one exact dedup + top-K + beam
+    threshold.
 
     Returns (beam', prev_slot [B, K], words [B, K, 2] newest-first).
     """
     k = cfg.beam_size
-    c = _expand(cfg, dfst, beam, cfg.expand_size, True, need_bp=False,
-                need_eps=True)
+    c = _expand(cfg, dfst, beam, cfg.expand_size, True,
+                need_lm=dlm is not None, need_bp=False, need_eps=True)
     olab2 = c.eps  # lane 4 = composed second olabel in eps_removed mode
     cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
+    overflow = beam.overflow | c.overflow
+    hiwater = _max_at(beam.hiwater, 0, c.needed)
+    lm_state = None
+    if dlm is not None:
+        # Two LM transitions in sequence, each weight added on its own as
+        # JAX adds it: the emitting olabel (statically absent when no
+        # emitting arc carries one), then the composed olabel2.
+        if dfst.has_emit_olabel:
+            lm1, w1, over1, need1 = _lm(cfg, dlm, c.lm, c.olabel, c.valid)
+            cost = cost + w1
+        else:
+            lm1 = c.lm
+            over1 = torch.zeros_like(overflow)
+            need1 = torch.zeros_like(c.needed)
+        lm_state, w2, over2, need2 = _lm(cfg, dlm, lm1, olab2, c.valid)
+        cost = cost + w2
+        overflow = overflow | over1 | over2
+        hiwater = _max_at(hiwater, 2, torch.maximum(need1, need2))
     cand_state = torch.where(c.valid, c.next_state, SENTINEL_STATE)
     cand_cost = torch.where(c.valid, cost, INF)
     (states, lms, costs, tok, w0, w1), sel_needed = _select_sorts(
-        cfg, cand_state, cand_cost, [c.tok, olab2, c.olabel],
+        cfg, cand_state, lm_state, cand_cost, [c.tok, olab2, c.olabel],
         report_demand=True)
     cutoff = torch.amin(costs, dim=1, keepdim=True) + cfg.beam
     keep = costs <= cutoff
@@ -395,14 +458,14 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
     new_beam = BeamState(
         states, lms, costs,
         _arange(k, states.device).expand_as(states).contiguous(),
-        beam.overflow | c.overflow,
-        _max_at(_max_at(beam.hiwater, 0, c.needed), 3, sel_needed))
+        overflow, _max_at(hiwater, 3, sel_needed))
     words = torch.stack([torch.where(keep, w0, 0), torch.where(keep, w1, 0)],
                         dim=2)  # newest-first: (eps olab, emit olab)
     return new_beam, torch.where(keep, tok, 0), words
 
 
-def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
+def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst,
+                       dlm: Optional[DeviceLm], beam: BeamState,
                        parent: torch.Tensor, olab0: torch.Tensor,
                        eps_info: Tuple, cutoff: float):
     """Static-depth epsilon closure with inline trace composition (serves
@@ -422,13 +485,25 @@ def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
         if use_meta:
             (eps_meta,) = eps_info
             c = _expand_eps_carried(dfst, beam, cfg.eps_expand_size,
-                                    eps_meta, need_eps=carry_eps)
+                                    eps_meta, need_lm=dlm is not None,
+                                    need_eps=carry_eps)
         else:
             c = _expand(cfg, dfst, beam, cfg.eps_expand_size, False,
-                        need_bp=True)
-        valid_e = c.valid & (c.cost <= cutoff)
+                        need_lm=dlm is not None, need_bp=True)
+        cost = c.cost
+        overflow = beam.overflow | c.overflow
+        hiwater = _max_at(beam.hiwater, 1, c.needed)
+        m_lms = None
+        if dlm is not None:
+            lm_state, lm_w, lm_over, lm_needed = _lm(cfg, dlm, c.lm,
+                                                     c.olabel, c.valid)
+            cost = cost + lm_w
+            overflow = overflow | lm_over
+            hiwater = _max_at(hiwater, 2, lm_needed)
+            m_lms = torch.cat([beam.lm, lm_state], dim=1)
+        valid_e = c.valid & (cost <= cutoff)
         cand_state = torch.where(valid_e, c.next_state, SENTINEL_STATE)
-        cand_cost = torch.where(valid_e, c.cost, INF)
+        cand_cost = torch.where(valid_e, cost, INF)
         m_states = torch.cat([beam.states, cand_state], dim=1)
         m_costs = torch.cat([beam.costs, cand_cost], dim=1)
         # Carried entries point at their own slot, candidates at their
@@ -439,7 +514,7 @@ def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
         if carry_eps:
             payloads.append(torch.cat([eps_meta, c.eps], dim=1))
         (states, lms, costs, ref_enc, olab, *eps_out), sel_needed = \
-            _select_sorts(cfg, m_states, m_costs, payloads)
+            _select_sorts(cfg, m_states, m_lms, m_costs, payloads)
         eps_info = tuple(eps_out)
         iscand = ref_enc >= k
         r = torch.clamp(torch.where(iscand, ref_enc - k, ref_enc), 0, k - 1)
@@ -452,15 +527,14 @@ def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
         words = torch.where(accepted[..., None],
                             torch.cat([olab[..., None], row[..., 1:]], 2),
                             torch.cat([row[..., 1:], zero], 2))
-        beam = BeamState(states, lms, costs, slots.contiguous(),
-                         beam.overflow | c.overflow,
-                         _max_at(_max_at(beam.hiwater, 1, c.needed), 3,
-                                 sel_needed))
+        beam = BeamState(states, lms, costs, slots.contiguous(), overflow,
+                         _max_at(hiwater, 3, sel_needed))
     return beam, prev, words
 
 
-def _frame_step(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
-                logp: torch.Tensor, frame_valid: torch.Tensor):
+def _frame_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
+                beam: BeamState, logp: torch.Tensor,
+                frame_valid: torch.Tensor):
     """One decode frame for a batch; identity where frame_valid is False.
 
     If an utterance's beam dies (no token survives), its previous beam is
@@ -468,7 +542,7 @@ def _frame_step(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
     """
     if not dfst.eps_removed:
         raise NotImplementedError("only eps-free decode graphs are ported")
-    new_beam, prev_slot, words = _eps_free_step(cfg, dfst, beam, logp)
+    new_beam, prev_slot, words = _eps_free_step(cfg, dfst, dlm, beam, logp)
     # Overflow only counts on real frames.
     overflow = torch.where(frame_valid, new_beam.overflow, beam.overflow)
     died = ~torch.isfinite(new_beam.costs[:, 0])
@@ -487,15 +561,18 @@ def _frame_step(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
     return out_beam, trace
 
 
-def init_beam_batch(cfg: BeamConfig, batch: int,
-                    dfst: DeviceFst) -> Tuple[BeamState, FrameTrace]:
-    """Root token + initial epsilon closure, tiled to [B] utterances
-    (the JAX make_init_beam + init_beam_batch)."""
+def init_beam_batch(cfg: BeamConfig, batch: int, dfst: DeviceFst,
+                    dlm: Optional[DeviceLm] = None
+                    ) -> Tuple[BeamState, FrameTrace]:
+    """Root token (LM state dlm.start) + initial epsilon closure, tiled to
+    [B] utterances (the JAX make_init_beam + init_beam_batch)."""
     k = cfg.beam_size
     dev = dfst.device
     states = torch.full((1, k), -1, dtype=I32, device=dev)
     states[0, 0] = dfst.start
     lms = torch.zeros((1, k), dtype=I32, device=dev)
+    if dlm is not None:
+        lms[0, 0] = dlm.start
     costs = torch.full((1, k), INF, dtype=torch.float32, device=dev)
     costs[0, 0] = 0.0
     bp = _arange(k, dev)[None]
@@ -509,7 +586,7 @@ def init_beam_batch(cfg: BeamConfig, batch: int,
     sp = dfst.state_packed[torch.clamp(states, 0,
                                        dfst.num_states - 1).long()]
     eps_info = ((sp[..., 0] << 9) | torch.where(states >= 0, sp[..., 1], 0),)
-    beam, _, words = _eps_closure_fused(cfg, dfst, beam, bp,
+    beam, _, words = _eps_closure_fused(cfg, dfst, dlm, beam, bp,
                                         torch.zeros_like(bp), eps_info, INF)
     trace = FrameTrace(torch.full((1, k), -1, dtype=I32, device=dev), words)
     beam = BeamState(beam.states, beam.lm, beam.costs, bp, beam.overflow,
@@ -523,15 +600,18 @@ def init_beam_batch(cfg: BeamConfig, batch: int,
 
 
 def decode_chunk(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
-                 logp: torch.Tensor, frame_valid: torch.Tensor):
-    """Run a [C, B, P] chunk of log-prob frames through the decoder.
+                 logp: torch.Tensor, frame_valid: torch.Tensor,
+                 dlm: Optional[DeviceLm] = None):
+    """Run a [C, B, P] chunk of log-prob frames through the decoder
+    (rescored by the delta-LM when dlm is given).
 
     Returns (beam', FrameTrace stacked [C, B, ...]).
     """
     prevs: List[torch.Tensor] = []
     words: List[torch.Tensor] = []
     for f in range(logp.shape[0]):
-        beam, tr = _frame_step(cfg, dfst, beam, logp[f], frame_valid[f])
+        beam, tr = _frame_step(cfg, dfst, dlm, beam, logp[f],
+                               frame_valid[f])
         prevs.append(tr.prev_slot)
         words.append(tr.words)
     return beam, FrameTrace(torch.stack(prevs), torch.stack(words))

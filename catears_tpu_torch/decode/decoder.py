@@ -1,6 +1,7 @@
 """Batched decoder runtime around the beam search (port of
-catears_tpu/decode/decoder.py: safe_config, BatchDecoder, the overflow
-regrow-and-retry and the device-backtrace decode).
+catears_tpu/decode/decoder.py: safe_config, BatchDecoder with optional
+delta-LM rescoring, the overflow regrow-and-retry and the device-backtrace
+decode with the host's final-weight pick).
 
 The single-utterance streaming `Decoder` and `autosize` are not ported
 yet.  Only eps-free decode graphs are: `prepare_decode_graph` must return
@@ -16,7 +17,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from catears_tpu.graph.fst import FlatFst
+from catears_tpu.graph.fst import DeltaLmFst, FlatFst
 from catears_tpu.graph.transform import prepare_decode_graph
 from catears_tpu.utils import log
 from catears_tpu.utils.errors import BeamCapacityError, NotImplementedError_
@@ -29,15 +30,29 @@ from catears_tpu_torch.decode.beam import (
 )
 from catears_tpu_torch.decode.hyp import assemble_words
 from catears_tpu_torch.decode.oracle import Hypothesis
-from catears_tpu_torch.graph.device import DeviceFst, expansion_bounds
+from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
+                                            expansion_bounds)
 
 
 def safe_config(fst: FlatFst, arc_group: int, base: BeamConfig,
-                csr_group: int = None) -> BeamConfig:
-    """Raise base's expansion capacities to the graph's worst case (LM off:
-    the bound is exact, so the decoder can never truncate)."""
+                has_lm: bool = False, csr_group: int = None,
+                lm_dup_factor: int = 4) -> BeamConfig:
+    """Raise base's expansion capacities to the graph's worst case.
+
+    LM off, the bound is exact and the decoder can never truncate.  With a
+    delta-LM the beam dedups on (state, lm) pairs, so the true worst case
+    is K tokens on the highest-fanout state; the capacities allow
+    `lm_dup_factor` beam copies per HCLG state instead (capped at that
+    worst case), and the overflow flag catches a genuine overshoot.
+    """
     eb, epsb = expansion_bounds(fst, arc_group, base.beam_size,
                                 distinct_states=True, csr_group=csr_group)
+    if has_lm:
+        eb_w, epsb_w = expansion_bounds(fst, arc_group, base.beam_size,
+                                        distinct_states=False,
+                                        csr_group=csr_group)
+        eb = min(eb_w, lm_dup_factor * eb)
+        epsb = min(epsb_w, lm_dup_factor * epsb)
     return dataclasses.replace(
         base,
         expand_size=max(base.expand_size, eb, arc_group),
@@ -55,14 +70,17 @@ def _regrow_config(config: BeamConfig, hiwater) -> BeamConfig:
     """New geometry from measured demand: each capacity grows to its
     high-water mark x RETRY_MARGIN (the mark is a lower bound on the true
     demand once truncation happened)."""
-    emit, eps = int(hiwater[0]), int(hiwater[1])
+    emit, eps, lm = int(hiwater[0]), int(hiwater[1]), int(hiwater[2])
 
     def grow(cur, need):
         return max(cur, _round_up(int(need * RETRY_MARGIN), 512))
 
     return dataclasses.replace(
         config, expand_size=grow(config.expand_size, emit),
-        eps_expand_size=grow(config.eps_expand_size, eps))
+        eps_expand_size=grow(config.eps_expand_size, eps),
+        lm_expand_size=(grow(config.lm_expand_size, lm)
+                        if config.lm_expand_size > 0 and lm
+                        else config.lm_expand_size))
 
 
 class BatchDecoder:
@@ -71,16 +89,19 @@ class BatchDecoder:
     decode() takes numpy or torch log-probs [B, T, P]; a tensor already on
     the decoder's device (straight from the batched AM) never visits the
     host.  Traces stay on the device and the backtrace runs there; only the
-    final beam and the [B, T, W] word array come back.
+    final beam and the [B, T, W] word array come back.  With `delta_lm`
+    the decode is rescored by that G' (its DeviceLm built once, here).
     """
 
     def __init__(self, fst: FlatFst, tid2pdf: np.ndarray,
                  config: Optional[BeamConfig] = None,
                  arc_group: int = 4,
                  csr_group: int = None,
-                 device: torch.device = torch.device("cpu")):
-        """config=None sizes the capacities so truncation is impossible
-        (safe_config); an explicit config relies on the overflow retry."""
+                 device: torch.device = torch.device("cpu"),
+                 delta_lm: Optional[DeltaLmFst] = None):
+        """config=None sizes the capacities by safe_config (LM off they
+        cannot truncate); an explicit config relies on the overflow
+        retry."""
         dec_fst, olab2, mode = prepare_decode_graph(fst)
         if mode != "eps_free":
             raise NotImplementedError_(
@@ -89,11 +110,14 @@ class BatchDecoder:
         self.auto_capacity = config is None
         if config is None:
             config = safe_config(dec_fst, arc_group, BeamConfig(),
-                                 csr_group=csr_group)
+                                 delta_lm is not None, csr_group=csr_group)
         self.cfg = config
         self.dfst = DeviceFst.build(dec_fst, tid2pdf, group=arc_group,
                                     eps_depth_cap=1, csr_group=csr_group,
                                     olabel2=olab2, device=device)
+        self.delta_lm = delta_lm
+        self.dlm = (DeviceLm.build(delta_lm, device=device)
+                    if delta_lm is not None else None)
 
     def decode(self, logp, lengths: Optional[Sequence[int]] = None,
                retry_on_overflow: bool = True,
@@ -107,9 +131,10 @@ class BatchDecoder:
         state is reachable.
         """
         if self.auto_capacity:
-            retry_on_overflow = False  # safe_config bounds cannot truncate
+            retry_on_overflow = False  # as the JAX BatchDecoder
         try:
-            return _decode_batch_once(self.dfst, logp, lengths, self.cfg,
+            return _decode_batch_once(self.dfst, self.dlm, self.delta_lm,
+                                      logp, lengths, self.cfg,
                                       final_fallback)
         except BeamCapacityError as err:
             if not retry_on_overflow or err.hiwater is None:
@@ -118,13 +143,15 @@ class BatchDecoder:
             log.count("overflow_retries", 1)
             print(f"# catears: capacity overflow (hiwater={err.hiwater}); "
                   f"regrowing geometry to expand={regrown.expand_size} "
-                  f"eps={regrown.eps_expand_size} and retrying once",
+                  f"eps={regrown.eps_expand_size} "
+                  f"lm={regrown.lm_expand_size} and retrying once",
                   file=sys.stderr)
-            return _decode_batch_once(self.dfst, logp, lengths, regrown,
-                                      final_fallback)
+            return _decode_batch_once(self.dfst, self.dlm, self.delta_lm,
+                                      logp, lengths, regrown, final_fallback)
 
 
-def _decode_batch_once(dfst: DeviceFst, logp,
+def _decode_batch_once(dfst: DeviceFst, dlm: Optional[DeviceLm],
+                       delta_lm: Optional[DeltaLmFst], logp,
                        lengths: Optional[Sequence[int]],
                        config: BeamConfig,
                        final_fallback: bool = False) -> List[Hypothesis]:
@@ -132,7 +159,7 @@ def _decode_batch_once(dfst: DeviceFst, logp,
     logp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
     b, t, _ = logp.shape
     lengths = list(lengths) if lengths is not None else [t] * b
-    beam, init_trace = init_beam_batch(config, b, dfst)
+    beam, init_trace = init_beam_batch(config, b, dfst, dlm)
     len_arr = np.asarray(lengths)
     log.count("frames_decoded", int(len_arr.sum()))
     # One pass over all T frames: the JAX decoder scans fixed-size chunks
@@ -140,7 +167,7 @@ def _decode_batch_once(dfst: DeviceFst, logp,
     valid = torch.as_tensor(np.arange(t)[:, None] < len_arr[None, :],
                             device=dev)
     beam, trace = decode_chunk(config, dfst, beam, logp.transpose(0, 1),
-                               valid)
+                               valid, dlm)
 
     overflow = beam.overflow.cpu().numpy()
     if overflow.any():
@@ -152,10 +179,11 @@ def _decode_batch_once(dfst: DeviceFst, logp,
             hiwater=tuple(int(x) for x in
                           beam.hiwater.cpu().numpy().max(axis=0)))
     states = beam.states.cpu().numpy()
+    lms = beam.lm.cpu().numpy()
     costs = beam.costs.cpu().numpy()
     final = dfst.final.cpu().numpy()
-    # Exact final-weight selection on the host, then ONE backtrace on the
-    # device for the whole batch.
+    # Exact final-weight selection on the host (a delta-LM final needs the
+    # backoff walk), then ONE backtrace on the device for the whole batch.
     best_slots = np.zeros(b, np.int64)
     totals = np.zeros(b, np.float64)
     empty = np.zeros(b, bool)
@@ -164,6 +192,11 @@ def _decode_batch_once(dfst: DeviceFst, logp,
         ok = states[u] >= 0
         idx = np.where(ok, states[u], 0)
         total += np.where(ok, final[idx], np.inf)
+        if delta_lm is not None:
+            live = np.flatnonzero(ok & np.isfinite(total))
+            lm_final = {s: delta_lm.final(int(s))
+                        for s in np.unique(lms[u, live])}
+            total[live] += [lm_final[s] for s in lms[u, live]]
         total[~ok] = np.inf
         if not np.isfinite(total).any():
             if not final_fallback:

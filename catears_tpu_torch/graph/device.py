@@ -1,5 +1,5 @@
-"""Device-resident WFST tables (port of the numpy half of
-catears_tpu/graph/device.py).
+"""Device-resident WFST and delta-LM tables and the vectorized LM walk (port
+of catears_tpu/graph/device.py).
 
 `DeviceFst.build` lays an (eps-free, after graph.transform) HCLG out as the
 same integer tables the JAX decoder gathers from, byte for byte, then moves
@@ -22,21 +22,28 @@ them to a torch device:
 Each arc is 5 int32 lanes (next, olabel, weight_bits, pdf, lane4), with
 lane4 = the composed second olabel on emitting arcs of an eps-removed graph
 and the destination's packed epsilon metadata (eps_row_lo << 9 | n_eps)
-otherwise.  The hot/cold emit split and the delta-LM tables are not ported.
+otherwise.  The hot/cold emit split is not ported.
+
+`DeviceLm.build` lays a delta-LM G' out as the JAX DeviceLm's tables (dense
+state-0 arcs, two-choice bucketed arc hash, per-state backoff arcs), byte
+for byte; `lm_propagate` walks (state, label) lanes through them, and
+`lm_propagate_capped` walks only the word-emitting lanes, compacted.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from catears_tpu.graph.fst import FlatFst
+from catears_tpu.graph.fst import DeltaLmFst, FlatFst
 from catears_tpu.utils.errors import CorruptionError
 
 TABLES = ("final", "state_packed", "over_packed", "eps_packed", "emit_block")
+LM_TABLES = ("hash_tab", "state_tab", "small_lm", "uni_next", "uni_weight")
+_U32 = 0xFFFFFFFF
 
 
 def _per_state_arc_counts(fst: FlatFst):
@@ -289,3 +296,340 @@ def build_arrays(fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
         emit_compact=emit_compact,
     )
     return arrays, meta
+
+
+def _mul_u32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 lanes a in [0, 2^32) and a constant
+    c < 2^32, split into 16-bit halves of c so that every intermediate stays
+    below 2^48 (int64 overflow is never relied on)."""
+    lo = (a * (c & 0xFFFF)) & _U32
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _lm_hash(s: torch.Tensor, l: torch.Tensor, seed, mask: int):
+    """Deterministic (state, label) bucket hash, bit for bit the JAX
+    _lm_hash's uint32 arithmetic.
+
+    torch has no uint32 multiply, so the lanes are int64 holding values
+    masked to 32 bits: every product is reduced mod 2^32 by _mul_u32, and
+    `>>` acts on non-negative values, where it is a logical shift.  `seed`
+    is an int or an int64 tensor of per-lane seeds.  The table build
+    (numpy arrays through CPU tensors) and the device lookup share this
+    function, so they agree on every device.
+    """
+    s = s.to(torch.int64) & _U32
+    l = l.to(torch.int64) & _U32
+    h = _mul_u32(s, 0x9E3779B1) ^ _mul_u32(l, 0x85EBCA77) ^ seed
+    h = h ^ (h >> 15)
+    h = _mul_u32(h, 0x2C1B3C6D)
+    h = h ^ (h >> 13)
+    return (h & mask).to(torch.int32)
+
+
+def _lm_hash_np(ks: np.ndarray, kl: np.ndarray, seed: int,
+                mask: int) -> np.ndarray:
+    return _lm_hash(torch.from_numpy(np.ascontiguousarray(ks)),
+                    torch.from_numpy(np.ascontiguousarray(kl)), seed,
+                    mask).numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLm:
+    """Backoff LM G' for delta-LM rescoring, as torch tables on one device.
+
+    uni_next/uni_weight: state 0's arcs as a dense per-label table;
+    hash_tab: every other (state, label > 0) arc in a two-choice 4-slot
+    bucketed hash, rows [s0..s3, l0..l3, n0..n3, w0..w3] with empty slots
+    s = -1 and the bucket's overflow bit on the sign of l0; state_tab: per
+    state (backoff next or -1, backoff weight bits).
+    """
+
+    hash_tab: torch.Tensor  # i32 [B, 16]
+    state_tab: torch.Tensor  # i32 [S, 2]
+    small_lm: torch.Tensor  # f32 [V] unigram costs to subtract
+    start: int  # DeltaLmFst start state (post-<s>)
+    uni_next: torch.Tensor  # i32 [V] state-0 next (-1 = no arc)
+    uni_weight: torch.Tensor  # f32 [V] state-0 weight
+    max_backoff: int
+    hash_seed1: int
+    hash_seed2: int
+    hash_mask: int  # buckets - 1 (a power of two)
+
+    @classmethod
+    def build(cls, delta: DeltaLmFst, max_backoff: int = 8,
+              device: torch.device = torch.device("cpu")) -> "DeviceLm":
+        """The tables the JAX DeviceLm.build makes from `delta`, placed on
+        `device`."""
+        arrays, meta = lm_arrays(delta, max_backoff)
+        return cls.from_numpy(arrays, meta, device=device)
+
+    @classmethod
+    def from_numpy(cls, arrays: Dict[str, np.ndarray], meta: Dict,
+                   device: torch.device = torch.device("cpu")) -> "DeviceLm":
+        """From numpy tables (e.g. np.asarray of a JAX DeviceLm's fields)
+        and its static fields."""
+        tensors = {name: torch.tensor(np.asarray(arrays[name])).to(device)
+                   for name in LM_TABLES}
+        return cls(start=int(arrays["start"]), **tensors, **meta)
+
+    @staticmethod
+    def _build_hash(ks, kl, kn, kw, slots: int = 4):
+        """Greedy two-choice placement; doubles the table on failure.
+
+        First-choice buckets fill to `slots`; displaced keys set their
+        first bucket's overflow bit and go to their second-choice bucket,
+        so a lookup probes a second bucket only when the first says so.
+        """
+        n = ks.size
+        if n == 0:
+            # A unigram-only G' hashes nothing: every lookup resolves from
+            # the dense state-0 table or misses into the backoff walk.
+            b = 256
+            tab = np.concatenate([np.full((b, slots), -1, np.int32),
+                                  np.zeros((b, 3 * slots), np.int32)],
+                                 axis=1)
+            return tab, 0x1234, 0x9876, b - 1
+        b = 1 << max(8, int(np.ceil(np.log2(max(1, n / 2)))))
+        for attempt in range(8):
+            seed1, seed2 = 0x1234 + attempt, 0x9876 + 3 * attempt
+            mask = b - 1
+            h1 = _lm_hash_np(ks, kl, seed1, mask)
+            h2 = _lm_hash_np(ks, kl, seed2, mask)
+            ss = np.full((b, slots), -1, np.int32)
+            ll = np.zeros((b, slots), np.int32)
+            nn = np.zeros((b, slots), np.int32)
+            ww = np.zeros((b, slots), np.int32)
+            overflow = np.zeros(b, bool)
+
+            def rank_in_bucket(h):
+                order = np.argsort(h, kind="stable")
+                hs = h[order]
+                first = np.concatenate([[0], np.flatnonzero(
+                    hs[1:] != hs[:-1]) + 1])
+                start_of = np.zeros(n, np.int64)
+                start_of[first] = first
+                np.maximum.accumulate(start_of, out=start_of)
+                out = np.empty(n, np.int64)
+                out[order] = np.arange(n) - start_of
+                return out
+
+            r1 = rank_in_bucket(h1)
+            place1 = r1 < slots
+            ss[h1[place1], r1[place1]] = ks[place1]
+            ll[h1[place1], r1[place1]] = kl[place1]
+            nn[h1[place1], r1[place1]] = kn[place1]
+            ww[h1[place1], r1[place1]] = kw[place1]
+            rest = ~place1
+            overflow[h1[rest]] = True
+            used = np.bincount(h1[place1], minlength=b)
+            h2r = h2[rest]
+            r2 = rank_in_bucket(np.where(rest, h2, -1))[rest] \
+                if rest.any() else np.zeros(0, np.int64)
+            slot2 = used[h2r] + r2
+            if (slot2 < slots).all():
+                ss[h2r, slot2] = ks[rest]
+                ll[h2r, slot2] = kl[rest]
+                nn[h2r, slot2] = kn[rest]
+                ww[h2r, slot2] = kw[rest]
+                ll[overflow, 0] = np.int32(
+                    ll[overflow, 0].astype(np.int64) - 2**31)
+                tab = np.concatenate([ss, ll, nn, ww], axis=1)
+                return tab, seed1, seed2, mask
+            b *= 2
+        raise CorruptionError("delta-LM hash build failed to converge")
+
+
+def lm_arrays(delta: DeltaLmFst, max_backoff: int = 8):
+    """The numpy tables + static fields of DeviceLm.build."""
+    lm = delta.lm
+    starts = lm.offsets[:-1]
+    nonempty = lm.offsets[:-1] < lm.offsets[1:]
+    has_backoff = np.zeros(lm.num_states, bool)
+    has_backoff[nonempty] = lm.arc_ilabel[starts[nonempty]] == 0
+    # Per-state backoff arc (the epsilon-first convention).
+    bo_next = np.full(lm.num_states, -1, np.int32)
+    bo_wbits = np.zeros(lm.num_states, np.int32)
+    bo_states = np.flatnonzero(has_backoff)
+    bo_pos = lm.offsets[bo_states]
+    bo_next[bo_states] = lm.arc_next[bo_pos]
+    bo_wbits[bo_states] = np.asarray(lm.arc_weight[bo_pos],
+                                     np.float32).view(np.int32)
+    state_tab = np.stack([bo_next, bo_wbits], axis=1)
+    # Dense state-0 table indexed by label.
+    n_sym = max(int(lm.arc_ilabel.max(initial=0)) + 1,
+                int(np.asarray(delta.small_lm).size), 1)
+    uni_next = np.full(n_sym, -1, np.int32)
+    uni_weight = np.zeros(n_sym, np.float32)
+    lo0, hi0 = int(lm.offsets[0]), int(lm.offsets[1])
+    lab0 = lm.arc_ilabel[lo0:hi0]
+    uni_next[lab0] = lm.arc_next[lo0:hi0]
+    uni_weight[lab0] = lm.arc_weight[lo0:hi0]
+    # Hash every remaining (state >= 1, label >= 1) arc.
+    state_of_arc = np.repeat(
+        np.arange(lm.num_states),
+        np.diff(lm.offsets.astype(np.int64))).astype(np.int32)
+    sel = (lm.arc_ilabel > 0) & (state_of_arc != 0)
+    ks, kl = state_of_arc[sel], lm.arc_ilabel[sel].astype(np.int32)
+    kn = lm.arc_next[sel].astype(np.int32)
+    kw = np.asarray(lm.arc_weight[sel], np.float32).view(np.int32)
+    tab, seed1, seed2, mask = DeviceLm._build_hash(ks, kl, kn, kw)
+    arrays = {
+        "hash_tab": tab,
+        "state_tab": state_tab,
+        "small_lm": np.asarray(delta.small_lm, np.float32),
+        "start": np.int32(delta.start_state()),
+        "uni_next": uni_next,
+        "uni_weight": uni_weight,
+    }
+    meta = dict(max_backoff=max_backoff, hash_seed1=seed1, hash_seed2=seed2,
+                hash_mask=mask)
+    return arrays, meta
+
+
+def compact_mask(keep: torch.Tensor, cols: List[torch.Tensor], c2: int):
+    """Order-preserving compaction of the kept lanes of [..., N] into c2
+    slots: survivors in lane order, the first c2 of them kept.
+
+    The JAX version books survivors with a segmented TPU sort; here each
+    kept lane's cumsum rank is its slot and one scatter places it.  Returns
+    (compacted columns [..., c2], valid [..., c2], total survivors [...]
+    int32, src lane index [..., c2] int64); slots past `total` read lane 0
+    (mask them with `valid`).
+    """
+    n = keep.shape[-1]
+    kept = keep.to(torch.int64)
+    rank = torch.cumsum(kept, dim=-1) - 1
+    total = kept.sum(dim=-1)
+    # Unkept and past-capacity lanes all land in one spare slot, cut off.
+    dest = torch.where(keep & (rank < c2), rank, c2)
+    lanes = torch.arange(n, device=keep.device).expand(dest.shape)
+    src = torch.zeros(keep.shape[:-1] + (c2 + 1,), dtype=torch.int64,
+                      device=keep.device)
+    src = src.scatter(-1, dest, lanes.contiguous())[..., :c2]
+    valid = torch.arange(c2, device=keep.device) < total[..., None]
+    src = torch.where(valid, src, 0)
+    return ([torch.gather(c, -1, src) for c in cols], valid,
+            total.to(torch.int32), src)
+
+
+def lm_propagate_capped(dlm: DeviceLm, states: torch.Tensor,
+                        labels: torch.Tensor, cap: int):
+    """lm_propagate over only the active (label > 0) lanes of [..., E],
+    compacted into `cap` slots.
+
+    Returns (next_states, delta_weights, needed [...] int32): `needed` is
+    the number of active lanes; where it exceeds cap, the lanes past the
+    first cap keep their state with weight 0 (wrong results, as in JAX), so
+    the caller must flag the overflow.  cap <= 0 (or >= E) walks every lane
+    and still reports `needed`.
+    """
+    active = labels > 0
+    needed = torch.sum(active, dim=-1, dtype=torch.int32)
+    e = states.shape[-1]
+    if cap <= 0 or cap >= e:
+        ns, w = lm_propagate(dlm, states, labels)
+        return ns, w, needed
+    (sub_states, sub_labels), sub_ok, _total, lane = compact_mask(
+        active, [states, labels], cap)
+    ns, w = lm_propagate(dlm, torch.where(sub_ok, sub_states, 0),
+                         torch.where(sub_ok, sub_labels, 0))
+    # Scatter back; invalid slots go to a spare lane that is cut off, so
+    # lane 0 keeps its own result.
+    lane = torch.where(sub_ok, lane, e)
+    spare = states.shape[:-1] + (1,)
+    out_s = torch.cat([states, states.new_zeros(spare)], -1).scatter(
+        -1, lane, torch.where(sub_ok, ns, 0))[..., :e]
+    out_w = torch.zeros(states.shape[:-1] + (e + 1,), dtype=torch.float32,
+                        device=states.device).scatter(
+        -1, lane, torch.where(sub_ok, w, 0.0))[..., :e]
+    return out_s, out_w, needed
+
+
+def lm_iterations(dlm: DeviceLm) -> int:
+    """The walk's static iteration count: a lane visits at most
+    max_backoff + 1 states and probes each at most twice."""
+    return 2 * (dlm.max_backoff + 1)
+
+
+def lm_propagate(dlm: Optional[DeviceLm], states: torch.Tensor,
+                 labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized DeltaLmFst.get_arc with the backoff walk, over lanes of
+    any shape.
+
+    states, labels: int32.  Returns (next_states, delta_weights): label-0
+    lanes and full backoff misses keep their state with weight 0.
+
+    The JAX walk is a while_loop until no lane is active; here the loop
+    runs a static lm_iterations(dlm) = 2 * (max_backoff + 1) times, with no
+    read of the device.  The result is identical:
+      * a lane visits at most max_backoff + 1 states (the walk fails on the
+        backoff taken when max_backoff backoffs were already taken);
+      * it probes each state at most twice: the first-choice bucket, then
+        the second only on the first bucket's overflow bit, and never again
+        from phase 2;
+      * an inactive lane is a fixed point of the body (found_now, retry,
+        bo_ok and miss are all false), so the iterations past its end, or
+        past every lane's end, change nothing.
+    """
+    if dlm is None:
+        return states, torch.zeros_like(states, dtype=torch.float32)
+    l_c = torch.clamp(labels, 0, dlm.uni_next.shape[0] - 1).long()
+    uni_nxt = dlm.uni_next[l_c]
+    uni_w = dlm.uni_weight[l_c]
+    n_state = dlm.state_tab.shape[0]
+    active0 = labels > 0
+    active = active0
+    cur = torch.where(active0, states, 0)
+    weight = torch.zeros_like(states, dtype=torch.float32)
+    done = torch.zeros_like(active0)
+    failed = torch.zeros_like(active0)
+    phase2 = torch.zeros_like(active0)
+    bo_it = torch.zeros_like(states)
+    # Built once: a Python scalar in torch.where costs ops every iteration.
+    seed1 = torch.tensor(dlm.hash_seed1, dtype=torch.int64,
+                         device=states.device)
+    seed2 = torch.tensor(dlm.hash_seed2, dtype=torch.int64,
+                         device=states.device)
+    for _ in range(lm_iterations(dlm)):
+        # One probe round: the bucket row gather + 4-slot compare (the
+        # second-choice bucket in phase 2); state 0 reads the dense table.
+        at0 = cur == 0
+        h = _lm_hash(cur, labels, torch.where(phase2, seed2, seed1),
+                     dlm.hash_mask)
+        row = dlm.hash_tab[h.long()]  # [..., 16]
+        rs, rl = row[..., 0:4], row[..., 4:8]
+        ov = rl[..., 0] < 0  # the overflow bit rides l0's sign
+        match = (rs == cur[..., None]) & (
+            (rl & 0x7FFFFFFF) == labels[..., None])
+        hit = torch.where(at0, uni_nxt >= 0, match.any(dim=-1))
+        nxt = torch.where(at0, uni_nxt, torch.sum(
+            torch.where(match, row[..., 8:12], 0), dim=-1,
+            dtype=torch.int32))
+        w = torch.where(at0, uni_w, torch.sum(
+            torch.where(match, row[..., 12:16], 0), dim=-1,
+            dtype=torch.int32).view(torch.float32))
+        need2 = ~hit & ~at0 & ov & ~phase2
+        found_now = active & hit
+        retry = active & need2
+        miss = active & ~hit & ~need2
+        # Misses follow the state's backoff arc, if it has one.
+        st = dlm.state_tab[torch.clamp(cur, 0, n_state - 1).long()]
+        bo_next = st[..., 0]
+        bo_w = st[..., 1].contiguous().view(torch.float32)
+        bo_ok = miss & (bo_next >= 0)
+        cur = torch.where(found_now, nxt, torch.where(bo_ok, bo_next, cur))
+        weight = torch.where(found_now, weight + w,
+                             torch.where(bo_ok, weight + bo_w, weight))
+        done = done | found_now
+        over = bo_ok & (bo_it >= dlm.max_backoff)
+        failed = failed | (miss & (bo_next < 0)) | over
+        active = (bo_ok & ~over) | retry
+        bo_it = bo_it + bo_ok.to(bo_it.dtype)
+        phase2 = retry
+    # get_arc success: subtract the unigram cost.
+    sub = dlm.small_lm[torch.clamp(labels, 0,
+                                   dlm.small_lm.shape[0] - 1).long()]
+    ok = active0 & done & ~failed
+    return (torch.where(ok, cur, states),
+            torch.where(ok, weight - sub, torch.zeros_like(weight)))

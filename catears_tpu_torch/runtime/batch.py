@@ -82,7 +82,8 @@ def get_batch_decoder(recognizer: Recognizer) -> BatchDecoder:
         cached = BatchDecoder(
             recognizer.fst, recognizer.am.tid2pdf,
             config=recognizer.beam_config, arc_group=recognizer.arc_group,
-            csr_group=recognizer.csr_group, device=recognizer.device)
+            csr_group=recognizer.csr_group, device=recognizer.device,
+            delta_lm=recognizer.delta_lm)
         recognizer._batch_decoder = cached
     return cached
 

@@ -4,26 +4,39 @@
 
 Drives the port's offline batch decode (`catears_tpu_torch.cli --batch`) on
 the card with the full-width int8 model the JAX bench runs (TDNN-1024 on
-the 50k-word trie, 617,940 states; random weights from seed 0) and checks
-every phase; exits non-zero if any fails:
+the 50k-word trie, 617,940 states; random weights from seed 0), LM off and
+with delta-LM rescoring by the bench's 50k-word G' (`write_trie_model(...,
+with_lm=True)`, walk capacity lm_expand_size = 384), and checks every
+phase; exits non-zero if any fails:
 
-  device   a CUDA card is present (exit 1 otherwise, before any result)
-  build    the hand-written kernels compile from catears_tpu_torch/csrc
-  kernel   matmul_s8 (CUDA) == matmul_s8_ref exactly, at the AM's shapes
-           and at ragged ones; times of both
-  am       quantized batched_logp on cuda vs the same on the CPU, for two
-           utterances: max error < 1% of the output range (the CPU tests'
-           bar for the int8 stack); the kernel's launch count rises
-  decoder  BatchDecoder.decode of the same log-probs on cuda and on the
-           CPU: identical words, bit-equal costs; plus the WER of planted
-           trie paths decoded on cuda
-  e2e      cli.main(["--batch=8", conf, scp]) on cuda: exit 0, one line
-           per utterance, no capacity overflow, the kernel launched at
-           least once per linear layer per batch
+  device      a CUDA card is present (exit 1 otherwise, before any result)
+  build       the hand-written kernels compile from catears_tpu_torch/csrc
+  kernel      matmul_s8 (CUDA) == matmul_s8_ref exactly, at the AM's
+              shapes and at ragged ones; times of both
+  am          quantized batched_logp on cuda vs the same on the CPU, for
+              two utterances: max error < 1% of the output range (the CPU
+              tests' bar for the int8 stack); the kernel's launch count
+              rises
+  calibrated  AcousticModel.calibrate on one utterance, static (`rng`)
+              and guarded (`grng`), then batched_logp of two utterances:
+              cuda vs cpu < 1% of range, the kernel's launch count rises;
+              device busy time of the dynamic and calibrated AMs
+  lm          the DeviceLm built for cuda is byte-equal to the CPU's;
+              lm_propagate on 65,536 mixed (state, label) queries: equal
+              states and bit-equal weights on cuda and cpu; build and walk
+              times
+  decoder     BatchDecoder.decode of the same log-probs on cuda and on the
+              CPU: identical words, bit-equal costs; plus the WER of
+              planted trie paths decoded on cuda
+  decoder-lm  the same with the delta-LM, and the planted WER under it
+  e2e         cli.main(["--batch=8", conf, scp]) on cuda: exit 0, one line
+              per utterance, no capacity overflow, the kernel launched at
+              least once per linear layer per batch
+  e2e-lm      the same with the delta-LM config
 
-The line before the last is {"kernels": [...]} (launches from the e2e run,
-the kernel's error and times from this run); the last line is
-{"ok": true, "device": {...}}.  Everything it writes goes to a scratch
+The line before the last is {"kernels": [...]} (launches summed over the
+two e2e runs, the kernel's error and times from this run); the last line
+is {"ok": true, "device": {...}}.  Everything it writes goes to a scratch
 directory under catears_tpu_torch/_build/, removed at the end.
 """
 
@@ -52,6 +65,8 @@ HIDDEN = 1024
 BENCH_GEOMETRY = ("quantized = true", "beam_size = 2048",
                   "expand_size = 32768", "eps_expand_size = 1024",
                   "max_eps_iters = 3", "beam = 16")
+LM_GEOMETRY = ("lm_expand_size = 384",)  # the bench's LM-on walk cap
+LM_KEYS = ("large_lm", "original_lm")
 # (batch, M, K, N) of the three linears when the longest of 8 utterances
 # is 10 s: 1636 bucketed frames + 2 x 2 context rows, narrowed per layer.
 KERNEL_SHAPES = [(8, 1638, 120, 1024), (8, 1636, 3072, 1024),
@@ -94,6 +109,29 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def profiled(fn):
+    """(wall ms, device busy ms, device op count, key averages) of one
+    profiled call.  Busy time is the union of the device ops' intervals
+    (kernels, copies, memsets)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == "CUDA"
+                   and not e.is_user_annotation)
+    busy_us, covered = 0.0, float("-inf")
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, covered))
+        covered = max(covered, end)
+    return wall * 1e3, busy_us / 1e3, len(spans), prof.key_averages()
+
+
 def write_wavs(out_dir, rng, n):
     """n seeded 16 kHz 16-bit mono WAVs of 3-10 s; returns the scp path."""
     scp = os.path.join(out_dir, "smoke.scp")
@@ -110,6 +148,35 @@ def write_wavs(out_dir, rng, n):
                 w.writeframes(samples.tobytes())
             fd.write(f"utt{i} {path}\n")
     return scp
+
+
+def write_confs(work):
+    """The trie model with its G' (seed 0), and its two configs: LM off
+    (the LM keys dropped) and LM on, both at the bench geometry."""
+    base = write_trie_model(work, np.random.RandomState(0),
+                            num_words=NUM_WORDS, hidden=HIDDEN, with_lm=True)
+    with open(base) as fd:
+        lines = fd.read().splitlines()
+    confs = []
+    for name, keep_lm, extra in (("off.conf", False, ()),
+                                 ("lm.conf", True, LM_GEOMETRY)):
+        path = os.path.join(work, name)
+        with open(path, "w") as fd:
+            for line in lines + list(BENCH_GEOMETRY) + list(extra):
+                if keep_lm or not line.startswith(LM_KEYS):
+                    fd.write(line + "\n")
+        confs.append(path)
+    return confs
+
+
+def range_error(ref, got, lengths):
+    """max over utterances of max |ref - got| / range(ref), valid frames."""
+    worst = 0.0
+    for u, t in enumerate(lengths):
+        r = ref[u, :t].cpu().numpy().astype(np.float64)
+        g_ = got[u, :t].cpu().numpy().astype(np.float64)
+        worst = max(worst, np.abs(r - g_).max() / (r.max() - r.min()))
+    return worst
 
 
 def kernel_phase(card):
@@ -145,6 +212,191 @@ def kernel_phase(card):
     return max_err, ms, plain_ms
 
 
+def calibrated_phase(conf, waves, batch_waves, card):
+    """The int8 AM calibrated on one utterance, static (`rng`) and guarded
+    (`grng`): cuda vs cpu on `waves`, then the dynamic and both calibrated
+    AMs' device busy time (profiler) measured in turns on `batch_waves`."""
+    from catears_tpu.io.config import Configuration
+    from catears_tpu_torch.am.model import AcousticModel
+    from catears_tpu_torch.frontend.fbank import fbank_from_wave, num_frames
+    from catears_tpu_torch.runtime.batch import batched_logp
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda:0")
+    config = Configuration.read(conf)
+    am_cpu = AcousticModel.read(config)
+    wave = torch.from_numpy(waves[0])
+    feats = fbank_from_wave(wave[None], num_frames(wave.shape[0]))[0]
+    left, right = am_cpu.left_context, am_cpu.right_context
+    padded = torch.cat([feats[:1].expand(left, -1), feats,
+                        feats[-1:].expand(right, -1)])
+    ams = {"dynamic": AcousticModel.read(config, device=cuda)}
+    for key in ("rng", "grng"):
+        ams[key] = AcousticModel.read(config, device=cuda)
+        for am in (ams[key], am_cpu):
+            am.calibrate(padded, guard=key == "grng")
+        before = quant.matmul_s8.launches
+        logp, lengths = batched_logp(ams[key], waves)
+        torch.cuda.synchronize()
+        launched = quant.matmul_s8.launches - before
+        ref, _ = batched_logp(am_cpu, waves)
+        worst = range_error(ref, logp, lengths)
+        phase("calibrated", key=key, utts=len(waves),
+              max_err_over_range=f"{worst:.3e}", kernel_launches=launched,
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        if not np.isfinite(logp.cpu().numpy()).all():
+            fail(f"non-finite calibrated ({key}) log-probs on cuda")
+        if worst >= 0.01:
+            fail(f"calibrated ({key}) int8 AM on cuda vs cpu: error "
+                 f"{worst:.3e} of range")
+        if launched < 1:
+            fail(f"the calibrated ({key}) AM did not launch matmul_s8")
+    busy = {key: [] for key in ams}
+    order = list(ams)
+    for key in order:
+        batched_logp(ams[key], batch_waves)  # warm-up
+    for turn in range(6):
+        for key in (order if turn % 2 == 0 else order[::-1]):
+            busy[key].append(profiled(
+                lambda: batched_logp(ams[key], batch_waves))[1])
+    phase("calibrated-time", utts=len(batch_waves), card=f"'{card}'",
+          **{f"{key}_device_ms": f"{float(np.median(v)):.4f}"
+             for key, v in busy.items()})
+
+
+def lm_phase(delta, card):
+    """DeviceLm tables and the walk, cuda vs cpu, at the bench's G'."""
+    from catears_tpu_torch.graph import device as tdevice
+
+    cuda = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    dlm_cpu = tdevice.DeviceLm.build(delta)
+    build_s = time.perf_counter() - t0
+    dlm_gpu = tdevice.DeviceLm.build(delta, device=cuda)
+    for name in tdevice.LM_TABLES:
+        a, b = getattr(dlm_cpu, name), getattr(dlm_gpu, name).cpu()
+        if a.dtype != b.dtype or a.numpy().tobytes() != b.numpy().tobytes():
+            fail(f"DeviceLm.{name} on cuda differs from the CPU build")
+    rng = np.random.RandomState(3)
+    n, v = 65536, NUM_WORDS
+    n_states = dlm_cpu.state_tab.shape[0]
+    states = np.concatenate([
+        np.zeros(n // 8, np.int64), rng.randint(1, v + 1, size=n // 2),
+        rng.randint(v + 3, n_states, size=n // 4),
+        np.full(n // 8, v + 1)]).astype(np.int32)
+    labels = np.minimum(np.where(
+        rng.rand(n) < 0.7, 1 + (rng.pareto(1.0, n) * 40).astype(np.int64),
+        rng.randint(0, v + 3, size=n)), v + 2).astype(np.int32)
+    s_cpu, l_cpu = torch.from_numpy(states), torch.from_numpy(labels)
+    s_gpu, l_gpu = s_cpu.to(cuda), l_cpu.to(cuda)
+    ref = tdevice.lm_propagate(dlm_cpu, s_cpu, l_cpu)
+    got = tdevice.lm_propagate(dlm_gpu, s_gpu, l_gpu)
+    same = all(r.numpy().tobytes() == g.cpu().numpy().tobytes()
+               for r, g in zip(ref, got))
+    moved = int((ref[0] != s_cpu).sum())
+    walk_ms = time_ms(lambda: tdevice.lm_propagate(dlm_gpu, s_gpu, l_gpu))
+    # The frame step's shape: 8 utterances x the 384-slot capped walk.
+    s8, l8 = s_gpu[:8 * 384].view(8, 384), l_gpu[:8 * 384].view(8, 384)
+    walk8_ms = time_ms(lambda: tdevice.lm_propagate(dlm_gpu, s8, l8))
+    phase("lm", states=n_states, buckets=dlm_cpu.hash_tab.shape[0],
+          build_s=f"{build_s:.2f}", queries=n, moved=moved,
+          equal=same, walk_ms=f"{walk_ms:.4f}",
+          walk_8x384_ms=f"{walk8_ms:.4f}",
+          iterations=tdevice.lm_iterations(dlm_gpu), card=f"'{card}'")
+    if not same:
+        fail("lm_propagate on cuda and cpu disagree")
+    if moved < n // 4:
+        fail(f"only {moved} of {n} LM queries moved")
+
+
+def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
+    """The same log-probs decoded on cuda and cpu, then planted trie paths
+    on cuda; returns nothing, fails on a disagreement or a high WER."""
+    cuda = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    # final_fallback: random-weight acoustics rarely end in a final state;
+    # backtrace the cheapest token so the paths compared are real.
+    hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
+    hyp_cpu = dec_cpu.decode(logp.cpu(), lengths, final_fallback=True)
+    same_words = [h.words for h in hyp_gpu] == [h.words for h in hyp_cpu]
+    same_cost = ([np.float64(h.weight) for h in hyp_gpu]
+                 == [np.float64(h.weight) for h in hyp_cpu])
+    phase(name, utts=len(lengths), same_words=same_words,
+          bit_equal_costs=same_cost,
+          words=[len(h.words) for h in hyp_gpu],
+          costs=[h.weight for h in hyp_gpu],
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    if not (same_words and same_cost):
+        fail(f"{name} on cuda and cpu disagree")
+
+    planted, truth = plant_logp(np.random.RandomState(2), tg, 4, 1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # As the JAX bench scores planted paths: the cheapest token where an
+    # utterance ends mid-word.
+    hyps = dec.decode(torch.from_numpy(planted).to(cuda),
+                      final_fallback=True)
+    dt = time.perf_counter() - t0
+    errors = sum(token_errors([str(w) for w in t], [str(w) for w in h.words])
+                 for t, h in zip(truth, hyps))
+    n_ref = sum(len(t) for t in truth)
+    # Planted paths carry words: 3 s of two of them, on cuda and cpu.
+    part = planted[:2, :300]
+    hyp_gpu = dec.decode(torch.from_numpy(part).to(cuda),
+                         final_fallback=True)
+    hyp_cpu = dec_cpu.decode(part, final_fallback=True)
+    same = ([(h.words, np.float64(h.weight)) for h in hyp_gpu]
+            == [(h.words, np.float64(h.weight)) for h in hyp_cpu])
+    tag = "planted" if name == "decoder" else "planted-lm"
+    phase(tag, utts=4, audio_s=40.0, wer=f"{errors / n_ref:.4f}",
+          ref_words=n_ref, decode_s=f"{dt:.2f}", xrt=f"{40.0 / dt:.2f}",
+          cuda_equals_cpu_3s=same,
+          words_3s=[len(h.words) for h in hyp_gpu], card=f"'{card}'")
+    if errors / n_ref > 0.25:
+        fail(f"{name}: planted-path WER {errors / n_ref:.3f} is too high")
+    if not same or not all(h.words for h in hyp_gpu):
+        fail(f"{name}: planted frames on cuda and cpu disagree")
+
+
+def e2e_phase(name, conf, scp, linears, card):
+    """cli.main(["--batch=8", conf, scp]) on cuda; returns the matmul_s8
+    launches it made."""
+    from catears_tpu.io.wav import read_scp
+    from catears_tpu_torch.cli import main as cli_main
+    from catears_tpu_torch.runtime.batch import load_waves
+
+    n_utts = len(read_scp(scp))
+    audio_s = sum(w.shape[0] for w in load_waves(
+        [p for _, p in read_scp(scp)])) / 16000.0
+    retries = log.metrics().get("overflow_retries", 0)
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    quant.matmul_s8.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(["--batch=8", conf, scp])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = quant.matmul_s8.launches
+    lines = out.getvalue().splitlines()
+    overflowed = log.metrics().get("overflow_retries", 0) != retries
+    phase(name, rc=rc, lines=len(lines), utts=n_utts,
+          kernel_launches=launches, linears=linears, overflow=overflowed,
+          wall_s=f"{dt:.2f}", audio_s=f"{audio_s:.2f}",
+          audio_s_per_s=f"{audio_s / dt:.2f}", card=f"'{card}'")
+    if rc != 0:
+        fail(f"{name}: cli exited {rc}: {err.getvalue().strip()}")
+    if len(lines) != n_utts or any(
+            not line.startswith(f"utt{i}") for i, line in enumerate(lines)):
+        fail(f"{name}: expected one line per utterance, got {lines!r}")
+    if overflowed:
+        fail(f"{name}: the decode overflowed its capacities")
+    if launches < linears * -(-n_utts // 8):
+        fail(f"{name}: only {launches} matmul_s8 launches for {linears} "
+             f"linear layers")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -160,23 +412,19 @@ def main():
 
     max_err, k_ms, k_plain_ms = kernel_phase(card)
 
-    from catears_tpu_torch.cli import main as cli_main
+    from catears_tpu.io.wav import read_scp
     from catears_tpu_torch.decode.decoder import BatchDecoder
     from catears_tpu_torch.runtime.batch import (batched_logp,
                                                  get_batch_decoder,
                                                  load_waves)
     from catears_tpu_torch.runtime.recognizer import Recognizer
-    from catears_tpu.io.wav import read_scp
 
     work = os.path.join(BUILD_DIR, "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
         t0 = time.perf_counter()
-        conf = write_trie_model(work, np.random.RandomState(0),
-                                num_words=NUM_WORDS, hidden=HIDDEN)
-        with open(conf, "a") as fd:
-            fd.write("".join(f"{line}\n" for line in BENCH_GEOMETRY))
+        conf, lm_conf = write_confs(work)
         scp = write_wavs(work, np.random.RandomState(1), 8)
         phase("model", words=NUM_WORDS, hidden=HIDDEN,
               seconds=f"{time.perf_counter() - t0:.2f}")
@@ -194,11 +442,7 @@ def main():
         launched = quant.matmul_s8.launches - before
         rec_cpu = Recognizer(conf, device=torch.device("cpu"))
         ref, _ = batched_logp(rec_cpu.am, waves)
-        worst = 0.0
-        for u, t in enumerate(lengths):
-            r = ref[u, :t].numpy().astype(np.float64)
-            g_ = logp[u, :t].cpu().numpy().astype(np.float64)
-            worst = max(worst, np.abs(r - g_).max() / (r.max() - r.min()))
+        worst = range_error(ref, logp, lengths)
         phase("am", utts=2, frames=lengths, max_err_over_range=f"{worst:.3e}",
               kernel_launches=launched,
               seconds=f"{time.perf_counter() - t0:.2f}")
@@ -209,82 +453,44 @@ def main():
         if launched < 1:
             fail("the AM on cuda did not launch the matmul_s8 kernel")
 
-        # -- decoder: same log-probs on cuda and cpu -----------------------
-        t0 = time.perf_counter()
-        dec = get_batch_decoder(rec)
+        calibrated_phase(conf, waves, load_waves(
+            [p for _, p in read_scp(scp)]), card)
+
+        # -- decoder: same log-probs on cuda and cpu, LM off then on -------
+        tg = make_trie_graph(np.random.RandomState(0), num_words=NUM_WORDS)
         dec_cpu = BatchDecoder(rec_cpu.fst, rec_cpu.am.tid2pdf,
                                config=rec_cpu.beam_config,
                                arc_group=rec_cpu.arc_group,
                                csr_group=rec_cpu.csr_group,
                                device=torch.device("cpu"))
-        # final_fallback: random-weight acoustics rarely end in a final
-        # state; backtrace the cheapest token so the paths compared are real.
-        hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
-        hyp_cpu = dec_cpu.decode(logp.cpu(), lengths, final_fallback=True)
-        same_words = [h.words for h in hyp_gpu] == [h.words for h in hyp_cpu]
-        same_cost = ([np.float64(h.weight) for h in hyp_gpu]
-                     == [np.float64(h.weight) for h in hyp_cpu])
-        phase("decoder", utts=2, same_words=same_words,
-              bit_equal_costs=same_cost,
-              words=[len(h.words) for h in hyp_gpu],
-              costs=[h.weight for h in hyp_gpu],
+        decoder_phase("decoder", get_batch_decoder(rec), dec_cpu, logp,
+                      lengths, tg, card)
+        del dec_cpu
+
+        t0 = time.perf_counter()
+        rec_lm = Recognizer(lm_conf, device=cuda)
+        if rec_lm.delta_lm is None:
+            fail("the LM config did not load a delta-LM")
+        phase("lm-config", lm_expand_size=rec_lm.beam_config.lm_expand_size,
               seconds=f"{time.perf_counter() - t0:.2f}")
-        if not (same_words and same_cost):
-            fail("decoder on cuda and cpu disagree")
-
-        rng = np.random.RandomState(2)
-        tg = make_trie_graph(np.random.RandomState(0), num_words=NUM_WORDS)
-        planted, truth = plant_logp(rng, tg, 4, 1000)
-        torch.cuda.synchronize()
+        lm_phase(rec_lm.delta_lm, card)
         t0 = time.perf_counter()
-        # As the JAX bench scores planted paths: the cheapest token where
-        # an utterance ends mid-word.
-        hyps = dec.decode(torch.from_numpy(planted).to(cuda),
-                          final_fallback=True)
-        dt = time.perf_counter() - t0
-        errors = sum(token_errors([str(w) for w in t],
-                                  [str(w) for w in h.words])
-                     for t, h in zip(truth, hyps))
-        n_ref = sum(len(t) for t in truth)
-        phase("planted", utts=4, audio_s=40.0, wer=f"{errors / n_ref:.4f}",
-              ref_words=n_ref, decode_s=f"{dt:.2f}",
-              xrt=f"{40.0 / dt:.2f}", card=f"'{card}'")
-        if errors / n_ref > 0.25:
-            fail(f"planted-path WER {errors / n_ref:.3f} is too high")
+        dec_lm = get_batch_decoder(rec_lm)
+        dec_lm_cpu = BatchDecoder(rec_lm.fst, rec_lm.am.tid2pdf,
+                                  config=rec_lm.beam_config,
+                                  arc_group=rec_lm.arc_group,
+                                  csr_group=rec_lm.csr_group,
+                                  device=torch.device("cpu"),
+                                  delta_lm=rec_lm.delta_lm)
+        phase("lm-decoders", seconds=f"{time.perf_counter() - t0:.2f}")
+        decoder_phase("decoder-lm", dec_lm, dec_lm_cpu, logp, lengths, tg,
+                      card)
+        del dec_lm_cpu, rec_cpu
 
-        # -- e2e: the CLI's batch path on cuda ----------------------------
-        n_utts = len(read_scp(scp))
-        audio_s = sum(w.shape[0] for w in load_waves(
-            [p for _, p in read_scp(scp)])) / 16000.0
-        retries = log.metrics().get("overflow_retries", 0)
-        quant.matmul_s8.launches = 0
-        out, err = io.StringIO(), io.StringIO()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli_main(["--batch=8", conf, scp])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = quant.matmul_s8.launches
-        lines = out.getvalue().splitlines()
+        # -- e2e: the CLI's batch path on cuda, LM off then on --------------
         linears = sum(1 for layer in rec.am.nnet_def if layer[0] == "linear")
-        overflowed = log.metrics().get("overflow_retries", 0) != retries
-        phase("e2e", rc=rc, lines=len(lines), utts=n_utts,
-              kernel_launches=launches, linears=linears,
-              overflow=overflowed, wall_s=f"{dt:.2f}",
-              audio_s=f"{audio_s:.2f}", audio_s_per_s=f"{audio_s / dt:.2f}",
-              card=f"'{card}'")
-        if rc != 0:
-            fail(f"cli exited {rc}: {err.getvalue().strip()}")
-        if len(lines) != n_utts or any(
-                not line.startswith(f"utt{i}") for i, line in
-                enumerate(lines)):
-            fail(f"expected one line per utterance, got {lines!r}")
-        if overflowed:
-            fail("the e2e decode overflowed its capacities")
-        if launches < linears * -(-n_utts // 8):
-            fail(f"only {launches} matmul_s8 launches for {linears} "
-                 f"linear layers")
+        launches = e2e_phase("e2e", conf, scp, linears, card)
+        launches += e2e_phase("e2e-lm", lm_conf, scp, linears, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

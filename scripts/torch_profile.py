@@ -1,17 +1,19 @@
 """Where the time goes in the PyTorch port's batch decode, on one CUDA card.
 
 Builds chip_smoke.py's configuration (int8 TDNN-1024 on the 50k-word trie,
-bench geometry, 8 seeded utterances of 3-10 s) and times, on the host clock
-around work that ends in a synchronize: set-up, `batched_logp`, the whole
-`BatchDecoder.decode`, `init_beam_batch`, one 50-frame `decode_chunk` and
-`backtrace_device` over the batch's frames.  Then it profiles one 50-frame
-chunk and one `batched_logp` with torch.profiler: device busy time, the
-device's idle share of the unprofiled wall time and device ops (kernels,
-copies, memsets) per frame.
+bench geometry, 8 seeded utterances of 3-10 s; with --lm, its delta-LM
+config: the 50k-word G' and lm_expand_size = 384) and times, on the host
+clock around work that ends in a synchronize: set-up, `batched_logp`, the
+whole `BatchDecoder.decode`, `init_beam_batch`, one 50-frame
+`decode_chunk` and `backtrace_device` over the batch's frames.  Then it
+profiles one 50-frame chunk and one `batched_logp` with torch.profiler:
+device busy time, the device's idle share of the unprofiled wall time and
+device ops (kernels, copies, memsets) per frame; with --lm also one capped
+LM walk at the frame's shape (8 x 384 word lanes out of the expansion).
 
 Run from the repo root on a machine with a card (no JAX needed):
 
-    python3 scripts/torch_profile.py [--reps 5] [--out profile.txt]
+    python3 scripts/torch_profile.py [--lm] [--reps 5] [--out profile.txt]
 
 --out also writes the profiler tables, which are long, to that file.
 """
@@ -28,12 +30,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from catears_tpu.io.wav import read_scp
-from catears_tpu.tools.biggraph import write_trie_model
 from catears_tpu_torch.decode import beam as tb
+from catears_tpu_torch.graph.device import lm_propagate_capped
 from catears_tpu_torch.runtime.batch import (batched_logp, get_batch_decoder,
                                              load_waves)
 from catears_tpu_torch.runtime.recognizer import Recognizer
@@ -60,31 +61,12 @@ def report(name, secs, scale=1e3, unit="ms"):
           f"all_{unit}={vals!r}", flush=True)
 
 
-def profiled(fn):
-    """(wall ms, device busy ms, device op count, key averages) of one
-    profiled call.  Busy time is the union of the device ops' intervals
-    (kernels, copies, memsets)."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type.name == "CUDA"
-                   and not e.is_user_annotation)
-    busy_us, covered = 0.0, float("-inf")
-    for start, end in spans:
-        busy_us += max(0.0, end - max(start, covered))
-        covered = max(covered, end)
-    return wall * 1e3, busy_us / 1e3, len(spans), prof.key_averages()
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the profiler tables here")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile the delta-LM config")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA card", file=sys.stderr)
@@ -97,10 +79,9 @@ def main(argv=None):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        conf = write_trie_model(work, np.random.RandomState(0),
-                                num_words=cs.NUM_WORDS, hidden=cs.HIDDEN)
-        with open(conf, "a") as fd:
-            fd.write("".join(f"{line}\n" for line in cs.BENCH_GEOMETRY))
+        conf, lm_conf = cs.write_confs(work)
+        if args.lm:
+            conf = lm_conf
         scp = cs.write_wavs(work, np.random.RandomState(1), 8)
         waves = load_waves([p for _, p in read_scp(scp)])
 
@@ -115,20 +96,20 @@ def main(argv=None):
         frames = max(lengths)
         audio_s = sum(w.size for w in waves) / 16000.0
         print(f"[batch] utts={len(waves)} audio_s={audio_s!r} "
-              f"frames={frames}", flush=True)
+              f"frames={frames} lm={dec.dlm is not None}", flush=True)
         report("batched_logp", host_times(
             lambda: batched_logp(rec.am, waves), args.reps))
         report("decode", host_times(lambda: dec.decode(logp, lengths),
                                     max(1, args.reps - 2)), 1.0, "s")
 
-        cfg, dfst = dec.cfg, dec.dfst
+        cfg, dfst, dlm = dec.cfg, dec.dfst, dec.dlm
         b = len(waves)
         report("init_beam_batch", host_times(
-            lambda: tb.init_beam_batch(cfg, b, dfst), args.reps))
-        beam, _ = tb.init_beam_batch(cfg, b, dfst)
+            lambda: tb.init_beam_batch(cfg, b, dfst, dlm), args.reps))
+        beam, _ = tb.init_beam_batch(cfg, b, dfst, dlm)
         lp_t = logp.transpose(0, 1)[:CHUNK].contiguous()
         valid = torch.ones((CHUNK, b), dtype=torch.bool, device=cuda)
-        chunk = lambda: tb.decode_chunk(cfg, dfst, beam, lp_t, valid)
+        chunk = lambda: tb.decode_chunk(cfg, dfst, beam, lp_t, valid, dlm)
         chunk_secs = host_times(chunk, max(1, args.reps - 2))
         report("frame", [s / CHUNK for s in chunk_secs])
         _, tr = chunk()
@@ -143,12 +124,30 @@ def main(argv=None):
         # The idle share is taken against the unprofiled median wall time:
         # the profiler slows the host, not the device.
         logp_fn = lambda: batched_logp(rec.am, waves)
+        work_items = [("chunk", chunk, CHUNK, float(np.median(chunk_secs))),
+                      ("batched_logp", logp_fn, 1,
+                       float(np.median(host_times(logp_fn, args.reps))))]
+        if dlm is not None:
+            # One capped walk at the frame's shape: the expansion's lanes,
+            # a beam's worth of LM states and ~300 word labels per row.
+            rng = np.random.RandomState(0)
+            e = cfg.beam_size * (1 + dfst.group) + cfg.expand_size
+            lanes = np.zeros((b, e), np.int32)
+            for u in range(b):
+                lanes[u, rng.choice(e, 300, replace=False)] = rng.randint(
+                    1, cs.NUM_WORDS, 300)
+            lab = torch.from_numpy(lanes).to(cuda)
+            st = torch.from_numpy(rng.randint(
+                0, cs.NUM_WORDS, (b, e)).astype(np.int32)).to(cuda)
+            walk = lambda: lm_propagate_capped(dlm, st, lab,
+                                               cfg.lm_expand_size)
+            walk_secs = host_times(walk, args.reps)
+            report("lm_walk", walk_secs)
+            work_items.append(("lm_walk", walk, 1,
+                               float(np.median(walk_secs))))
         tables = []
-        for name, fn, per, plain in (
-                ("chunk", chunk, CHUNK, float(np.median(chunk_secs))),
-                ("batched_logp", logp_fn, 1,
-                 float(np.median(host_times(logp_fn, args.reps))))):
-            wall, busy, ops, ka = profiled(fn)
+        for name, fn, per, plain in work_items:
+            wall, busy, ops, ka = cs.profiled(fn)
             print(f"[profile:{name}] profiled_wall_ms={wall!r} "
                   f"wall_ms={plain * 1e3!r} device_busy_ms={busy!r} "
                   f"idle_share={1 - busy / (plain * 1e3)!r} "

@@ -16,6 +16,7 @@ from catears_tpu.graph.transform import prepare_decode_graph
 DFST_META = ("eps_depth", "group", "csr_group", "eps_group", "eps_meta_ok",
              "max_emit_fanout", "eps_removed", "has_emit_olabel",
              "emit_compact")
+DLM_META = ("max_backoff", "hash_seed1", "hash_seed2", "hash_mask")
 
 
 def to_np(x) -> np.ndarray:
@@ -52,6 +53,16 @@ def dfst_from_jax(jd, device=torch.device("cpu")):
     arrays["start"] = np.asarray(jd.start)
     meta = {name: getattr(jd, name) for name in DFST_META}
     return DeviceFst.from_numpy(arrays, meta, device=device)
+
+
+def dlm_from_jax(jl, device=torch.device("cpu")):
+    """The port's DeviceLm holding a JAX DeviceLm's tables."""
+    from catears_tpu_torch.graph.device import LM_TABLES, DeviceLm
+
+    arrays = {name: np.asarray(getattr(jl, name)) for name in LM_TABLES}
+    arrays["start"] = np.asarray(jl.start)
+    meta = {name: getattr(jl, name) for name in DLM_META}
+    return DeviceLm.from_numpy(arrays, meta, device=device)
 
 
 def random_fst(rng, num_states=12, num_trans=10, eps_prob=0.25,

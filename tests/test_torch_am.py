@@ -116,3 +116,39 @@ def test_forward_padded_single_utterance(toy_conf):
     ref = np.asarray(jam.forward_padded(jnp.asarray(padded)))
     got = tam.forward_padded(torch.from_numpy(padded)).detach().numpy()
     assert got.shape == (20, 24) and np.abs(ref - got).max() < ATOL
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_calibrated_batched_logp_matches_jax(toy_conf, data_dir, guard):
+    """AcousticModel.calibrate on one utterance's context-padded fbank rows
+    (the same numpy rows for both), then batched_logp of ragged waves."""
+    import os
+
+    from catears_tpu.frontend.fbank import fbank_from_wave, num_frames
+    from catears_tpu.io.wav import read_16k_pcm
+
+    conf = Configuration.read(toy_conf[1])
+    jam = jmodel.AcousticModel.read(conf)
+    tam = tmodel.AcousticModel.read(conf)
+    cal = read_16k_pcm(os.path.join(data_dir, "en-us-cat.wav"))
+    padded = jam.pad_context(np.asarray(fbank_from_wave(
+        jnp.asarray(cal), num_frames(cal.shape[0]))))
+    jam.calibrate(padded, guard=guard)
+    tam.calibrate(padded, guard=guard)
+    key = "grng" if guard else "rng"
+    linears = [i for i, layer in enumerate(tam.nnet_def)
+               if layer[0] == "linear"]
+    assert all(key in tam.nnet.params(i) for i in linears)
+    first = linears[0]
+    assert np.array_equal(np.asarray(jam.params[first][key], np.float32),
+                          tam.nnet.params(first)[key].numpy())
+    waves = _waves()
+    ref, _ = jbatch.batched_logp(jam, waves)
+    got, lengths = tbatch.batched_logp(tam, waves)
+    ref, got = np.asarray(ref), to_np(got)
+    for u, t in enumerate(lengths):
+        assert range_error(ref[u, :t], got[u, :t]) < 0.01
+    # Calibration is a no-op on the float AM.
+    fam = tmodel.AcousticModel.read(Configuration.read(toy_conf[0]))
+    fam.calibrate(padded)
+    assert not any("rng" in n for n, _ in fam.named_buffers())

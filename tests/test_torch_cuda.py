@@ -6,8 +6,10 @@ Run on a machine with an NVIDIA card, where JAX need not be installed
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 The int8 kernel must equal its plain version exactly; the quantized AM on
-cuda must be within 1% of the output range of the same AM on the CPU; the
-decoder on cuda must give the CPU's words and bit-equal costs.
+cuda, dynamic or calibrated, must be within 1% of the output range of the
+same AM on the CPU; the delta-LM tables and walk on cuda must equal the
+CPU's (states, bit-equal weights); the decoder on cuda, LM off and on, must
+give the CPU's words and bit-equal costs.
 """
 
 import os
@@ -23,6 +25,7 @@ from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
 from catears_tpu_torch.decode.decoder import BatchDecoder
+from catears_tpu_torch.graph import device as tdevice
 from catears_tpu_torch.runtime.batch import batched_logp
 
 pytestmark = pytest.mark.cuda
@@ -88,14 +91,20 @@ def toy_quant_conf(tmp_path):
     return conf
 
 
-def test_quantized_am_cuda_vs_cpu(cuda, toy_quant_conf):
+@pytest.mark.parametrize("calibrate", [None, "rng", "grng"])
+def test_quantized_am_cuda_vs_cpu(cuda, toy_quant_conf, calibrate):
     from catears_tpu.io.wav import read_16k_pcm
     conf = Configuration.read(toy_quant_conf)
     waves = [read_16k_pcm(os.path.join(DATA, f"en-us-{w}.wav"))
              for w in ("hello", "cat")]
-    ref, lengths = batched_logp(AcousticModel.read(conf), waves)
+    ams = [AcousticModel.read(conf), AcousticModel.read(conf, device=cuda)]
+    if calibrate:
+        feats = np.random.RandomState(1).randn(60, 40).astype(np.float32)
+        for am in ams:
+            am.calibrate(feats, guard=calibrate == "grng")
+    ref, lengths = batched_logp(ams[0], waves)
     before = quant.matmul_s8.launches
-    got, _ = batched_logp(AcousticModel.read(conf, device=cuda), waves)
+    got, _ = batched_logp(ams[1], waves)
     assert quant.matmul_s8.launches > before
     got = got.cpu().numpy()
     ref = ref.numpy()
@@ -116,3 +125,63 @@ def test_decoder_cuda_vs_cpu(cuda):
             for dev in (torch.device("cpu"), cuda)]
     assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
     assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+
+
+def _big_lm_queries(num_words=2000):
+    from catears_tpu.tools.biggraph import make_big_lm
+
+    big = make_big_lm(np.random.RandomState(7), num_words=num_words)
+    rng = np.random.RandomState(3)
+    n = 4096
+    states = np.concatenate([
+        np.zeros(n // 8, np.int64),
+        rng.randint(1, num_words + 1, size=n // 2),
+        rng.randint(num_words + 3, big.num_states, size=n // 4),
+        np.full(n // 8, num_words + 1)]).astype(np.int32)
+    labels = np.where(rng.rand(n) < 0.7,
+                      1 + (rng.pareto(1.0, n) * 40).astype(np.int64),
+                      rng.randint(0, num_words + 3, size=n))
+    labels = np.minimum(labels, num_words + 2).astype(np.int32)
+    return big.delta_lm(), states, labels
+
+
+def test_lm_walk_cuda_vs_cpu(cuda):
+    delta, states, labels = _big_lm_queries()
+    lms = [tdevice.DeviceLm.build(delta, device=d)
+           for d in (torch.device("cpu"), cuda)]
+    for name in tdevice.LM_TABLES:
+        assert torch.equal(getattr(lms[0], name),
+                           getattr(lms[1], name).cpu()), name
+    s = torch.from_numpy(states)
+    lab = torch.from_numpy(labels)
+    for cap in (0, 512, 4096):
+        ref = tdevice.lm_propagate_capped(lms[0], s[None], lab[None], cap)
+        got = tdevice.lm_propagate_capped(lms[1], s[None].to(cuda),
+                                          lab[None].to(cuda), cap)
+        for r, g in zip(ref, got):
+            assert r.dtype == g.dtype
+            assert r.numpy().tobytes() == g.cpu().numpy().tobytes(), cap
+    h = tdevice._lm_hash(s.to(cuda), lab.to(cuda), 0x1234, 2**20 - 1)
+    assert torch.equal(h.cpu(), tdevice._lm_hash(s, lab, 0x1234, 2**20 - 1))
+
+
+def test_decoder_with_lm_cuda_vs_cpu(cuda):
+    from catears_tpu.tools.biggraph import (make_big_lm, make_trie_graph,
+                                            plant_logp)
+
+    rng = np.random.RandomState(1)
+    g = make_trie_graph(rng, num_words=120, num_phones=25, bigram_states=30,
+                        variants=2)
+    delta = make_big_lm(np.random.RandomState(9),
+                        num_words=g.num_words).delta_lm()
+    logp, _ = plant_logp(rng, g, 3, 60)
+    for lm_cap in (0, 64):
+        cfg = BeamConfig(beam_size=128, expand_size=2048,
+                         eps_expand_size=1024, max_eps_iters=4, beam=12.0,
+                         lm_expand_size=lm_cap)
+        hyps = [BatchDecoder(g.fst, g.tid2pdf, config=cfg, arc_group=2,
+                             csr_group=16, device=dev,
+                             delta_lm=delta).decode(logp, [60, 41, 17])
+                for dev in (torch.device("cpu"), cuda)]
+        assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
+        assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]

@@ -1,26 +1,34 @@
 """PyTorch port of the batched beam search vs the JAX decoder, exactly.
 
 `init_beam_batch` then `decode_chunk` per chunk, on the same device tables
-(the JAX build's, loaded with DeviceFst.from_numpy) and the same numpy
-log-probs: every chunk's beam (states, lm, costs bit for bit, bp, overflow,
-hiwater) and trace (prev_slot, words) must be identical, and so must the
-BatchDecoder transcripts and costs, overflow retry included.  No
-tolerance: the decode is integer bookkeeping plus float32 sums done in the
-same order.
+(the JAX build's, loaded with DeviceFst.from_numpy / DeviceLm.from_numpy)
+and the same numpy log-probs, LM off and with delta-LM rescoring: every
+chunk's beam (states, lm, costs bit for bit, bp, overflow, hiwater) and
+trace (prev_slot, words) must be identical, and so must the BatchDecoder
+transcripts and costs (LM final weights included), overflow retry
+included.  No tolerance: the decode is integer bookkeeping plus float32
+sums done in the same order.
 """
+
+import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_same, dfst_from_jax, eps_free_random_fst
+from _torch_parity import (assert_same, dfst_from_jax, dlm_from_jax,
+                           eps_free_random_fst)
 from catears_tpu.decode import beam as jbeam
 from catears_tpu.decode import decoder as jdecoder
 from catears_tpu.graph.device import DeviceFst as JaxDeviceFst
-from catears_tpu.graph.fst import FlatFst
+from catears_tpu.graph.device import DeviceLm as JaxDeviceLm
+from catears_tpu.graph.fst import DeltaLmFst, FlatFst, LmFst
+from catears_tpu.io.binfmt import read_vec0_file
+from catears_tpu.io.symbols import SymbolTable
 from catears_tpu.graph.transform import prepare_decode_graph
-from catears_tpu.tools.biggraph import make_trie_graph, plant_logp
+from catears_tpu.tools.biggraph import make_big_lm, make_trie_graph, plant_logp
 from catears_tpu.tools.toy import make_phone_loop_graph
 from catears_tpu.utils.errors import BeamCapacityError
 from catears_tpu_torch.decode import beam as tbeam
@@ -44,12 +52,14 @@ def _build(fst, tid2pdf, group, csr_group=None):
     return jd, dfst_from_jax(jd)
 
 
-def run_chunks(jd, td, jcfg, tcfg, logp, lengths):
-    """Decode [B, T, P] chunk by chunk in both ports; assert every chunk's
-    beam and trace are identical.  Returns the final (JAX) beam."""
+def run_chunks(jd, td, jcfg, tcfg, logp, lengths, jl=None, tl=None):
+    """Decode [B, T, P] chunk by chunk in both ports (with the delta-LM
+    jl / tl when given); assert every chunk's beam and trace are
+    identical.  Returns the final (JAX) beam."""
     b, t, p = logp.shape
-    jb, jtr = jbeam.init_beam_batch(jcfg, False, b, jd, None)
-    tb, ttr = tbeam.init_beam_batch(tcfg, b, td)
+    has_lm = jl is not None
+    jb, jtr = jbeam.init_beam_batch(jcfg, has_lm, b, jd, jl)
+    tb, ttr = tbeam.init_beam_batch(tcfg, b, td, tl)
     for name, x, y in zip(jtr._fields, jtr, ttr):
         assert_same(x, y, f"init trace {name}")
     for name, x, y in zip(jb._fields, jb, tb):
@@ -60,10 +70,10 @@ def run_chunks(jd, td, jcfg, tcfg, logp, lengths):
         n = min(CHUNK, t - off)
         lp[:n] = np.transpose(logp[:, off:off + n], (1, 0, 2))
         valid = (off + np.arange(CHUNK))[:, None] < lens[None, :]
-        jb, jtr = jbeam.decode_chunk(jcfg, False, jd, None, jb,
+        jb, jtr = jbeam.decode_chunk(jcfg, has_lm, jd, jl, jb,
                                      jnp.asarray(lp), jnp.asarray(valid))
         tb, ttr = tbeam.decode_chunk(tcfg, td, tb, torch.from_numpy(lp),
-                                     torch.from_numpy(valid))
+                                     torch.from_numpy(valid), tl)
         for name, x, y in zip(jb._fields, jb, tb):
             assert_same(x, y, f"chunk {off}: beam {name}")
         for name, x, y in zip(jtr._fields, jtr, ttr):
@@ -200,3 +210,153 @@ def test_init_closure_without_packed_eps_metadata():
     assert not td.eps_meta_ok
     jcfg, tcfg = _configs(eps_expand_size=1024)
     run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 11, (2, 9)), [9, 5])
+
+
+# -- delta-LM rescoring ------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def toy_delta(data_dir):
+    """The toy G' of tests/test_decoder.py's TestDeltaLm."""
+    lm = LmFst.read_lm(os.path.join(data_dir, "G.pfst"))
+    table = SymbolTable.read(os.path.join(data_dir, "lm.words.txt"))
+    small = read_vec0_file(os.path.join(data_dir, "lm.1order.bin"))
+    return DeltaLmFst(small, lm, table)
+
+
+def _lm_pair(delta):
+    jl = JaxDeviceLm.build(delta)
+    return jl, dlm_from_jax(jl)
+
+
+def _with_lm_words(fst, delta, rng):
+    """The graph with every output label replaced by a toy-LM word id."""
+    vocab = delta.small_lm.size
+    words = rng.randint(3, min(vocab, 200), size=fst.arc_olabel.size)
+    return dataclasses.replace(fst, arc_olabel=np.where(
+        fst.arc_olabel > 0, words, 0).astype(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_random_graphs_with_delta_lm(toy_delta, seed):
+    fst, used = eps_free_random_fst(seed)
+    rng = np.random.RandomState(used + 7)
+    fst = _with_lm_words(fst, toy_delta, rng)
+    jd, td = _build(fst, np.arange(11, dtype=np.int32), group=2)
+    assert td.has_emit_olabel  # both LM walks run
+    jl, tl = _lm_pair(toy_delta)
+    jcfg, tcfg = _configs()
+    final = run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 11, (3, 20)),
+                       [20, 13, 7], jl, tl)
+    assert (np.asarray(final.lm) > 0).any()
+    assert (np.asarray(final.hiwater)[:, 2] > 0).all()
+
+
+@pytest.fixture(scope="module")
+def planted_lm():
+    rng = np.random.RandomState(1)
+    g = make_trie_graph(rng, num_words=120, num_phones=25, bigram_states=30,
+                        variants=2)
+    delta = make_big_lm(np.random.RandomState(9),
+                        num_words=g.num_words).delta_lm()
+    logp, _ = plant_logp(rng, g, 2, 40)
+    return g, delta, logp, [40, 29]
+
+
+def _planted_configs(**kw):
+    return _configs(beam_size=128, expand_size=2048, eps_expand_size=1024,
+                    max_eps_iters=4, beam=12.0, **kw)
+
+
+@pytest.mark.parametrize("cap", ["uncapped", "hiwater", "one"])
+def test_planted_trie_with_big_delta_lm(planted_lm, cap):
+    """The trie + ARPA-shaped G' (test_planted_decode_with_big_delta_lm's
+    setup) at lm_expand_size 0, at its high-water mark and at 1, where the
+    capped walk truncates: overflow and the wrong-but-flagged beams match
+    too."""
+    g, delta, logp, lengths = planted_lm
+    jd, td = _build(g.fst, g.tid2pdf, group=2, csr_group=16)
+    jl, tl = _lm_pair(delta)
+    jcfg, tcfg = _planted_configs()
+    final = run_chunks(jd, td, jcfg, tcfg, logp, lengths, jl, tl)
+    hw = int(np.asarray(final.hiwater)[:, 2].max())
+    assert hw > 1 and not np.asarray(final.overflow).any()
+    if cap == "uncapped":
+        return
+    lm_cap = hw if cap == "hiwater" else 1
+    jcfg, tcfg = _planted_configs(lm_expand_size=lm_cap)
+    capped = run_chunks(jd, td, jcfg, tcfg, logp, lengths, jl, tl)
+    assert np.asarray(capped.overflow).all() == (cap == "one")
+    if cap == "hiwater":
+        for name in ("states", "lm", "costs"):
+            assert_same(getattr(final, name), getattr(capped, name), name)
+
+
+def test_batch_decoder_with_delta_lm_matches_jax(planted_lm, toy_delta):
+    """Words and bit-equal totals (LM final weights included), on the
+    planted trie with its big G' and on a random graph with the toy G'."""
+    g, delta, logp, lengths = planted_lm
+    jcfg, tcfg = _planted_configs()
+    ref = jdecoder.decode_batch(g.fst, g.tid2pdf, logp, lengths,
+                                delta_lm=delta, config=jcfg, arc_group=2,
+                                csr_group=16, chunk_frames=16,
+                                retry_on_overflow=False)
+    got = tdecoder.BatchDecoder(g.fst, g.tid2pdf, config=tcfg, arc_group=2,
+                                csr_group=16, delta_lm=delta).decode(
+        logp, lengths, retry_on_overflow=False)
+    assert [h.words for h in got] == [h.words for h in ref]
+    assert [h.weight for h in got] == [h.weight for h in ref]
+    assert any(h.words for h in got)
+
+    fst, used = eps_free_random_fst(4)
+    rng = np.random.RandomState(used + 7)
+    fst = _with_lm_words(fst, toy_delta, rng)
+    tid2pdf = np.arange(11, dtype=np.int32)
+    lp = _dirichlet(rng, 11, (3, 15))
+    jcfg, tcfg = _configs()
+    ref = jdecoder.decode_batch(fst, tid2pdf, lp, [15, 11, 6],
+                                delta_lm=toy_delta, config=jcfg, arc_group=2,
+                                chunk_frames=8)
+    got = tdecoder.BatchDecoder(fst, tid2pdf, config=tcfg, arc_group=2,
+                                delta_lm=toy_delta).decode(lp, [15, 11, 6])
+    assert [h.words for h in got] == [h.words for h in ref]
+    assert [h.weight for h in got] == [h.weight for h in ref]
+    assert np.isfinite([h.weight for h in got]).any()
+
+
+def test_batch_decoder_lm_regrow_matches_jax(planted_lm):
+    """lm_expand_size = 1 overflows: both regrow lm_expand_size from the
+    high-water mark and retry once, with identical words and totals;
+    without retry both raise with the same hiwater."""
+    g, delta, logp, lengths = planted_lm
+    jcfg, tcfg = _planted_configs(lm_expand_size=1)
+    ref = jdecoder.decode_batch(g.fst, g.tid2pdf, logp, lengths,
+                                delta_lm=delta, config=jcfg, arc_group=2,
+                                csr_group=16, chunk_frames=16)
+    dec = tdecoder.BatchDecoder(g.fst, g.tid2pdf, config=tcfg, arc_group=2,
+                                csr_group=16, delta_lm=delta)
+    got = dec.decode(logp, lengths)
+    assert [h.words for h in got] == [h.words for h in ref]
+    assert [h.weight for h in got] == [h.weight for h in ref]
+    with pytest.raises(BeamCapacityError) as jerr:
+        jdecoder.decode_batch(g.fst, g.tid2pdf, logp, lengths,
+                              delta_lm=delta, config=jcfg, arc_group=2,
+                              csr_group=16, chunk_frames=16,
+                              retry_on_overflow=False)
+    with pytest.raises(BeamCapacityError) as terr:
+        dec.decode(logp, lengths, retry_on_overflow=False)
+    assert terr.value.hiwater == jerr.value.hiwater
+    regrown = tdecoder._regrow_config(tcfg, terr.value.hiwater)
+    assert regrown.lm_expand_size == jdecoder._regrow_config(
+        jcfg, jerr.value.hiwater, 1.5).lm_expand_size > 1
+
+
+def test_safe_config_with_lm_matches_jax(planted_lm):
+    g, _, _, _ = planted_lm
+    g2, _, _ = prepare_decode_graph(g.fst)
+    jcfg, tcfg = _planted_configs()
+    for has_lm in (False, True):
+        ref = jdecoder.safe_config(g2, 2, jcfg, has_lm, csr_group=16)
+        got = tdecoder.safe_config(g2, 2, tcfg, has_lm, csr_group=16)
+        assert (got.expand_size, got.eps_expand_size) == (
+            ref.expand_size, ref.eps_expand_size)

@@ -1,11 +1,14 @@
 """PyTorch port of the int8 path vs catears_tpu/am/quant.py.
 
 The JAX matmul_s8 runs its Pallas kernel in interpret mode on the CPU.
-Tolerances: quantize gives equal int8 values, scale and zero point;
-matmul_s8 / matmul_s8_ref are exact int32; qmatmul agrees to rtol 1e-6
-(the epilogue's float ops may round differently under XLA's fusion); the
-int8 layer stack has max error < 1% of the output range (a one-step
-rounding flip in one layer moves the next layer's quantization).
+Tolerances: quantize and quantize_static give equal int8 values, scale and
+zero point; matmul_s8 / matmul_s8_ref are exact int32; qmatmul agrees to
+rtol 1e-6 (the epilogue's float ops may round differently under XLA's
+fusion); the int8 layer stack has max error < 1% of the output range (a
+one-step rounding flip in one layer moves the next layer's quantization).
+Calibration runs the float stack, whose float32 matmuls sum in another
+order than XLA's: ranges and coverage agree exactly on the first linear
+(its input is the features) and within 1e-5 relative after it.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ from _torch_parity import range_error, to_np
 from catears_tpu.am import nnet as jnn
 from catears_tpu.am import quant as jq
 from catears_tpu.tools.toy import make_toy_nnet
+from catears_tpu_torch.am import nnet as tnn
 from catears_tpu_torch.am import quant as tq
 
 
@@ -108,3 +112,119 @@ def test_nnet_forward_quant_matches_jax():
                                                jnp.asarray(x[u])))
         assert got[u].shape == ref.shape
         assert range_error(ref, got[u]) < 0.01
+
+
+@pytest.mark.parametrize("lo,hi", [(-1.5, 2.25), (0.1, 0.7), (-3.0, -0.5),
+                                   (0.0, 0.0), (-2.0, -2.0), (1.7, 1.7),
+                                   (-0.3333, 5.123456789)])
+def test_quantize_static_equal(lo, hi):
+    """Equal to JAX's, with the range given as Python floats as
+    calibrate_ranges stores it (degenerate and one-sided ranges too)."""
+    rng = np.random.RandomState(int(abs(lo * 100 + hi * 10)))
+    x = (rng.randn(3, 17, 23) * 2).astype(np.float32)
+    got = tq.quantize_static(torch.from_numpy(x), torch.tensor(lo),
+                             torch.tensor(hi))
+    for u in range(3):
+        ref = jq.quantize_static(jnp.asarray(x[u]), lo, hi)
+        assert np.array_equal(np.asarray(ref.values), got.values[u].numpy())
+        assert np.asarray(ref.scale).tobytes() == got.scale.numpy().tobytes()
+        assert int(ref.zero_point) == int(got.zero_point)
+
+
+def _calib_setup(seed=3):
+    rng = np.random.RandomState(seed)
+    nnet_def, params = jnn.build_nnet(make_toy_nnet(rng, hidden=64,
+                                                    num_pdfs=32))
+    np_params = [{k: to_np(v) for k, v in p.items()} for p in params]
+    feats = [rng.randn(t, 40).astype(np.float32) * s
+             for t, s in ((24, 1.0), (31, 2.0), (17, 0.5))]
+    return nnet_def, params, np_params, feats
+
+
+def _ranges(qparams, key):
+    return [p[key] for p in qparams if key in p]
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_calibrate_ranges_and_coverage_match_jax(guard):
+    nnet_def, params, np_params, feats = _calib_setup()
+    jqp = jq.quantize_params(nnet_def, params)
+    jq.calibrate_ranges(nnet_def, params, jqp,
+                        [jnp.asarray(f) for f in feats[:2]], guard=guard)
+    tqnet = tq.quantize_params(nnet_def, np_params)
+    fnet = tnn.from_jax_params(nnet_def, params)
+    tq.calibrate_ranges(nnet_def, fnet, tqnet,
+                        [torch.from_numpy(f) for f in feats[:2]], guard=guard)
+    key, other = ("grng", "rng") if guard else ("rng", "grng")
+    ref = np.asarray(_ranges(jqp, key), np.float32)
+    got = np.stack([tqnet.params(i)[key].numpy()
+                    for i, layer in enumerate(nnet_def)
+                    if layer[0] == "linear"])
+    assert got.shape == ref.shape == (3, 2)
+    assert not _ranges(jqp, other)
+    assert all(other not in tqnet.params(i) for i in range(len(nnet_def)))
+    assert np.array_equal(ref[0], got[0])
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+    # Recalibrating with the other key replaces the range.
+    tq.calibrate_ranges(nnet_def, fnet, tqnet, torch.from_numpy(feats[0]),
+                        guard=not guard)
+    assert all(key not in tqnet.params(i) for i in range(len(nnet_def)))
+    tq.calibrate_ranges(nnet_def, fnet, tqnet,
+                        [torch.from_numpy(f) for f in feats[:2]], guard=guard)
+
+    held_out = feats[2:] + [feats[1] * 3]
+    ref_cov = jq.calibration_coverage(nnet_def, params, jqp,
+                                      [jnp.asarray(f) for f in held_out])
+    got_cov = tq.calibration_coverage(nnet_def, fnet, tqnet,
+                                      [torch.from_numpy(f) for f in held_out])
+    assert len(got_cov) == len(ref_cov) == 3
+    assert got_cov[0] == ref_cov[0] < 1.0
+    np.testing.assert_allclose(got_cov, ref_cov, rtol=1e-5)
+
+
+@pytest.mark.parametrize("key", ["rng", "grng"])
+def test_nnet_forward_quant_calibrated_matches_jax(key):
+    """A ragged batch (utterances zero-padded to one length) through the
+    static (`rng`: one scale for every utterance) and guarded (`grng`: the
+    range widened per utterance) int8 stack, with JAX's ranges carried
+    across: within 1% of range of JAX run on each utterance, and the first
+    linear's quantized input equal to JAX's."""
+    nnet_def, params, _, feats = _calib_setup(5)
+    jqp = jq.quantize_params(nnet_def, params)
+    # Calibrate on a narrow set so the batch exceeds the range: `rng`
+    # saturates and `grng` widens.
+    jq.calibrate_ranges(nnet_def, params, jqp, jnp.asarray(feats[2]),
+                        guard=key == "grng")
+    carried = tq.from_jax_qparams(nnet_def, jqp)
+    assert all(key in carried.params(i) for i, layer in enumerate(nnet_def)
+               if layer[0] == "linear")
+    t = max(f.shape[0] for f in feats)
+    x = np.zeros((len(feats), t, 40), np.float32)
+    for u, f in enumerate(feats):
+        x[u, :f.shape[0]] = f
+    got = tq.nnet_forward_quant(carried, torch.from_numpy(x)).numpy()
+    # The layers before the first linear (splice) are exact in both.
+    i0 = [layer[0] for layer in nnet_def].index("linear")
+    fnet = tnn.from_jax_params(nnet_def, params)
+    xt = torch.from_numpy(x)
+    for i in range(i0):
+        xt = fnet.forward_layer(i, xt)
+    lo, hi = jqp[i0][key]
+    first = tq._quantize_input(xt, carried.params(i0))
+    for u in range(len(feats)):
+        ref = np.asarray(jq.nnet_forward_quant(nnet_def, jqp,
+                                               jnp.asarray(x[u])))
+        assert got[u].shape == ref.shape
+        assert range_error(ref, got[u]) < 0.01
+        xu = jnn.nnet_forward(nnet_def[:i0], params[:i0], jnp.asarray(x[u]))
+        if key == "grng":
+            ref_q = jq.quantize_static(xu, jnp.minimum(jnp.min(xu), lo),
+                                       jnp.maximum(jnp.max(xu), hi))
+        else:
+            ref_q = jq.quantize_static(xu, lo, hi)
+        assert np.array_equal(np.asarray(ref_q.values),
+                              first.values[u].numpy())
+    if key == "grng":
+        assert len(set(first.scale.tolist())) == len(feats)
+    else:
+        assert first.scale.dim() == 0
