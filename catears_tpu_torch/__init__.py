@@ -4,9 +4,12 @@ A port of `catears_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.  The
 JAX package stays beside it as the reference: every module here mirrors
 its counterpart's layout and function names (`frontend/`, `am/`, `graph/`,
 `decode/`, `runtime/`, `cli.py`), and the tests run both on the same numpy
-inputs.  Host-side modules of `catears_tpu` that never import jax (config,
-binary formats, WAV, symbols, the WFST transforms, the toy/trie model
-generators, errors, logging, the native loader) are imported, not copied.
+inputs.  It imports nothing of `catears_tpu`: the host modules it needs
+(`io/` config, binary formats, OpenFST reader, WAV, symbols;
+`graph/fst.py` and the eps-free `graph/transform.py`; the `tools/` toy and
+trie generators and the token-error count; `utils/` errors and counters)
+are copies kept at the JAX package's module paths, stripped to what the
+port calls; WAV, ConstFst and edit distance take their Python paths.
 
 What this package carries so far is the offline batched decode
 (`cli.py --batch`): fbank -> TDNN acoustic model (float, or int8 with
@@ -21,7 +24,10 @@ Precision: importing this package turns TF32 off for CUDA matmuls and
 cuDNN (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`), so the fbank's DFT and mel
 products and the float AM run in full float32 as they do in the JAX
-reference.  The device is always explicit: no module-level state picks it.
+reference.  No module-level state picks the device: every entry point
+(`Recognizer`, `BatchDecoder`, `AcousticModel`, `DeviceFst`, `DeviceLm`)
+takes `device`, runs on the card by default and raises `CatEarsError`
+without one (`utils/device.py`); the CPU runs only when asked for.
 """
 
 import torch

@@ -13,10 +13,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from catears_tpu.io.binfmt import read_nnet_file, read_vec0_file
-from catears_tpu.io.config import Configuration
 from catears_tpu_torch.am.nnet import NnetDef, Nnet, build_nnet
 from catears_tpu_torch.am.quant import calibrate_ranges, quantize_params
+from catears_tpu_torch.io.binfmt import read_nnet_file, read_vec0_file
+from catears_tpu_torch.io.config import Configuration
+from catears_tpu_torch.utils.device import Device, resolve_device
 
 FEAT_DIM = 40
 
@@ -25,10 +26,12 @@ class AcousticModel(nn.Module):
     def __init__(self, nnet_def: NnetDef, params, log_prior: np.ndarray,
                  tid2pdf: np.ndarray, left_context: int, right_context: int,
                  chunk_size: int, num_pdfs: int, quantized: bool = False,
-                 device: torch.device = torch.device("cpu")):
+                 device: Device = "cuda"):
         """params: per-layer dicts of numpy float arrays (build_nnet);
         quantized=True quantizes every linear's weights to int8 here and
-        keeps the float stack too, for `calibrate`."""
+        keeps the float stack too, for `calibrate`.  The model lives on
+        `device` (the card unless the CPU is asked for)."""
+        device = resolve_device(device)
         super().__init__()
         self.nnet_def = nnet_def
         self.quantized = quantized
@@ -50,7 +53,8 @@ class AcousticModel(nn.Module):
 
     @classmethod
     def read(cls, conf: Configuration,
-             device: torch.device = torch.device("cpu")) -> "AcousticModel":
+             device: Device = "cuda") -> "AcousticModel":
+        device = resolve_device(device)
         spec = read_nnet_file(conf.get_path("nnet"))
         nnet_def, params = build_nnet(spec)
         prior = read_vec0_file(conf.get_path("prior"))

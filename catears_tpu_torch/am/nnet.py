@@ -16,9 +16,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from catears_tpu.io import binfmt
-from catears_tpu.io.binfmt import NnetSpec
-from catears_tpu.utils.errors import CorruptionError
+from catears_tpu_torch.io import binfmt
+from catears_tpu_torch.io.binfmt import NnetSpec
+from catears_tpu_torch.utils.errors import CorruptionError
 
 # Static layer definition: tuple of ("kind", *static_args) entries.
 NnetDef = Tuple[Tuple[Any, ...], ...]

@@ -11,8 +11,12 @@ zero-point cross terms applied as rank-1 corrections in a float32 epilogue:
 Batched: an activation tensor [B, M, K] is quantized per utterance (min and
 max over each utterance's own [M, K] rows), exactly what the JAX batch path
 computes under vmap; a weight matrix [K, N] gets one scale.  The int8 dot
-a'b' is `matmul_s8`, whose CUDA tensors run the hand-written Hopper kernel
-in csrc/matmul_s8.cu.
+a'b' is `matmul_s8`; the whole linear, epilogue and bias included, is
+`qmatmul`.  On CUDA tensors both run the hand-written Hopper kernel in
+csrc/matmul_s8.cu (wgmma + TMA), `qmatmul` with the epilogue fused into
+its store; on CPU tensors they run their plain versions `matmul_s8_ref`
+and `qmatmul_ref`.  The kernel takes the weight transposed and K-padded
+(`transpose_pad`), which `QuantNnet` keeps beside the JAX-layout values.
 
 Activations quantize dynamically (per-call min/max) by default.
 `calibrate_ranges` records each linear's input range from float passes;
@@ -23,6 +27,7 @@ range widened per utterance to its own min/max.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -88,12 +93,27 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"operands on {a.device} and {b.device}")
 
 
+def padded_k(k: int) -> int:
+    """Kp: K rounded up to a multiple of 16 (the TMA's 16-byte row stride
+    rule), at least 16."""
+    return max(16, -(-k // 16) * 16)
+
+
+def transpose_pad(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight operand: int8 [K, N] -> Wt [N, Kp], K innermost
+    (int8 wgmma takes both operands K-major), zero-padded to Kp."""
+    k = w.shape[0]
+    return torch.nn.functional.pad(w.t(), (0, padded_k(k) - k)).contiguous()
+
+
 def matmul_s8_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: [B, M, K] or [M, K] int8 @ [K, N] int8 -> int32, exact.
 
-    CPU: an int32 torch.matmul.  CUDA (torch.matmul has no integer path
-    there): float64, exact because |sum a'b'| <= 128^2 * K stays far below
-    2^53; float32 would not be (128^2 * 3072 > 2^24).
+    CPU: an int32 torch.matmul.  CUDA: float64, exact because |sum a'b'| <=
+    128^2 * K stays far below 2^53 (float32 would not be: 128^2 * 3072 >
+    2^24).  torch._int_mm is cuBLASLt's int8 GEMM on CUDA, but it takes
+    only M > 16 and K, N multiples of 8, so it is not a plain version for
+    every shape; the port never calls it.
     """
     _check_operands(a, b)
     if a.device.type == "cpu":
@@ -102,32 +122,104 @@ def matmul_s8_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def matmul_s8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+_TILE_WIDTHS = (256, 240, 128)  # the kernel's BN instantiations
+_MAX_ROWS = 2 ** 31 - 1
+
+
+def tile_width(n: int) -> int:
+    """The kernel's output tile width BN for N columns: the one of 256, 240
+    and 128 that pads N least, the widest on a tie (N = 1024 -> 256, 3600
+    -> 240; PERF.md has the measured alternatives)."""
+    return min(_TILE_WIDTHS, key=lambda bn: -(-n // bn) * bn - n)
+
+
+_KERNEL_ARGTYPES = {
+    "catears_matmul_s8": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p],
+    "catears_qmatmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p],
+}
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from catears_tpu_torch.kernels import load_kernels
+
+    lib = load_kernels()["matmul_s8"]
+    if not hasattr(lib, "argtypes_set"):
+        for name, argtypes in _KERNEL_ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.catears_error_string.argtypes = [ctypes.c_int]
+        lib.catears_error_string.restype = ctypes.c_char_p
+        lib.argtypes_set = True
+    return lib
+
+
+def _launch_operands(a3: torch.Tensor, b: torch.Tensor,
+                     bt: Optional[torch.Tensor]):
+    """(A [rows, Kp], Wt [N, Kp], Kp): the kernel's operands, both K-major,
+    contiguous and 16-byte aligned (a misaligned or K-padded A is copied;
+    Wt is made from b when not given)."""
+    if not (a3.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul_s8: operands must be contiguous")
+    batch, m, k = a3.shape
+    n = b.shape[1]
+    kp = padded_k(k)
+    if batch * m > _MAX_ROWS:
+        raise ValueError(f"matmul_s8: {batch * m} rows exceed the kernel's "
+                         f"int32 row index")
+    a2 = a3.reshape(batch * m, k)
+    if kp != k:
+        a2 = torch.nn.functional.pad(a2, (0, kp - k))
+    elif a2.data_ptr() % 16:
+        a2 = a2.clone()
+    if bt is None:
+        bt = transpose_pad(b)
+    if (bt.dtype != torch.int8 or tuple(bt.shape) != (n, kp)
+            or not bt.is_contiguous() or bt.device != a3.device
+            or bt.data_ptr() % 16):
+        raise ValueError(f"matmul_s8: the transposed weight must be a "
+                         f"contiguous, 16-byte aligned int8 [{n}, {kp}] "
+                         f"tensor on {a3.device}")
+    return a2, bt, kp
+
+
+def _check_launch(lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"matmul_s8 kernel launch failed: "
+                           f"{lib.catears_error_string(rc).decode()}")
+
+
+def matmul_s8(a: torch.Tensor, b: torch.Tensor,
+              bt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, M, K] or [M, K] int8 @ [K, N] int8 -> int32 (exact).
 
     CPU tensors take the plain version; CUDA tensors launch the Hopper
-    kernel (one launch for the whole batch) or raise.  `matmul_s8.launches`
-    counts kernel launches.
+    kernel (one launch for the whole batch) or raise.  `bt` is the weight
+    as `transpose_pad(b)`, made here when not given.  `matmul_s8.launches`
+    counts the launches made here, of the int32 epilogue only.
     """
     _check_operands(a, b)
     if a.device.type == "cpu":
         return matmul_s8_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"matmul_s8: unsupported device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul_s8: operands must be contiguous")
     squeeze = a.dim() == 2
     a3 = a[None] if squeeze else a
     batch, m, _ = a3.shape
     n = b.shape[1]
-    if batch > 65535:
-        raise ValueError(f"matmul_s8: batch {batch} exceeds the grid limit")
-    if batch * m * n == 0:
-        out = torch.empty((batch, m, n), dtype=torch.int32, device=a.device)
-    else:
-        from catears_tpu_torch.kernels import load_kernels
-
-        out = load_kernels().matmul_s8(a3, b)
+    a2, bt, kp = _launch_operands(a3, b, bt)
+    out = torch.empty((batch, m, n), dtype=torch.int32, device=a.device)
+    if out.numel():
+        lib = _kernel_lib()
+        with torch.cuda.device(a.device):
+            rc = lib.catears_matmul_s8(
+                a2.data_ptr(), bt.data_ptr(), out.data_ptr(), batch * m, n,
+                kp, tile_width(n), torch.cuda.current_stream().cuda_stream)
+        _check_launch(lib, rc)
         matmul_s8.launches += 1
     return out[0] if squeeze else out
 
@@ -135,17 +227,14 @@ def matmul_s8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 matmul_s8.launches = 0
 
 
-def qmatmul(aq: QuantizedTensor, bq: QuantizedTensor,
-            colsum_b: torch.Tensor = None) -> torch.Tensor:
-    """Quantized matmul with the f32 dequant epilogue.
-
-    aq: [..., M, K] activations with per-matrix scale/zero point (shape
-    [...]); bq: one [K, N] weight matrix.  colsum_b: optional precomputed
-    f32 column sums of bq.values.
-    """
+def qmatmul_ref(aq: QuantizedTensor, bq: QuantizedTensor,
+                colsum_b: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the quantized linear: matmul_s8_ref, the f32
+    dequant epilogue, then + bias."""
     a, b = aq.values, bq.values
     k = a.shape[-1]
-    dot = matmul_s8(a, b).to(torch.float32)
+    dot = matmul_s8_ref(a, b).to(torch.float32)
     ca = (128 - aq.zero_point).to(torch.float32)[..., None, None]
     cb = (128 - bq.zero_point).to(torch.float32)
     rowsum_a = torch.sum(a.to(torch.int32), dim=-1).to(torch.float32)
@@ -153,14 +242,88 @@ def qmatmul(aq: QuantizedTensor, bq: QuantizedTensor,
         colsum_b = torch.sum(b.to(torch.int32), dim=0).to(torch.float32)
     acc = (dot + cb * rowsum_a[..., None] + ca * colsum_b
            + k * ca * cb)
-    return aq.scale[..., None, None] * bq.scale * acc
+    out = aq.scale[..., None, None] * bq.scale * acc
+    return out if bias is None else out + bias
+
+
+def _operand(x: torch.Tensor, dtype: torch.dtype, device: torch.device,
+             shape, what: str) -> torch.Tensor:
+    """x, contiguous, after checking its dtype, device and shape."""
+    if x.dtype != dtype:
+        raise TypeError(f"qmatmul: {what} must be {dtype}, got {x.dtype}")
+    if x.device != device or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"qmatmul: {what} must be {tuple(shape)} on {device},"
+                         f" got {tuple(x.shape)} on {x.device}")
+    return x.contiguous()
+
+
+def qmatmul(aq: QuantizedTensor, bq: QuantizedTensor,
+            colsum_b: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None,
+            bt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantized matmul with the f32 dequant epilogue, plus `bias` if given.
+
+    aq: [..., M, K] activations with per-matrix scale/zero point (shape
+    [...] or one scalar); bq: one [K, N] weight matrix; colsum_b: optional
+    precomputed f32 column sums of bq.values; bt: bq.values as
+    `transpose_pad` gives it.  CPU tensors take `qmatmul_ref`; CUDA tensors
+    launch the kernel with its fused epilogue (bit-equal to `qmatmul_ref`
+    on the card) or raise.  `qmatmul.launches` counts those launches.
+    """
+    a, b = aq.values, bq.values
+    if a.device.type == "cpu":
+        return qmatmul_ref(aq, bq, colsum_b, bias)
+    _check_operands(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"qmatmul: unsupported device {a.device}")
+    dev = a.device
+    squeeze = a.dim() == 2
+    a3 = a[None] if squeeze else a
+    batch, m, k = a3.shape
+    n = b.shape[1]
+    scales = aq.scale.numel()
+    if scales not in (1, batch):
+        raise ValueError(f"qmatmul: {scales} activation scales for "
+                         f"{batch} matrices")
+    f32, i32 = torch.float32, torch.int32
+    sa = _operand(aq.scale.reshape(-1), f32, dev, (scales,),
+                  "activation scale")
+    zpa = _operand(aq.zero_point.reshape(-1), i32, dev, (scales,),
+                   "activation zero point")
+    sb = _operand(bq.scale.reshape(-1), f32, dev, (1,), "weight scale")
+    zpb = _operand(bq.zero_point.reshape(-1), i32, dev, (1,),
+                   "weight zero point")
+    if colsum_b is None:
+        colsum_b = torch.sum(b.to(i32), dim=0).to(f32)
+    colsum_b = _operand(colsum_b, f32, dev, (n,), "colsum_b")
+    if bias is not None:
+        bias = _operand(bias, f32, dev, (n,), "bias")
+    a2, bt, kp = _launch_operands(a3, b, bt)
+    out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+    if out.numel():
+        lib = _kernel_lib()
+        with torch.cuda.device(dev):
+            rc = lib.catears_qmatmul(
+                a2.data_ptr(), bt.data_ptr(), out.data_ptr(), batch * m, n,
+                kp, tile_width(n), colsum_b.data_ptr(),
+                0 if bias is None else bias.data_ptr(),
+                sa.data_ptr(), zpa.data_ptr(), sb.data_ptr(), zpb.data_ptr(),
+                float(k), m, 1 if scales > 1 else 0,
+                torch.cuda.current_stream().cuda_stream)
+        _check_launch(lib, rc)
+        qmatmul.launches += 1
+    return out[0] if squeeze else out
+
+
+qmatmul.launches = 0
 
 
 class QuantNnet(nn.Module):
     """The int8 layer stack: per linear, the quantized weight (`wq` values
-    [in, out] int8, scale, zero point), its f32 column sums, the f32 bias
-    and, once calibrated, the f32 input range `rng` or `grng` ([lo, hi]);
-    other layers keep their float parameters."""
+    [in, out] int8, scale, zero point, and `wqt_values`, the values as
+    `transpose_pad` gives them to the kernel), its f32 column sums, the f32
+    bias and, once calibrated, the f32 input range `rng` or `grng` ([lo,
+    hi]); other layers keep their float parameters."""
 
     def __init__(self, nnet_def: NnetDef, qparams: List[Dict]):
         super().__init__()
@@ -171,6 +334,8 @@ class QuantNnet(nn.Module):
             for name, value in p.items():
                 if name == "wq":
                     holder.register_buffer("wq_values", value.values)
+                    holder.register_buffer("wqt_values",
+                                           transpose_pad(value.values))
                     holder.register_buffer("wq_scale", value.scale)
                     holder.register_buffer("wq_zero_point", value.zero_point)
                 else:
@@ -316,7 +481,8 @@ def nnet_forward_quant(qnet: QuantNnet, x: torch.Tensor) -> torch.Tensor:
             xq = _quantize_input(x, p)
             wq = QuantizedTensor(p["wq_values"], p["wq_scale"],
                                  p["wq_zero_point"])
-            x = qmatmul(xq, wq, colsum_b=p["colsum"]) + p["b"]
+            x = qmatmul(xq, wq, colsum_b=p["colsum"], bias=p["b"],
+                        bt=p["wqt_values"])
         else:
             x = apply_layer(layer[0], layer, x, p)
     return x

@@ -20,9 +20,7 @@ from __future__ import annotations
 
 import sys
 
-import torch
-
-from catears_tpu.utils.errors import CatEarsError, NotImplementedError_
+from catears_tpu_torch.utils.errors import CatEarsError, NotImplementedError_
 
 
 def print_usage() -> None:
@@ -61,13 +59,10 @@ def _run(config_file: str, input_file: str, batch_size: int,
         raise NotImplementedError_(
             "single-utterance streaming decode is not yet ported to the "
             "PyTorch backend; pass an scp with --batch")
-    if device == "cuda" and not torch.cuda.is_available():
-        raise CatEarsError("no CUDA device is available (use --device=cpu "
-                           "to run on the CPU)")
     from catears_tpu_torch.runtime.batch import decode_scp
     from catears_tpu_torch.runtime.recognizer import Recognizer
 
-    recognizer = Recognizer(config_file, device=torch.device(device))
+    recognizer = Recognizer(config_file, device=device)
     for name, hyp in decode_scp(recognizer, input_file,
                                 batch_size=batch_size):
         print(f"{name} {hyp}")

@@ -17,10 +17,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from catears_tpu.graph.fst import DeltaLmFst, FlatFst
-from catears_tpu.graph.transform import prepare_decode_graph
-from catears_tpu.utils import log
-from catears_tpu.utils.errors import BeamCapacityError, NotImplementedError_
 from catears_tpu_torch.decode.beam import (
     BeamConfig,
     FrameTrace,
@@ -32,6 +28,12 @@ from catears_tpu_torch.decode.hyp import assemble_words
 from catears_tpu_torch.decode.oracle import Hypothesis
 from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
                                             expansion_bounds)
+from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst
+from catears_tpu_torch.graph.transform import prepare_decode_graph
+from catears_tpu_torch.utils import log
+from catears_tpu_torch.utils.device import Device, resolve_device
+from catears_tpu_torch.utils.errors import (BeamCapacityError,
+                                            NotImplementedError_)
 
 
 def safe_config(fst: FlatFst, arc_group: int, base: BeamConfig,
@@ -97,11 +99,13 @@ class BatchDecoder:
                  config: Optional[BeamConfig] = None,
                  arc_group: int = 4,
                  csr_group: int = None,
-                 device: torch.device = torch.device("cpu"),
+                 device: Device = "cuda",
                  delta_lm: Optional[DeltaLmFst] = None):
         """config=None sizes the capacities by safe_config (LM off they
         cannot truncate); an explicit config relies on the overflow
-        retry."""
+        retry.  The tables live on `device` (the card unless the CPU is
+        asked for)."""
+        device = resolve_device(device)
         dec_fst, olab2, mode = prepare_decode_graph(fst)
         if mode != "eps_free":
             raise NotImplementedError_(

@@ -38,8 +38,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from catears_tpu.graph.fst import DeltaLmFst, FlatFst
-from catears_tpu.utils.errors import CorruptionError
+from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst
+from catears_tpu_torch.utils.device import Device, resolve_device
+from catears_tpu_torch.utils.errors import CorruptionError
 
 TABLES = ("final", "state_packed", "over_packed", "eps_packed", "emit_block")
 LM_TABLES = ("hash_tab", "state_tab", "small_lm", "uni_next", "uni_weight")
@@ -129,10 +130,12 @@ class DeviceFst:
               eps_depth_cap: Optional[int] = None,
               csr_group: Optional[int] = None,
               olabel2: Optional[np.ndarray] = None,
-              device: torch.device = torch.device("cpu")) -> "DeviceFst":
+              device: Device = "cuda") -> "DeviceFst":
         """The tables the JAX DeviceFst.build makes from the same
         arguments (its eps_group, compact and hot_rows left at their
-        defaults), placed on `device`."""
+        defaults), placed on `device` (the card unless the CPU is asked
+        for)."""
+        device = resolve_device(device)
         arrays, meta = build_arrays(fst, tid2pdf, group=group,
                                     eps_depth_cap=eps_depth_cap,
                                     csr_group=csr_group, olabel2=olabel2)
@@ -140,9 +143,10 @@ class DeviceFst:
 
     @classmethod
     def from_numpy(cls, arrays: Dict[str, np.ndarray], meta: Dict,
-                   device: torch.device = torch.device("cpu")) -> "DeviceFst":
+                   device: Device = "cuda") -> "DeviceFst":
         """From numpy tables (e.g. np.asarray of a JAX DeviceFst's fields)
         and its static fields."""
+        device = resolve_device(device)
         tensors = {name: torch.tensor(np.asarray(arrays[name])).to(device)
                    for name in TABLES}
         return cls(start=int(arrays["start"]), **tensors, **meta)
@@ -358,17 +362,19 @@ class DeviceLm:
 
     @classmethod
     def build(cls, delta: DeltaLmFst, max_backoff: int = 8,
-              device: torch.device = torch.device("cpu")) -> "DeviceLm":
+              device: Device = "cuda") -> "DeviceLm":
         """The tables the JAX DeviceLm.build makes from `delta`, placed on
-        `device`."""
+        `device` (the card unless the CPU is asked for)."""
+        device = resolve_device(device)
         arrays, meta = lm_arrays(delta, max_backoff)
         return cls.from_numpy(arrays, meta, device=device)
 
     @classmethod
     def from_numpy(cls, arrays: Dict[str, np.ndarray], meta: Dict,
-                   device: torch.device = torch.device("cpu")) -> "DeviceLm":
+                   device: Device = "cuda") -> "DeviceLm":
         """From numpy tables (e.g. np.asarray of a JAX DeviceLm's fields)
         and its static fields."""
+        device = resolve_device(device)
         tensors = {name: torch.tensor(np.asarray(arrays[name])).to(device)
                    for name in LM_TABLES}
         return cls(start=int(arrays["start"]), **tensors, **meta)

@@ -1,8 +1,7 @@
 """Batched (offline) decoding of .scp utterance lists (port of
 catears_tpu/runtime/batch.py).
 
-Utterances are loaded with the native threaded WAV loader, the whole batch
-runs fbank + AM on the recognizer's device, and the beam search consumes
+Utterances are read file by file in Python, the whole batch runs fbank + AM on the recognizer's device, and the beam search consumes
 the [B, T, P] log-probs there.  Ragged batches stay exact per utterance:
 waves are padded to one bucketed length (base 4096 samples), features are
 context-padded per utterance with a clipped index gather (edge frames
@@ -17,19 +16,16 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from catears_tpu.io.wav import read_16k_pcm, read_scp
-from catears_tpu.utils import log, native
 from catears_tpu_torch.decode.decoder import BatchDecoder
 from catears_tpu_torch.frontend.fbank import (NUM_BINS, fbank_from_wave,
                                               num_frames)
+from catears_tpu_torch.io.wav import read_16k_pcm, read_scp
 from catears_tpu_torch.runtime.recognizer import Recognizer
+from catears_tpu_torch.utils import log
 
 
 def load_waves(paths: List[str]) -> List[np.ndarray]:
-    """Native threaded batch load, falling back to Python per-file reads."""
-    batch = native.load_wav_batch(paths) if native.available() else None
-    if batch is not None:
-        return batch
+    """One float32 sample array per 16 kHz WAV file."""
     return [read_16k_pcm(p) for p in paths]
 
 

@@ -7,7 +7,7 @@ symbol table, the delta-LM (`large_lm` G' with its `original_lm` unigram
 vector), and the decoder geometry keys (`beam_size`, `expand_size`,
 `eps_expand_size`, `lm_expand_size`, `max_eps_iters`, `beam`,
 `arc_group`, `csr_group`).  `device` places the acoustic model and the
-decode graph.  Inputs the port does not carry yet fail here with
+decode graph: the card unless the CPU is asked for.  Inputs the port does not carry yet fail here with
 NotImplementedError_: online CMVN (`cmvn_stats`) and `select_compact`.
 The streaming Utterance API is not ported.
 """
@@ -18,23 +18,24 @@ from typing import Optional
 
 import torch
 
-from catears_tpu.graph.fst import DeltaLmFst, FlatFst, LmFst
-from catears_tpu.io.binfmt import read_vec0_file
-from catears_tpu.io.config import Configuration
-from catears_tpu.io.symbols import SymbolTable
-from catears_tpu.utils.errors import CorruptionError, NotImplementedError_
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
+from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst, LmFst
+from catears_tpu_torch.io.binfmt import read_vec0_file
+from catears_tpu_torch.io.config import Configuration
+from catears_tpu_torch.io.symbols import SymbolTable
+from catears_tpu_torch.utils.device import Device, resolve_device
+from catears_tpu_torch.utils.errors import (CorruptionError,
+                                            NotImplementedError_)
 
 AM_SCALE = 0.1  # acoustic scale, as in the JAX runtime
 
 
 class Recognizer:
-    def __init__(self, config_path: str,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, config_path: str, device: Device = "cuda"):
+        self.device = resolve_device(device)
         conf = Configuration.read(config_path)
         self.conf = conf
-        self.device = torch.device(device)
         if conf.has("cmvn_stats"):
             raise NotImplementedError_(
                 "online CMVN (cmvn_stats) is not yet ported to the PyTorch "

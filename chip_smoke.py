@@ -11,15 +11,25 @@ phase; exits non-zero if any fails:
 
   device      a CUDA card is present (exit 1 otherwise, before any result)
   build       the hand-written kernels compile from catears_tpu_torch/csrc
+              (nvcc's register and spill summary printed)
   kernel      matmul_s8 (CUDA) == matmul_s8_ref exactly, at the AM's
-              shapes and at ragged ones; times of both
+              shapes, at ragged ones and on misaligned views (storage
+              offsets 1 and 8); per AM shape the call's device time (CUDA
+              graph replay) and its time with the host's (CUDA events)
+              beside the plain version's, its bound, its share of the
+              bound, and torch._int_mm's device time (the yardstick, never
+              called by the port)
+  qkernel     the fused linear qmatmul(..., bias=) (CUDA) == qmatmul_ref
+              bit for bit, with dynamic, static (`rng`) and guarded
+              (`grng`) activation scales, at the AM's shapes and at ragged
+              ones; per AM shape the call's device and host times beside
+              the plain version's and its bound
   am          quantized batched_logp on cuda vs the same on the CPU, for
               two utterances: max error < 1% of the output range (the CPU
-              tests' bar for the int8 stack); the kernel's launch count
-              rises
+              tests' bar for the int8 stack); one fused launch per linear
   calibrated  AcousticModel.calibrate on one utterance, static (`rng`)
               and guarded (`grng`), then batched_logp of two utterances:
-              cuda vs cpu < 1% of range, the kernel's launch count rises;
+              cuda vs cpu < 1% of range, one fused launch per linear;
               device busy time of the dynamic and calibrated AMs
   lm          the DeviceLm built for cuda is byte-equal to the CPU's;
               lm_propagate on 65,536 mixed (state, label) queries: equal
@@ -30,14 +40,24 @@ phase; exits non-zero if any fails:
               planted trie paths decoded on cuda
   decoder-lm  the same with the delta-LM, and the planted WER under it
   e2e         cli.main(["--batch=8", conf, scp]) on cuda: exit 0, one line
-              per utterance, no capacity overflow, the kernel launched at
-              least once per linear layer per batch
+              per utterance, no capacity overflow, the fused kernel
+              launched at least once per linear layer per batch, and the
+              same transcripts as the same command with --device=cpu
   e2e-lm      the same with the delta-LM config
 
-The line before the last is {"kernels": [...]} (launches summed over the
-two e2e runs, the kernel's error and times from this run); the last line
-is {"ok": true, "device": {...}}.  Everything it writes goes to a scratch
-directory under catears_tpu_torch/_build/, removed at the end.
+Before the last line come {"kernels": [...]} and the card's name and power
+limit; the last line is {"ok": true, "device": {...}}.  The one kernel,
+matmul_s8.cu, is listed once, by the entry point the main path launches it
+through (`qmatmul`, the fused epilogue): launches summed over the two e2e
+runs, each counted from 0 just before its run; error, times and bound from
+this run, summed over the AM's three shapes.  Its int32 entry point
+(`matmul_s8`, which the main path does not launch) is nested in the entry
+with its own launches, error, times, bound and torch._int_mm's time.
+Bounds: the larger of the bytes the
+function must move (each input read once, the output written once) over
+3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM, dense).
+Everything it writes goes to a scratch directory under
+catears_tpu_torch/_build/, removed at the end.
 """
 
 import contextlib
@@ -53,12 +73,12 @@ import wave
 import numpy as np
 import torch
 
-from catears_tpu.tools.biggraph import (make_trie_graph, plant_logp,
-                                        write_trie_model)
-from catears_tpu.tools.score import token_errors
-from catears_tpu.utils import log
 from catears_tpu_torch.am import quant
-from catears_tpu_torch.kernels import BUILD_DIR, load_kernels
+from catears_tpu_torch.kernels import BUILD_DIR, BUILD_LOG, load_kernels
+from catears_tpu_torch.tools.biggraph import (make_trie_graph, plant_logp,
+                                              write_trie_model)
+from catears_tpu_torch.tools.score import token_errors
+from catears_tpu_torch.utils import log
 
 NUM_WORDS = 50_000
 HIDDEN = 1024
@@ -74,6 +94,8 @@ KERNEL_SHAPES = [(8, 1638, 120, 1024), (8, 1636, 3072, 1024),
 EXACT_SHAPES = [(1, 37, 7, 5), (3, 300, 130, 1000), (2, 129, 33, 17),
                 (8, 1646, 120, 1024), (8, 1646, 3072, 1024),
                 (8, 1646, 1024, 3600)]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+INT8_OPS_PER_S = 1.979e15  # H100 SXM, dense
 
 
 def phase(name, **numbers):
@@ -107,6 +129,33 @@ def time_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Mean device ms per call of fn: `iters` calls captured in one CUDA
+    graph and replayed between CUDA events, after warm-up.  No host time
+    is in it: this is the call's device work (the kernel with any operand
+    copy its wrapper makes)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def profiled(fn):
@@ -179,52 +228,169 @@ def range_error(ref, got, lengths):
     return worst
 
 
+def bound(b, m, k, n, out_bytes=4, extra_bytes=0):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for [b*m, k] int8 @ [k, n] int8 with a 4-byte output."""
+    rows = b * m
+    t_bytes = ((rows * k + k * n + out_bytes * rows * n + extra_bytes)
+               / HBM_BYTES_PER_S)
+    t_ops = 2.0 * rows * k * n / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def add_timing(totals, ms, plain_ms, bound_ms, bound_by, library_ms=None):
+    """Sums over the AM's shapes; bound_by is the side that bounds most of
+    the summed bound."""
+    totals["ms"] += ms
+    totals["plain_ms"] += plain_ms
+    totals["bound_ms"] += bound_ms
+    totals["by"][bound_by] += bound_ms
+    if library_ms is not None:
+        totals["library_ms"] = (totals["library_ms"] or 0.0) + library_ms
+
+
+def new_totals():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+            "max_abs_err": 0, "by": {"bytes": 0.0, "operations": 0.0}}
+
+
+def randint8(g, shape, cuda):
+    return torch.randint(-128, 128, shape, dtype=torch.int8,
+                         generator=g).to(cuda)
+
+
 def kernel_phase(card):
     cuda = torch.device("cuda:0")
     g = torch.Generator().manual_seed(0)
-    max_err = 0
-    ms = plain_ms = 0.0
+    totals = new_totals()
     for shape in EXACT_SHAPES + KERNEL_SHAPES:
         b, m, k, n = shape
-        a = torch.randint(-128, 128, (b, m, k), dtype=torch.int8,
-                          generator=g).to(cuda)
-        w = torch.randint(-128, 128, (k, n), dtype=torch.int8,
-                          generator=g).to(cuda)
+        a, w = randint8(g, (b, m, k), cuda), randint8(g, (k, n), cuda)
         got = quant.matmul_s8(a, w)
         ref = quant.matmul_s8_ref(a, w)
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max())
-        max_err = max(max_err, err)
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
         if err or not torch.equal(got, ref):
             fail(f"matmul_s8 differs from matmul_s8_ref at {shape}: "
                  f"max abs err {err}")
-        if shape in KERNEL_SHAPES:
-            t_k = time_ms(lambda: quant.matmul_s8(a, w))
-            t_p = time_ms(lambda: quant.matmul_s8_ref(a, w))
-            ms += t_k
-            plain_ms += t_p
-            tops = 2.0 * b * m * k * n / (t_k * 1e-3) / 1e12
-            phase("kernel", shape=f"{b}x{m}x{k}x{n}", equal=True,
-                  ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-                  int8_tops=f"{tops:.1f}", card=f"'{card}'")
-        else:
+        if shape not in KERNEL_SHAPES:
             phase("kernel", shape=f"{b}x{m}x{k}x{n}", equal=True)
-    return max_err, ms, plain_ms
+            continue
+        bt = quant.transpose_pad(w)
+        t_k = device_ms(lambda: quant.matmul_s8(a, w, bt=bt))
+        t_call = time_ms(lambda: quant.matmul_s8(a, w, bt=bt))
+        t_p = time_ms(lambda: quant.matmul_s8_ref(a, w))
+        # The yardstick: cuBLASLt's int8 GEMM on the flattened batch (the
+        # weight is shared, so this is the same product), weight
+        # column-major as it requires.
+        a2, w_cm = a.reshape(b * m, k), w.t().contiguous().t()
+        try:
+            lib_equal = torch.equal(torch._int_mm(a2, w_cm).view(b, m, n),
+                                    ref)
+            t_lib = device_ms(lambda: torch._int_mm(a2, w_cm))
+        except RuntimeError as e:  # this build's cuBLASLt refuses the shape
+            print(f"[kernel] torch._int_mm at {shape}: {e}", flush=True)
+            lib_equal, t_lib = None, None
+        b_ms, b_by = bound(b, m, k, n)
+        add_timing(totals, t_k, t_p, b_ms, b_by, t_lib)
+        phase("kernel", shape=f"{b}x{m}x{k}x{n}", equal=True,
+              tile_width=quant.tile_width(n), ms=f"{t_k:.4f}",
+              call_ms=f"{t_call:.4f}", plain_ms=f"{t_p:.4f}",
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+              share_of_bound=f"{b_ms / t_k:.3f}",
+              int8_tops=f"{2.0 * b * m * k * n / (t_k * 1e-3) / 1e12:.1f}",
+              library_ms=t_lib, library_equal=lib_equal,
+              card=f"'{card}'")
+    # Contiguous views whose data does not start on a 16-byte boundary (K a
+    # multiple of 16, so the wrapper's realignment is what is checked).
+    b, m, k, n = KERNEL_SHAPES[2]
+    for offset in (1, 8):
+        a_buf = randint8(g, (offset + b * m * k,), cuda)
+        w_buf = randint8(g, (offset + k * n,), cuda)
+        a, w = a_buf[offset:].view(b, m, k), w_buf[offset:].view(k, n)
+        if not torch.equal(quant.matmul_s8(a, w), quant.matmul_s8_ref(a, w)):
+            fail(f"matmul_s8 differs from matmul_s8_ref on a view at "
+                 f"offset {offset}")
+        phase("kernel", shape=f"{b}x{m}x{k}x{n}", storage_offset=offset,
+              equal=True)
+    return totals
+
+
+def quantized_operands(b, m, k, n, scales, g, cuda):
+    """Activations quantized per utterance (`dynamic`), with one static
+    range (`rng`) or with the range widened per utterance (`grng`); a
+    quantized weight with its column sums and a bias; all on the card."""
+    x = (torch.randn((b, m, k), generator=g) * 2.0
+         + torch.rand((b, 1, 1), generator=g) - 0.5).to(cuda)
+    lo, hi = torch.tensor(-1.5, device=cuda), torch.tensor(2.5, device=cuda)
+    if scales == "dynamic":
+        aq = quant.quantize(x)
+    elif scales == "rng":
+        aq = quant.quantize_static(x, lo, hi)
+    else:
+        aq = quant.quantize_static(
+            x, torch.minimum(torch.amin(x, dim=(-2, -1)), lo),
+            torch.maximum(torch.amax(x, dim=(-2, -1)), hi))
+    wq = quant.quantize((torch.randn((k, n), generator=g) / k ** 0.5)
+                        .to(cuda))
+    colsum = torch.sum(wq.values.to(torch.int32), dim=0).to(torch.float32)
+    bias = (torch.randn(n, generator=g) * 0.1).to(cuda)
+    return aq, wq, colsum, bias
+
+
+def qkernel_phase(card):
+    """The fused linear against its plain version on the card."""
+    cuda = torch.device("cuda:0")
+    g = torch.Generator().manual_seed(1)
+    totals = new_totals()
+    for shape in EXACT_SHAPES[:3] + KERNEL_SHAPES:
+        b, m, k, n = shape
+        for scales in ("dynamic", "rng", "grng"):
+            aq, wq, colsum, bias = quantized_operands(b, m, k, n, scales, g,
+                                                      cuda)
+            bt = quant.transpose_pad(wq.values)
+            got = quant.qmatmul(aq, wq, colsum, bias=bias, bt=bt)
+            ref = quant.qmatmul_ref(aq, wq, colsum, bias)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+            if not torch.equal(got, ref):
+                fail(f"qmatmul differs from qmatmul_ref at {shape} "
+                     f"({scales}): max abs err {err}")
+            if shape not in KERNEL_SHAPES or scales != "dynamic":
+                phase("qkernel", shape=f"{b}x{m}x{k}x{n}", scales=scales,
+                      bit_equal=True)
+                continue
+            fused = lambda: quant.qmatmul(aq, wq, colsum, bias=bias, bt=bt)
+            t_k, t_call = device_ms(fused), time_ms(fused)
+            t_p = time_ms(lambda: quant.qmatmul_ref(aq, wq, colsum, bias))
+            # Beyond the matmul's bytes: column sums and bias (4 N each),
+            # the per-utterance scales and zero points.
+            b_ms, b_by = bound(b, m, k, n, extra_bytes=8 * n + 8 * b)
+            add_timing(totals, t_k, t_p, b_ms, b_by)
+            phase("qkernel", shape=f"{b}x{m}x{k}x{n}", scales=scales,
+                  bit_equal=True, ms=f"{t_k:.4f}", call_ms=f"{t_call:.4f}",
+                  plain_ms=f"{t_p:.4f}",
+                  bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                  share_of_bound=f"{b_ms / t_k:.3f}", card=f"'{card}'")
+    return totals
 
 
 def calibrated_phase(conf, waves, batch_waves, card):
     """The int8 AM calibrated on one utterance, static (`rng`) and guarded
     (`grng`): cuda vs cpu on `waves`, then the dynamic and both calibrated
     AMs' device busy time (profiler) measured in turns on `batch_waves`."""
-    from catears_tpu.io.config import Configuration
     from catears_tpu_torch.am.model import AcousticModel
+    from catears_tpu_torch.io.config import Configuration
     from catears_tpu_torch.frontend.fbank import fbank_from_wave, num_frames
     from catears_tpu_torch.runtime.batch import batched_logp
 
     t0 = time.perf_counter()
     cuda = torch.device("cuda:0")
     config = Configuration.read(conf)
-    am_cpu = AcousticModel.read(config)
+    am_cpu = AcousticModel.read(config, device=torch.device("cpu"))
     wave = torch.from_numpy(waves[0])
     feats = fbank_from_wave(wave[None], num_frames(wave.shape[0]))[0]
     left, right = am_cpu.left_context, am_cpu.right_context
@@ -235,22 +401,23 @@ def calibrated_phase(conf, waves, batch_waves, card):
         ams[key] = AcousticModel.read(config, device=cuda)
         for am in (ams[key], am_cpu):
             am.calibrate(padded, guard=key == "grng")
-        before = quant.matmul_s8.launches
+        before = quant.qmatmul.launches
         logp, lengths = batched_logp(ams[key], waves)
         torch.cuda.synchronize()
-        launched = quant.matmul_s8.launches - before
+        launched = quant.qmatmul.launches - before
         ref, _ = batched_logp(am_cpu, waves)
         worst = range_error(ref, logp, lengths)
         phase("calibrated", key=key, utts=len(waves),
-              max_err_over_range=f"{worst:.3e}", kernel_launches=launched,
+              max_err_over_range=f"{worst:.3e}", fused_launches=launched,
               seconds=f"{time.perf_counter() - t0:.2f}")
         if not np.isfinite(logp.cpu().numpy()).all():
             fail(f"non-finite calibrated ({key}) log-probs on cuda")
         if worst >= 0.01:
             fail(f"calibrated ({key}) int8 AM on cuda vs cpu: error "
                  f"{worst:.3e} of range")
-        if launched < 1:
-            fail(f"the calibrated ({key}) AM did not launch matmul_s8")
+        if launched != linears(ams[key]):
+            fail(f"the calibrated ({key}) AM made {launched} fused launches "
+                 f"for {linears(ams[key])} linears")
     busy = {key: [] for key in ams}
     order = list(ams)
     for key in order:
@@ -270,7 +437,7 @@ def lm_phase(delta, card):
 
     cuda = torch.device("cuda:0")
     t0 = time.perf_counter()
-    dlm_cpu = tdevice.DeviceLm.build(delta)
+    dlm_cpu = tdevice.DeviceLm.build(delta, device=torch.device("cpu"))
     build_s = time.perf_counter() - t0
     dlm_gpu = tdevice.DeviceLm.build(delta, device=cuda)
     for name in tdevice.LM_TABLES:
@@ -358,42 +525,68 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
         fail(f"{name}: planted frames on cuda and cpu disagree")
 
 
-def e2e_phase(name, conf, scp, linears, card):
-    """cli.main(["--batch=8", conf, scp]) on cuda; returns the matmul_s8
-    launches it made."""
-    from catears_tpu.io.wav import read_scp
+def linears(am):
+    return sum(1 for layer in am.nnet_def if layer[0] == "linear")
+
+
+def run_cli(argv):
+    """(exit code, stdout lines, stderr) of cli.main(argv)."""
     from catears_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue().strip()
+
+
+def e2e_phase(name, conf, scp, linears, card):
+    """cli.main(["--batch=8", conf, scp]) on cuda, then the same with
+    --device=cpu; returns the launches the card run made through each entry
+    point of the kernel, counted from 0 just before it."""
+    from catears_tpu_torch.io.wav import read_scp
     from catears_tpu_torch.runtime.batch import load_waves
 
     n_utts = len(read_scp(scp))
     audio_s = sum(w.shape[0] for w in load_waves(
         [p for _, p in read_scp(scp)])) / 16000.0
     retries = log.metrics().get("overflow_retries", 0)
-    out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
-    quant.matmul_s8.launches = 0
+    quant.matmul_s8.launches = quant.qmatmul.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli_main(["--batch=8", conf, scp])
+    rc, lines, err = run_cli(["--batch=8", conf, scp])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = quant.matmul_s8.launches
-    lines = out.getvalue().splitlines()
+    launches = {"matmul_s8": quant.matmul_s8.launches,
+                "qmatmul": quant.qmatmul.launches}
     overflowed = log.metrics().get("overflow_retries", 0) != retries
+    t0 = time.perf_counter()
+    cpu_rc, cpu_lines, cpu_err = run_cli(["--batch=8", "--device=cpu", conf,
+                                          scp])
+    cpu_dt = time.perf_counter() - t0
     phase(name, rc=rc, lines=len(lines), utts=n_utts,
-          kernel_launches=launches, linears=linears, overflow=overflowed,
+          words=[len(line.split()) - 1 for line in lines],
+          same_as_cpu=lines == cpu_lines,
+          fused_launches=launches["qmatmul"],
+          int32_launches=launches["matmul_s8"], linears=linears,
+          overflow=overflowed,
           wall_s=f"{dt:.2f}", audio_s=f"{audio_s:.2f}",
-          audio_s_per_s=f"{audio_s / dt:.2f}", card=f"'{card}'")
+          audio_s_per_s=f"{audio_s / dt:.2f}", cpu_wall_s=f"{cpu_dt:.2f}",
+          card=f"'{card}'")
     if rc != 0:
-        fail(f"{name}: cli exited {rc}: {err.getvalue().strip()}")
+        fail(f"{name}: cli exited {rc}: {err}")
     if len(lines) != n_utts or any(
             not line.startswith(f"utt{i}") for i, line in enumerate(lines)):
         fail(f"{name}: expected one line per utterance, got {lines!r}")
     if overflowed:
         fail(f"{name}: the decode overflowed its capacities")
-    if launches < linears * -(-n_utts // 8):
-        fail(f"{name}: only {launches} matmul_s8 launches for {linears} "
-             f"linear layers")
+    if launches["qmatmul"] < linears * -(-n_utts // 8):
+        fail(f"{name}: only {launches['qmatmul']} fused kernel launches for "
+             f"{linears} linear layers")
+    if cpu_rc != 0:
+        fail(f"{name}: cli --device=cpu exited {cpu_rc}: {cpu_err}")
+    if lines != cpu_lines:
+        fail(f"{name}: transcripts on cuda {lines!r} differ from the CPU's "
+             f"{cpu_lines!r}")
     return launches
 
 
@@ -409,11 +602,15 @@ def main():
     t0 = time.perf_counter()
     load_kernels()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}")
+    for name, log_text in BUILD_LOG.items():
+        for line in log_text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
-    max_err, k_ms, k_plain_ms = kernel_phase(card)
+    totals = {"matmul_s8": kernel_phase(card), "qmatmul": qkernel_phase(card)}
 
-    from catears_tpu.io.wav import read_scp
     from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.io.wav import read_scp
     from catears_tpu_torch.runtime.batch import (batched_logp,
                                                  get_batch_decoder,
                                                  load_waves)
@@ -436,22 +633,23 @@ def main():
         if not rec.am.quantized:
             fail("the smoke config did not select the int8 AM")
         waves = load_waves([p for _, p in read_scp(scp)[:2]])
-        before = quant.matmul_s8.launches
+        before = quant.qmatmul.launches
         logp, lengths = batched_logp(rec.am, waves)
         torch.cuda.synchronize()
-        launched = quant.matmul_s8.launches - before
+        launched = quant.qmatmul.launches - before
         rec_cpu = Recognizer(conf, device=torch.device("cpu"))
         ref, _ = batched_logp(rec_cpu.am, waves)
         worst = range_error(ref, logp, lengths)
         phase("am", utts=2, frames=lengths, max_err_over_range=f"{worst:.3e}",
-              kernel_launches=launched,
+              fused_launches=launched,
               seconds=f"{time.perf_counter() - t0:.2f}")
         if not np.isfinite(logp.cpu().numpy()).all():
             fail("non-finite log-probs on cuda")
         if worst >= 0.01:
             fail(f"int8 AM on cuda vs cpu: error {worst:.3e} of range")
-        if launched < 1:
-            fail("the AM on cuda did not launch the matmul_s8 kernel")
+        if launched != linears(rec.am):
+            fail(f"the AM on cuda made {launched} fused launches for "
+                 f"{linears(rec.am)} linears")
 
         calibrated_phase(conf, waves, load_waves(
             [p for _, p in read_scp(scp)]), card)
@@ -488,18 +686,27 @@ def main():
         del dec_lm_cpu, rec_cpu
 
         # -- e2e: the CLI's batch path on cuda, LM off then on --------------
-        linears = sum(1 for layer in rec.am.nnet_def if layer[0] == "linear")
-        launches = e2e_phase("e2e", conf, scp, linears, card)
-        launches += e2e_phase("e2e-lm", lm_conf, scp, linears, card)
+        n_linears = linears(rec.am)
+        runs = [e2e_phase("e2e", conf, scp, n_linears, card),
+                e2e_phase("e2e-lm", lm_conf, scp, n_linears, card)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "matmul_s8", "route": "cuda",
-        "source": "catears_tpu_torch/csrc/matmul_s8.cu",
-        "replaces": "catears_tpu/am/quant.py:84",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": k_plain_ms}]}))
+    def entry(name, t):
+        return {"launches": sum(run[name] for run in runs),
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": max(t["by"], key=t["by"].get),
+                "library_ms": t["library_ms"]}
+
+    kernels = [{"name": "matmul_s8", "route": "cuda",
+                "source": "catears_tpu_torch/csrc/matmul_s8.cu",
+                "replaces": "catears_tpu/am/quant.py:84",
+                "entry_point": "qmatmul", **entry("qmatmul", totals["qmatmul"]),
+                "int32_entry_point": {"name": "matmul_s8",
+                                      **entry("matmul_s8",
+                                              totals["matmul_s8"])}}]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Builds chip_smoke.py's configuration (int8 TDNN-1024 on the 50k-word trie,
 bench geometry, 8 seeded utterances of 3-10 s; with --lm, its delta-LM
 config: the 50k-word G' and lm_expand_size = 384) and times, on the host
-clock around work that ends in a synchronize: set-up, `batched_logp`, the
+clock around work that ends in a synchronize: the batch's WAV load
+(`load_waves`), set-up, `batched_logp`, the
 whole `BatchDecoder.decode`, `init_beam_batch`, one 50-frame
 `decode_chunk` and `backtrace_device` over the batch's frames.  Then it
 profiles one 50-frame chunk and one `batched_logp` with torch.profiler:
@@ -14,11 +15,17 @@ LM walk at the frame's shape (8 x 384 word lanes out of the expansion).
 Run from the repo root on a machine with a card (no JAX needed):
 
     python3 scripts/torch_profile.py [--lm] [--reps 5] [--out profile.txt]
+                                     [--checkout DIR]
 
 --out also writes the profiler tables, which are long, to that file.
+--checkout DIR also times the WAV load of the catears_tpu_torch in DIR (a
+checkout of another commit) against this tree's on the same files: four
+child processes in turns (DIR, this tree, this tree, DIR), each timing
+--reps calls of its `load_waves` after one warm-up.
 """
 
 import argparse
+import ast
 import os
 import shutil
 import subprocess
@@ -32,14 +39,28 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from catears_tpu.io.wav import read_scp
 from catears_tpu_torch.decode import beam as tb
 from catears_tpu_torch.graph.device import lm_propagate_capped
+from catears_tpu_torch.io.wav import read_scp
 from catears_tpu_torch.runtime.batch import (batched_logp, get_batch_decoder,
                                              load_waves)
 from catears_tpu_torch.runtime.recognizer import Recognizer
 
 CHUNK = 50
+# Run with the checkout as the working directory, so that its
+# catears_tpu_torch is the one imported: argv = [reps, path, ...].
+LOAD_TIMER = """\
+import sys, time
+from catears_tpu_torch.runtime.batch import load_waves
+reps, paths = int(sys.argv[1]), sys.argv[2:]
+load_waves(paths)
+secs = []
+for _ in range(reps):
+    t = time.perf_counter()
+    load_waves(paths)
+    secs.append(time.perf_counter() - t)
+print(repr(secs))
+"""
 
 
 def host_times(fn, reps):
@@ -61,12 +82,27 @@ def report(name, secs, scale=1e3, unit="ms"):
           f"all_{unit}={vals!r}", flush=True)
 
 
+def load_turns(checkout, paths, reps):
+    """load_waves of `checkout` and of this tree, each in its own process,
+    in turns (checkout, this, this, checkout)."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for tag, where in (("checkout", checkout), ("this", here),
+                       ("this", here), ("checkout", checkout)):
+        out = subprocess.run(
+            [sys.executable, "-c", LOAD_TIMER, str(reps), *paths],
+            cwd=where, capture_output=True, text=True, timeout=600,
+            check=True)
+        report(f"load_waves:{tag}",
+               ast.literal_eval(out.stdout.splitlines()[-1]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the profiler tables here")
     ap.add_argument("--lm", action="store_true",
                     help="profile the delta-LM config")
+    ap.add_argument("--checkout", help="also time this checkout's WAV load")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA card", file=sys.stderr)
@@ -83,7 +119,11 @@ def main(argv=None):
         if args.lm:
             conf = lm_conf
         scp = cs.write_wavs(work, np.random.RandomState(1), 8)
-        waves = load_waves([p for _, p in read_scp(scp)])
+        paths = [p for _, p in read_scp(scp)]
+        waves = load_waves(paths)
+        report("load_waves", host_times(lambda: load_waves(paths), args.reps))
+        if args.checkout:
+            load_turns(os.path.abspath(args.checkout), paths, args.reps)
 
         t0 = time.perf_counter()
         rec = Recognizer(conf, device=cuda)

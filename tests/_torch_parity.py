@@ -2,7 +2,10 @@
 
 Every parity test feeds the same numpy inputs, made from a seed, to a JAX
 function of `catears_tpu` and to its counterpart in `catears_tpu_torch`
-(both on the CPU), and compares the numpy results.
+(both on the CPU, which the port's entry points take only when asked:
+`CPU`), and compares the numpy results.  Host objects (graphs, LMs,
+configs) are built by each package from the same seeds or files: the port's
+functions get the port's own objects.
 """
 
 from __future__ import annotations
@@ -10,8 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from catears_tpu.graph.fst import FlatFst
-from catears_tpu.graph.transform import prepare_decode_graph
+from catears_tpu_torch.graph.fst import FlatFst
+from catears_tpu_torch.graph.transform import prepare_decode_graph
+
+CPU = torch.device("cpu")  # every CPU test passes it to the port explicitly
 
 DFST_META = ("eps_depth", "group", "csr_group", "eps_group", "eps_meta_ok",
              "max_emit_fanout", "eps_removed", "has_emit_olabel",
@@ -45,7 +50,7 @@ def range_error(ref, got) -> float:
     return float(np.abs(ref - got).max() / max(span, 1e-9))
 
 
-def dfst_from_jax(jd, device=torch.device("cpu")):
+def dfst_from_jax(jd, device=CPU):
     """The port's DeviceFst holding a JAX DeviceFst's tables."""
     from catears_tpu_torch.graph.device import TABLES, DeviceFst
 
@@ -55,7 +60,7 @@ def dfst_from_jax(jd, device=torch.device("cpu")):
     return DeviceFst.from_numpy(arrays, meta, device=device)
 
 
-def dlm_from_jax(jl, device=torch.device("cpu")):
+def dlm_from_jax(jl, device=CPU):
     """The port's DeviceLm holding a JAX DeviceLm's tables."""
     from catears_tpu_torch.graph.device import LM_TABLES, DeviceLm
 
@@ -66,9 +71,9 @@ def dlm_from_jax(jl, device=torch.device("cpu")):
 
 
 def random_fst(rng, num_states=12, num_trans=10, eps_prob=0.25,
-               max_olabel=5) -> FlatFst:
+               max_olabel=5, flat=FlatFst):
     """Random WFST with emitting and epsilon arcs (tests/test_decoder.py's
-    generator)."""
+    generator), as a `flat` (the port's FlatFst, or the JAX package's)."""
     arcs = []
     for s in range(num_states):
         for _ in range(rng.randint(1, 5)):
@@ -88,7 +93,7 @@ def random_fst(rng, num_states=12, num_trans=10, eps_prob=0.25,
     final = np.where(rng.rand(num_states) < 0.4,
                      (rng.rand(num_states) * 2).astype(np.float32),
                      np.float32(np.inf))
-    return FlatFst.from_arrays(
+    return flat.from_arrays(
         start=0, final=final,
         state_of_arc=arr[:, 0].astype(np.int64),
         arc_next=arr[:, 1].astype(np.int32),
@@ -97,11 +102,11 @@ def random_fst(rng, num_states=12, num_trans=10, eps_prob=0.25,
         arc_weight=arr[:, 4].astype(np.float32))
 
 
-def eps_free_random_fst(seed: int):
+def eps_free_random_fst(seed: int, flat=FlatFst):
     """(fst, seed) of the first random graph from `seed` on whose epsilon
     removal reaches the eps-free mode."""
     while True:
-        fst = random_fst(np.random.RandomState(seed))
+        fst = random_fst(np.random.RandomState(seed), flat=flat)
         if prepare_decode_graph(fst)[2] == "eps_free":
             return fst, seed
         seed += 1000

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import range_error, to_np
+from _torch_parity import CPU, range_error, to_np
 from catears_tpu.am import model as jmodel
 from catears_tpu.am import nnet as jnn
 from catears_tpu.io.config import Configuration
@@ -19,6 +19,7 @@ from catears_tpu.runtime import batch as jbatch
 from catears_tpu.tools.toy import make_toy_nnet, write_toy_model
 from catears_tpu_torch.am import model as tmodel
 from catears_tpu_torch.am import nnet as tnn
+from catears_tpu_torch.io.config import Configuration as TConfiguration
 from catears_tpu_torch.runtime import batch as tbatch
 
 ATOL = 1e-4
@@ -89,9 +90,8 @@ def _waves():
 @pytest.mark.parametrize("quantized", [False, True])
 def test_batched_logp_matches_jax(toy_conf, quantized):
     path = toy_conf[1] if quantized else toy_conf[0]
-    conf = Configuration.read(path)
-    jam = jmodel.AcousticModel.read(conf)
-    tam = tmodel.AcousticModel.read(conf)
+    jam = jmodel.AcousticModel.read(Configuration.read(path))
+    tam = tmodel.AcousticModel.read(TConfiguration.read(path), device=CPU)
     assert tam.quantized == jam.quantized == quantized
     assert np.array_equal(np.asarray(jam.log_prior), tam.log_prior.numpy())
     waves = _waves()
@@ -108,9 +108,9 @@ def test_batched_logp_matches_jax(toy_conf, quantized):
 
 
 def test_forward_padded_single_utterance(toy_conf):
-    conf = Configuration.read(toy_conf[0])
-    jam = jmodel.AcousticModel.read(conf)
-    tam = tmodel.AcousticModel.read(conf)
+    jam = jmodel.AcousticModel.read(Configuration.read(toy_conf[0]))
+    tam = tmodel.AcousticModel.read(TConfiguration.read(toy_conf[0]),
+                                    device=CPU)
     feats = np.random.RandomState(5).randn(20, 40).astype(np.float32)
     padded = jam.pad_context(feats)
     ref = np.asarray(jam.forward_padded(jnp.asarray(padded)))
@@ -127,9 +127,9 @@ def test_calibrated_batched_logp_matches_jax(toy_conf, data_dir, guard):
     from catears_tpu.frontend.fbank import fbank_from_wave, num_frames
     from catears_tpu.io.wav import read_16k_pcm
 
-    conf = Configuration.read(toy_conf[1])
-    jam = jmodel.AcousticModel.read(conf)
-    tam = tmodel.AcousticModel.read(conf)
+    jam = jmodel.AcousticModel.read(Configuration.read(toy_conf[1]))
+    tam = tmodel.AcousticModel.read(TConfiguration.read(toy_conf[1]),
+                                    device=CPU)
     cal = read_16k_pcm(os.path.join(data_dir, "en-us-cat.wav"))
     padded = jam.pad_context(np.asarray(fbank_from_wave(
         jnp.asarray(cal), num_frames(cal.shape[0]))))
@@ -149,6 +149,7 @@ def test_calibrated_batched_logp_matches_jax(toy_conf, data_dir, guard):
     for u, t in enumerate(lengths):
         assert range_error(ref[u, :t], got[u, :t]) < 0.01
     # Calibration is a no-op on the float AM.
-    fam = tmodel.AcousticModel.read(Configuration.read(toy_conf[0]))
+    fam = tmodel.AcousticModel.read(TConfiguration.read(toy_conf[0]),
+                                    device=CPU)
     fam.calibrate(padded)
     assert not any("rng" in n for n, _ in fam.named_buffers())

@@ -5,9 +5,12 @@ Run on a machine with an NVIDIA card, where JAX need not be installed
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-The int8 kernel must equal its plain version exactly; the quantized AM on
-cuda, dynamic or calibrated, must be within 1% of the output range of the
-same AM on the CPU; the delta-LM tables and walk on cuda must equal the
+The int8 kernel must equal its plain version exactly, and its fused
+dequant epilogue (`qmatmul`) its plain version bit for bit, for dynamic,
+static (`rng`) and guarded (`grng`) activation scales, at every tile width
+and on misaligned views; operands it does not take raise.  The quantized AM
+on cuda, dynamic or calibrated, must be within 1% of the output range of
+the same AM on the CPU; the delta-LM tables and walk on cuda must equal the
 CPU's (states, bit-equal weights); the decoder on cuda, LM off and on, must
 give the CPU's words and bit-equal costs.
 """
@@ -18,15 +21,15 @@ import numpy as np
 import pytest
 import torch
 
-from catears_tpu.tools.toy import make_phone_loop_graph, write_toy_model
-from catears_tpu.graph.fst import FlatFst
-from catears_tpu.io.config import Configuration
 from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
 from catears_tpu_torch.decode.decoder import BatchDecoder
 from catears_tpu_torch.graph import device as tdevice
+from catears_tpu_torch.graph.fst import FlatFst
+from catears_tpu_torch.io.config import Configuration
 from catears_tpu_torch.runtime.batch import batched_logp
+from catears_tpu_torch.tools.toy import make_phone_loop_graph, write_toy_model
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +85,108 @@ def test_matmul_s8_rejects_non_contiguous(cuda):
         quant.matmul_s8(a, w.t())
 
 
+def _quantized_operands(b, m, k, n, scales, seed):
+    """Activations [b, m, k] quantized dynamically, with one static range
+    (`rng`) or with the range widened per utterance (`grng`); a quantized
+    weight [k, n], its column sums and a bias; all on the CPU."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(b, m, k) * rng.uniform(0.5, 3.0, (b, 1, 1))
+                          + rng.uniform(-1, 1, (b, 1, 1))).astype(np.float32))
+    if scales == "dynamic":
+        aq = quant.quantize(x)
+    elif scales == "rng":
+        aq = quant.quantize_static(x, torch.tensor(-1.5), torch.tensor(2.0))
+    else:
+        aq = quant.quantize_static(
+            x, torch.minimum(torch.amin(x, dim=(-2, -1)), torch.tensor(-1.5)),
+            torch.maximum(torch.amax(x, dim=(-2, -1)), torch.tensor(2.0)))
+    wq = quant.quantize(torch.from_numpy(
+        (rng.randn(k, n) / np.sqrt(k)).astype(np.float32)))
+    colsum = torch.sum(wq.values.to(torch.int32), dim=0).to(torch.float32)
+    bias = torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32))
+    return aq, wq, colsum, bias
+
+
+def _to(q, dev):
+    return quant.QuantizedTensor(*(t.to(dev) for t in q))
+
+
+@pytest.mark.parametrize("scales", ["dynamic", "rng", "grng"])
+@pytest.mark.parametrize("b,m,k,n,bn", [
+    (8, 1638, 120, 1024, 256), (2, 1636, 3072, 1024, 256),
+    (2, 1636, 1024, 3600, 240), (3, 37, 7, 5, 128), (2, 129, 33, 250, 256),
+    (2, 300, 130, 470, 240), (1, 200, 64, 384, 128)])
+def test_qmatmul_fused_bit_equal(cuda, scales, b, m, k, n, bn):
+    """The fused epilogue on the card equals the plain version on the card
+    bit for bit, with and without the bias, at every tile width (N picks
+    it)."""
+    assert quant.tile_width(n) == bn
+    aq, wq, colsum, bias = _quantized_operands(b, m, k, n, scales, b * m + n)
+    aq, wq = _to(aq, cuda), _to(wq, cuda)
+    colsum, bias = colsum.to(cuda), bias.to(cuda)
+    before = (quant.qmatmul.launches, quant.matmul_s8.launches)
+    got = quant.qmatmul(aq, wq, colsum, bias=bias,
+                        bt=quant.transpose_pad(wq.values))
+    ref = quant.qmatmul_ref(aq, wq, colsum, bias)
+    torch.cuda.synchronize()
+    assert (quant.qmatmul.launches, quant.matmul_s8.launches) == (
+        before[0] + 1, before[1])
+    assert got.dtype == torch.float32 and got.shape == (b, m, n)
+    assert torch.equal(got, ref)
+    assert torch.equal(quant.qmatmul(aq, wq, colsum),
+                       quant.qmatmul_ref(aq, wq, colsum))
+
+
+@pytest.mark.parametrize("bn,n", [(128, 384), (240, 480), (256, 768)])
+def test_matmul_s8_exact_at_every_tile_width(cuda, bn, n):
+    assert quant.tile_width(n) == bn
+    g = torch.Generator().manual_seed(bn)
+    a = torch.randint(-128, 128, (3, 300, 200), dtype=torch.int8, generator=g)
+    w = torch.randint(-128, 128, (200, n), dtype=torch.int8, generator=g)
+    got = quant.matmul_s8(a.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), quant.matmul_s8_ref(a, w))
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_qmatmul_on_misaligned_views(cuda, offset):
+    aq, wq, colsum, bias = _quantized_operands(2, 150, 64, 48, "dynamic",
+                                               offset)
+    buf = torch.zeros(offset + aq.values.numel(), dtype=torch.int8,
+                      device=cuda)
+    values = buf[offset:].view(aq.values.shape)
+    values.copy_(aq.values.to(cuda))
+    assert values.data_ptr() % 16
+    aq = quant.QuantizedTensor(values, aq.scale.to(cuda),
+                               aq.zero_point.to(cuda))
+    wq = _to(wq, cuda)
+    got = quant.qmatmul(aq, wq, colsum.to(cuda), bias=bias.to(cuda))
+    ref = quant.qmatmul_ref(aq, wq, colsum.to(cuda), bias.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_cuda_operands_of_unsupported_shape_or_type_raise(cuda):
+    aq, wq, colsum, bias = _quantized_operands(2, 40, 32, 24, "dynamic", 0)
+    aq, wq = _to(aq, cuda), _to(wq, cuda)
+    colsum, bias = colsum.to(cuda), bias.to(cuda)
+    with pytest.raises(TypeError):
+        quant.matmul_s8(aq.values.float(), wq.values)
+    with pytest.raises(ValueError):
+        quant.matmul_s8(aq.values[None], wq.values)
+    with pytest.raises(ValueError):  # a transposed weight of another shape
+        quant.matmul_s8(aq.values, wq.values,
+                        bt=quant.transpose_pad(wq.values)[:, :16])
+    with pytest.raises(TypeError):
+        quant.qmatmul(aq, wq, colsum, bias=bias.double())
+    with pytest.raises(ValueError):
+        quant.qmatmul(aq, wq, colsum[:-1], bias=bias)
+    with pytest.raises(ValueError):  # 3 scales for 2 matrices
+        quant.qmatmul(quant.QuantizedTensor(
+            aq.values, torch.ones(3, device=cuda),
+            torch.zeros(3, dtype=torch.int32, device=cuda)), wq, colsum)
+
+
 @pytest.fixture
 def toy_quant_conf(tmp_path):
     conf = write_toy_model(str(tmp_path), rng=np.random.RandomState(5),
@@ -93,19 +198,21 @@ def toy_quant_conf(tmp_path):
 
 @pytest.mark.parametrize("calibrate", [None, "rng", "grng"])
 def test_quantized_am_cuda_vs_cpu(cuda, toy_quant_conf, calibrate):
-    from catears_tpu.io.wav import read_16k_pcm
+    from catears_tpu_torch.io.wav import read_16k_pcm
     conf = Configuration.read(toy_quant_conf)
     waves = [read_16k_pcm(os.path.join(DATA, f"en-us-{w}.wav"))
              for w in ("hello", "cat")]
-    ams = [AcousticModel.read(conf), AcousticModel.read(conf, device=cuda)]
+    ams = [AcousticModel.read(conf, device=torch.device("cpu")),
+           AcousticModel.read(conf, device=cuda)]
     if calibrate:
         feats = np.random.RandomState(1).randn(60, 40).astype(np.float32)
         for am in ams:
             am.calibrate(feats, guard=calibrate == "grng")
     ref, lengths = batched_logp(ams[0], waves)
-    before = quant.matmul_s8.launches
+    before = quant.qmatmul.launches
     got, _ = batched_logp(ams[1], waves)
-    assert quant.matmul_s8.launches > before
+    linears = sum(1 for layer in ams[1].nnet_def if layer[0] == "linear")
+    assert quant.qmatmul.launches == before + linears
     got = got.cpu().numpy()
     ref = ref.numpy()
     for u, t in enumerate(lengths):
@@ -128,7 +235,7 @@ def test_decoder_cuda_vs_cpu(cuda):
 
 
 def _big_lm_queries(num_words=2000):
-    from catears_tpu.tools.biggraph import make_big_lm
+    from catears_tpu_torch.tools.biggraph import make_big_lm
 
     big = make_big_lm(np.random.RandomState(7), num_words=num_words)
     rng = np.random.RandomState(3)
@@ -166,8 +273,8 @@ def test_lm_walk_cuda_vs_cpu(cuda):
 
 
 def test_decoder_with_lm_cuda_vs_cpu(cuda):
-    from catears_tpu.tools.biggraph import (make_big_lm, make_trie_graph,
-                                            plant_logp)
+    from catears_tpu_torch.tools.biggraph import (make_big_lm,
+                                                  make_trie_graph, plant_logp)
 
     rng = np.random.RandomState(1)
     g = make_trie_graph(rng, num_words=120, num_phones=25, bigram_states=30,

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_same, dfst_from_jax, dlm_from_jax,
+from _torch_parity import (CPU, assert_same, dfst_from_jax, dlm_from_jax,
                            eps_free_random_fst)
 from catears_tpu.decode import beam as jbeam
 from catears_tpu.decode import decoder as jdecoder
@@ -33,6 +33,13 @@ from catears_tpu.tools.toy import make_phone_loop_graph
 from catears_tpu.utils.errors import BeamCapacityError
 from catears_tpu_torch.decode import beam as tbeam
 from catears_tpu_torch.decode import decoder as tdecoder
+from catears_tpu_torch.graph import fst as tfst
+from catears_tpu_torch.graph import transform as ttransform
+from catears_tpu_torch.io import binfmt as tbinfmt
+from catears_tpu_torch.io import symbols as tsymbols
+from catears_tpu_torch.tools import biggraph as tbiggraph
+from catears_tpu_torch.tools import toy as ttoy
+from catears_tpu_torch.utils import errors as terrors
 
 CHUNK = 8
 
@@ -87,7 +94,7 @@ def _dirichlet(rng, p, size):
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_random_eps_free_graphs(seed):
-    fst, used = eps_free_random_fst(seed)
+    fst, used = eps_free_random_fst(seed, flat=FlatFst)
     rng = np.random.RandomState(used + 1)
     jd, td = _build(fst, np.arange(11, dtype=np.int32), group=2)
     jcfg, tcfg = _configs()
@@ -123,18 +130,20 @@ def test_dead_end_freezes_beam():
     arcs = np.array([(0, 1, 1, 1, 0.5), (1, 2, 2, 2, 0.5)])
     final = np.full(3, np.inf, np.float32)
     final[2] = 0.0
-    fst = FlatFst.from_arrays(
+    fst, port_fst = (flat.from_arrays(
         start=0, final=final, state_of_arc=arcs[:, 0].astype(np.int64),
         arc_next=arcs[:, 1].astype(np.int32),
         arc_ilabel=arcs[:, 2].astype(np.int32),
         arc_olabel=arcs[:, 3].astype(np.int32),
         arc_weight=arcs[:, 4].astype(np.float32))
+        for flat in (FlatFst, tfst.FlatFst))
     tid2pdf = np.arange(3, dtype=np.int32)
     jd, td = _build(fst, tid2pdf, group=2)
     jcfg, tcfg = _configs(beam_size=16)
     logp = np.log(np.full((2, 6, 3), 1 / 3, np.float32))
     run_chunks(jd, td, jcfg, tcfg, logp, [6, 4])
-    dec = tdecoder.BatchDecoder(fst, tid2pdf, config=tcfg, arc_group=2)
+    dec = tdecoder.BatchDecoder(port_fst, tid2pdf, config=tcfg, arc_group=2,
+                                device=CPU)
     assert [h.words for h in dec.decode(logp, [6, 4])] == [[1, 2], [1, 2]]
 
 
@@ -156,13 +165,16 @@ def test_batch_decoder_retry_matches_jax():
     rng = np.random.RandomState(5)
     g = make_phone_loop_graph(rng, num_words=40, num_pdfs=32)
     fst = FlatFst.from_raw(g.fst)
+    port_fst = tfst.FlatFst.from_raw(ttoy.make_phone_loop_graph(
+        np.random.RandomState(5), num_words=40, num_pdfs=32).fst)
     logp = _dirichlet(rng, 32, (2, 30))
     lengths = [30, 19]
     jcfg, tcfg = _configs(beam_size=64, expand_size=8, eps_expand_size=512,
                           beam=1e9)
     ref = jdecoder.decode_batch(fst, g.tid2pdf, logp, lengths, config=jcfg,
                                 arc_group=1, chunk_frames=10)
-    dec = tdecoder.BatchDecoder(fst, g.tid2pdf, config=tcfg, arc_group=1)
+    dec = tdecoder.BatchDecoder(port_fst, g.tid2pdf, config=tcfg,
+                                arc_group=1, device=CPU)
     got = dec.decode(logp, lengths)
     assert [h.words for h in got] == [h.words for h in ref]
     assert [h.weight for h in got] == [h.weight for h in ref]
@@ -170,7 +182,7 @@ def test_batch_decoder_retry_matches_jax():
         jdecoder.decode_batch(fst, g.tid2pdf, logp, lengths, config=jcfg,
                               arc_group=1, chunk_frames=10,
                               retry_on_overflow=False)
-    with pytest.raises(BeamCapacityError) as terr:
+    with pytest.raises(terrors.BeamCapacityError) as terr:
         dec.decode(logp, lengths, retry_on_overflow=False)
     assert terr.value.hiwater == jerr.value.hiwater
 
@@ -224,6 +236,15 @@ def toy_delta(data_dir):
     return DeltaLmFst(small, lm, table)
 
 
+@pytest.fixture(scope="module")
+def port_toy_delta(data_dir):
+    """The same G', read by the port."""
+    lm = tfst.LmFst.read_lm(os.path.join(data_dir, "G.pfst"))
+    table = tsymbols.SymbolTable.read(os.path.join(data_dir, "lm.words.txt"))
+    small = tbinfmt.read_vec0_file(os.path.join(data_dir, "lm.1order.bin"))
+    return tfst.DeltaLmFst(small, lm, table)
+
+
 def _lm_pair(delta):
     jl = JaxDeviceLm.build(delta)
     return jl, dlm_from_jax(jl)
@@ -239,7 +260,7 @@ def _with_lm_words(fst, delta, rng):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_graphs_with_delta_lm(toy_delta, seed):
-    fst, used = eps_free_random_fst(seed)
+    fst, used = eps_free_random_fst(seed, flat=FlatFst)
     rng = np.random.RandomState(used + 7)
     fst = _with_lm_words(fst, toy_delta, rng)
     jd, td = _build(fst, np.arange(11, dtype=np.int32), group=2)
@@ -261,6 +282,15 @@ def planted_lm():
                         num_words=g.num_words).delta_lm()
     logp, _ = plant_logp(rng, g, 2, 40)
     return g, delta, logp, [40, 29]
+
+
+@pytest.fixture(scope="module")
+def port_planted_lm():
+    """The port's own trie graph and G' from the same seeds."""
+    g = tbiggraph.make_trie_graph(np.random.RandomState(1), num_words=120,
+                                  num_phones=25, bigram_states=30, variants=2)
+    return g, tbiggraph.make_big_lm(np.random.RandomState(9),
+                                    num_words=g.num_words).delta_lm()
 
 
 def _planted_configs(**kw):
@@ -292,49 +322,56 @@ def test_planted_trie_with_big_delta_lm(planted_lm, cap):
             assert_same(getattr(final, name), getattr(capped, name), name)
 
 
-def test_batch_decoder_with_delta_lm_matches_jax(planted_lm, toy_delta):
+def test_batch_decoder_with_delta_lm_matches_jax(planted_lm, port_planted_lm,
+                                                 toy_delta, port_toy_delta):
     """Words and bit-equal totals (LM final weights included), on the
     planted trie with its big G' and on a random graph with the toy G'."""
     g, delta, logp, lengths = planted_lm
+    tg, tdelta = port_planted_lm
     jcfg, tcfg = _planted_configs()
     ref = jdecoder.decode_batch(g.fst, g.tid2pdf, logp, lengths,
                                 delta_lm=delta, config=jcfg, arc_group=2,
                                 csr_group=16, chunk_frames=16,
                                 retry_on_overflow=False)
-    got = tdecoder.BatchDecoder(g.fst, g.tid2pdf, config=tcfg, arc_group=2,
-                                csr_group=16, delta_lm=delta).decode(
+    got = tdecoder.BatchDecoder(tg.fst, tg.tid2pdf, config=tcfg, arc_group=2,
+                                csr_group=16, delta_lm=tdelta,
+                                device=CPU).decode(
         logp, lengths, retry_on_overflow=False)
     assert [h.words for h in got] == [h.words for h in ref]
     assert [h.weight for h in got] == [h.weight for h in ref]
     assert any(h.words for h in got)
 
-    fst, used = eps_free_random_fst(4)
+    fst, used = eps_free_random_fst(4, flat=FlatFst)
     rng = np.random.RandomState(used + 7)
     fst = _with_lm_words(fst, toy_delta, rng)
+    port_fst = _with_lm_words(eps_free_random_fst(4)[0], port_toy_delta,
+                              np.random.RandomState(used + 7))
     tid2pdf = np.arange(11, dtype=np.int32)
     lp = _dirichlet(rng, 11, (3, 15))
     jcfg, tcfg = _configs()
     ref = jdecoder.decode_batch(fst, tid2pdf, lp, [15, 11, 6],
                                 delta_lm=toy_delta, config=jcfg, arc_group=2,
                                 chunk_frames=8)
-    got = tdecoder.BatchDecoder(fst, tid2pdf, config=tcfg, arc_group=2,
-                                delta_lm=toy_delta).decode(lp, [15, 11, 6])
+    got = tdecoder.BatchDecoder(port_fst, tid2pdf, config=tcfg, arc_group=2,
+                                delta_lm=port_toy_delta,
+                                device=CPU).decode(lp, [15, 11, 6])
     assert [h.words for h in got] == [h.words for h in ref]
     assert [h.weight for h in got] == [h.weight for h in ref]
     assert np.isfinite([h.weight for h in got]).any()
 
 
-def test_batch_decoder_lm_regrow_matches_jax(planted_lm):
+def test_batch_decoder_lm_regrow_matches_jax(planted_lm, port_planted_lm):
     """lm_expand_size = 1 overflows: both regrow lm_expand_size from the
     high-water mark and retry once, with identical words and totals;
     without retry both raise with the same hiwater."""
     g, delta, logp, lengths = planted_lm
+    tg, tdelta = port_planted_lm
     jcfg, tcfg = _planted_configs(lm_expand_size=1)
     ref = jdecoder.decode_batch(g.fst, g.tid2pdf, logp, lengths,
                                 delta_lm=delta, config=jcfg, arc_group=2,
                                 csr_group=16, chunk_frames=16)
-    dec = tdecoder.BatchDecoder(g.fst, g.tid2pdf, config=tcfg, arc_group=2,
-                                csr_group=16, delta_lm=delta)
+    dec = tdecoder.BatchDecoder(tg.fst, tg.tid2pdf, config=tcfg, arc_group=2,
+                                csr_group=16, delta_lm=tdelta, device=CPU)
     got = dec.decode(logp, lengths)
     assert [h.words for h in got] == [h.words for h in ref]
     assert [h.weight for h in got] == [h.weight for h in ref]
@@ -343,7 +380,7 @@ def test_batch_decoder_lm_regrow_matches_jax(planted_lm):
                               delta_lm=delta, config=jcfg, arc_group=2,
                               csr_group=16, chunk_frames=16,
                               retry_on_overflow=False)
-    with pytest.raises(BeamCapacityError) as terr:
+    with pytest.raises(terrors.BeamCapacityError) as terr:
         dec.decode(logp, lengths, retry_on_overflow=False)
     assert terr.value.hiwater == jerr.value.hiwater
     regrown = tdecoder._regrow_config(tcfg, terr.value.hiwater)
@@ -351,12 +388,13 @@ def test_batch_decoder_lm_regrow_matches_jax(planted_lm):
         jcfg, jerr.value.hiwater, 1.5).lm_expand_size > 1
 
 
-def test_safe_config_with_lm_matches_jax(planted_lm):
+def test_safe_config_with_lm_matches_jax(planted_lm, port_planted_lm):
     g, _, _, _ = planted_lm
     g2, _, _ = prepare_decode_graph(g.fst)
+    tg2, _, _ = ttransform.prepare_decode_graph(port_planted_lm[0].fst)
     jcfg, tcfg = _planted_configs()
     for has_lm in (False, True):
         ref = jdecoder.safe_config(g2, 2, jcfg, has_lm, csr_group=16)
-        got = tdecoder.safe_config(g2, 2, tcfg, has_lm, csr_group=16)
+        got = tdecoder.safe_config(tg2, 2, tcfg, has_lm, csr_group=16)
         assert (got.expand_size, got.eps_expand_size) == (
             ref.expand_size, ref.eps_expand_size)

@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import DLM_META, assert_same, dlm_from_jax
+from _torch_parity import CPU, DLM_META, assert_same, dlm_from_jax
 from catears_tpu.graph import device as jdevice
+from catears_tpu.graph import fst as jfst
 from catears_tpu.graph.fst import DeltaLmFst, LmFst
 from catears_tpu.tools.biggraph import make_big_lm
 from catears_tpu_torch.graph import device as tdevice
+from catears_tpu_torch.graph import fst as tfst
+from catears_tpu_torch.tools.biggraph import make_big_lm as t_make_big_lm
 
 
 @pytest.fixture(scope="module")
@@ -23,18 +26,25 @@ def big():
     return make_big_lm(np.random.RandomState(7), num_words=2000)
 
 
-def unigram_only_delta():
-    """tests/test_graph.py's G' whose arcs all live on state 0."""
+@pytest.fixture(scope="module")
+def tbig():
+    """The port's own G' from the same seed."""
+    return t_make_big_lm(np.random.RandomState(7), num_words=2000)
+
+
+def unigram_only_delta(fst=jfst):
+    """tests/test_graph.py's G' whose arcs all live on state 0, built by
+    `fst` (the JAX package's graph.fst, or the port's)."""
     import types
 
     labels = np.arange(1, 7, dtype=np.int32)
-    lm = LmFst.from_arrays(
+    lm = fst.LmFst.from_arrays(
         start=0, final=np.zeros(1, np.float32),
         state_of_arc=np.zeros(6, np.int64), arc_next=np.zeros(6),
         arc_ilabel=labels, arc_olabel=labels,
         arc_weight=np.linspace(0.5, 3.0, 6).astype(np.float32))
-    return DeltaLmFst(np.zeros(7, np.float32), lm,
-                      types.SimpleNamespace(bos_id=1, eos_id=2))
+    return fst.DeltaLmFst(np.zeros(7, np.float32), lm,
+                          types.SimpleNamespace(bos_id=1, eos_id=2))
 
 
 def mixed_queries(big, n=512, seed=3):
@@ -72,10 +82,13 @@ def test_lm_hash_bit_equal_to_uint32(seed, mask):
 
 
 @pytest.mark.parametrize("which", ["big", "unigram_only"])
-def test_device_lm_tables_byte_equal(big, which):
-    delta = big.delta_lm() if which == "big" else unigram_only_delta()
-    jl = jdevice.DeviceLm.build(delta)
-    tl = tdevice.DeviceLm.build(delta)
+def test_device_lm_tables_byte_equal(big, tbig, which):
+    if which == "big":
+        jl = jdevice.DeviceLm.build(big.delta_lm())
+        tl = tdevice.DeviceLm.build(tbig.delta_lm(), device=CPU)
+    else:
+        jl = jdevice.DeviceLm.build(unigram_only_delta())
+        tl = tdevice.DeviceLm.build(unigram_only_delta(tfst), device=CPU)
     for name in tdevice.LM_TABLES:
         assert_same(getattr(jl, name), getattr(tl, name), name)
     assert int(jl.start) == tl.start
@@ -189,9 +202,8 @@ def test_static_iteration_bound_is_reached(monkeypatch):
 
 
 def test_unigram_only_propagate():
-    delta = unigram_only_delta()
-    jl = jdevice.DeviceLm.build(delta)
-    tl = tdevice.DeviceLm.build(delta)
+    jl = jdevice.DeviceLm.build(unigram_only_delta())
+    tl = tdevice.DeviceLm.build(unigram_only_delta(tfst), device=CPU)
     qs = np.zeros(8, np.int32)
     ql = np.asarray([0, 1, 2, 3, 4, 5, 6, 6], np.int32)
     ref = jdevice.lm_propagate(jl, jnp.asarray(qs), jnp.asarray(ql))

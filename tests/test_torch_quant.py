@@ -2,7 +2,8 @@
 
 The JAX matmul_s8 runs its Pallas kernel in interpret mode on the CPU.
 Tolerances: quantize and quantize_static give equal int8 values, scale and
-zero point; matmul_s8 / matmul_s8_ref are exact int32; qmatmul agrees to
+zero point; matmul_s8 / matmul_s8_ref are exact int32, also through the
+kernel's transposed, K-padded weight; qmatmul (with its bias) agrees to
 rtol 1e-6 (the epilogue's float ops may round differently under XLA's
 fusion); the int8 layer stack has max error < 1% of the output range (a
 one-step rounding flip in one layer moves the next layer's quantization).
@@ -91,6 +92,77 @@ def test_qmatmul_matches_jax(shape):
                      tq.quantize(torch.from_numpy(b))).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(
         ref).max())
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 8), (129, 65, 257)])
+def test_qmatmul_bias_matches_jax(shape):
+    """qmatmul(..., bias=) on the CPU is qmatmul(...) + b exactly, and
+    matches JAX's qmatmul(...) + b to test_qmatmul_matches_jax's
+    tolerance."""
+    m, k, n = shape
+    rng = np.random.RandomState(sum(shape) + 1)
+    a = rng.randn(m, k).astype(np.float32)
+    b = (rng.randn(k, n).astype(np.float32) * 2 + 0.5)
+    bias = (rng.randn(n) * 0.1).astype(np.float32)
+    jaq, jbq = jq.quantize(jnp.asarray(a)), jq.quantize(jnp.asarray(b))
+    ref = np.asarray(jq.qmatmul(jaq, jbq, interpret=True) + jnp.asarray(bias))
+    aq, bq = tq.quantize(torch.from_numpy(a)), tq.quantize(torch.from_numpy(b))
+    got = tq.qmatmul(aq, bq, bias=torch.from_numpy(bias))
+    assert torch.equal(got, tq.qmatmul(aq, bq) + torch.from_numpy(bias))
+    assert torch.equal(got, tq.qmatmul_ref(aq, bq, bias=torch.from_numpy(bias)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("k,n", [(7, 5), (120, 64), (128, 33), (130, 17)])
+def test_transposed_padded_weight_layout(k, n):
+    """Wt [N, Kp]: W transposed, K zero-padded to a multiple of 16; the pad
+    leaves the int8 dot, and so qmatmul, unchanged."""
+    rng = np.random.RandomState(k * n)
+    w = rng.randint(-128, 128, (k, n)).astype(np.int8)
+    a = rng.randint(-128, 128, (2, 9, k)).astype(np.int8)
+    bt = tq.transpose_pad(torch.from_numpy(w))
+    kp = tq.padded_k(k)
+    assert kp % 16 == 0 and 0 <= kp - k < 16
+    assert bt.shape == (n, kp) and bt.dtype == torch.int8 and bt.is_contiguous()
+    assert np.array_equal(bt[:, :k].numpy(), w.T) and not bt[:, k:].any()
+    a_p = torch.nn.functional.pad(torch.from_numpy(a), (0, kp - k))
+    ref = tq.matmul_s8_ref(torch.from_numpy(a), torch.from_numpy(w))
+    assert torch.equal(tq.matmul_s8_ref(a_p, bt.t().contiguous()), ref)
+    # The kernel's operands as the wrappers prepare them, also for a
+    # contiguous view that does not start on a 16-byte boundary.
+    buf = torch.zeros(1 + a.size, dtype=torch.int8)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    for a3 in (torch.from_numpy(a), view):
+        a2, bt2, kp2 = tq._launch_operands(a3, torch.from_numpy(w), None)
+        assert kp2 == kp and torch.equal(bt2, bt)
+        assert a2.shape == (18, kp) and a2.data_ptr() % 16 == 0
+        assert torch.equal(tq.matmul_s8_ref(a2, bt2.t().contiguous()),
+                           ref.reshape(18, n))
+    aq = tq.quantize(torch.from_numpy(rng.randn(2, 9, k).astype(np.float32)))
+    wq = tq.quantize(torch.from_numpy(rng.randn(k, n).astype(np.float32)))
+    assert torch.equal(tq.qmatmul(aq, wq, bt=tq.transpose_pad(wq.values)),
+                       tq.qmatmul_ref(aq, wq))
+
+
+def test_transposed_weight_buffer_built_by_both_constructors():
+    rng = np.random.RandomState(4)
+    nnet_def, params = jnn.build_nnet(make_toy_nnet(rng, hidden=48,
+                                                    num_pdfs=40))
+    own = tq.quantize_params(nnet_def, [{k: to_np(v) for k, v in p.items()}
+                                        for p in params])
+    carried = tq.from_jax_qparams(nnet_def,
+                                  jq.quantize_params(nnet_def, params))
+    linears = [i for i, layer in enumerate(nnet_def) if layer[0] == "linear"]
+    assert len(linears) == 3
+    for i in linears:
+        for net in (own, carried):
+            p = net.params(i)
+            assert torch.equal(p["wqt_values"],
+                               tq.transpose_pad(p["wq_values"]))
+        assert torch.equal(own.params(i)["wqt_values"],
+                           carried.params(i)["wqt_values"])
 
 
 def test_nnet_forward_quant_matches_jax():

@@ -2,11 +2,14 @@
 
 Transcripts must be identical, for the float and the int8 (`quantized =
 true`) acoustic model, LM off and with delta-LM rescoring.  Also: the port
-never imports jax, and inputs it does not carry yet fail with a one-line
-`catears:` error.
+imports neither jax nor the JAX package, its entry points run on the card
+unless asked for the CPU, and inputs it does not carry yet fail with a
+one-line `catears:` error.
 """
 
+import ast
 import contextlib
+import glob
 import io
 import os
 import subprocess
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import write_scp
+from _torch_parity import CPU, write_scp
 from catears_tpu.cli import main as jax_main
 from catears_tpu.tools.biggraph import write_trie_model
 from catears_tpu.tools.toy import write_toy_model
@@ -130,20 +133,115 @@ def test_delta_lm_without_original_lm_fails_as_jax(lm_model):
     assert (rc_j, out_j, err_j) == (rc_t, out_t, err_t)
 
 
+# Files that must not import jax or the JAX package: every module of the
+# port, the card's smoke run and the profile script.
+PORT_SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "torch_profile.py"))
+REFUSED = ("jax", "jaxlib", "catears_tpu")
+
+
 def test_port_never_imports_jax():
-    code = (
-        "import pkgutil, importlib, sys\n"
-        "import catears_tpu_torch\n"
-        "for m in pkgutil.walk_packages(catears_tpu_torch.__path__,\n"
-        "                               'catears_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "print('ok')\n")
+    """In a fresh interpreter whose import system refuses jax and
+    catears_tpu (the bare names and every submodule), every module of the
+    port imports, and so do the two scripts, as modules."""
+    code = f"""
+import importlib, importlib.util, pkgutil, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {REFUSED!r}:
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import catears_tpu_torch
+for m in pkgutil.walk_packages(catears_tpu_torch.__path__,
+                               "catears_tpu_torch."):
+    importlib.import_module(m.name)
+for path in {PORT_SCRIPTS!r}:
+    name = path.split("/")[-1][:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    sys.modules[name] = module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+assert not [m for m in sys.modules if m.split(".")[0] in {REFUSED!r}]
+print("ok")
+"""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _port_files():
+    package = glob.glob(os.path.join(REPO, "catears_tpu_torch", "**", "*.py"),
+                        recursive=True)
+    return sorted([p for p in package if "_build" not in p.split(os.sep)]
+                  + [os.path.join(REPO, p) for p in PORT_SCRIPTS])
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_names_no_jax_package_in_imports(path):
+    """No import statement of a port file names catears_tpu or jax."""
+    with open(path) as fd:
+        tree = ast.parse(fd.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in REFUSED, (
+                f"{path}:{node.lineno} imports {name}")
+
+
+def _entry_point_calls(conf):
+    """Each public constructor of the port, called without `device`."""
+    from catears_tpu_torch.am.model import AcousticModel
+    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.graph import device as tdevice
+    from catears_tpu_torch.graph.fst import FlatFst
+    from catears_tpu_torch.io.config import Configuration
+    from catears_tpu_torch.runtime.recognizer import Recognizer
+    from catears_tpu_torch.tools.biggraph import make_big_lm
+
+    config = Configuration.read(conf)
+    fst = FlatFst.read(config.get_path("fst"))
+    tid2pdf = np.arange(fst.arc_ilabel.max() + 1, dtype=np.int32)
+    delta = make_big_lm(np.random.RandomState(0), num_words=20).delta_lm()
+    return {
+        "Recognizer": lambda: Recognizer(conf),
+        "BatchDecoder": lambda: BatchDecoder(fst, tid2pdf),
+        "AcousticModel": lambda: AcousticModel(
+            (("relu",),), [{}], np.zeros(4), tid2pdf, 0, 0, 8, 4),
+        "AcousticModel.read": lambda: AcousticModel.read(config),
+        "DeviceFst.build": lambda: tdevice.DeviceFst.build(fst, tid2pdf),
+        "DeviceFst.from_numpy": lambda: tdevice.DeviceFst.from_numpy(
+            *tdevice.build_arrays(fst, tid2pdf)),
+        "DeviceLm.build": lambda: tdevice.DeviceLm.build(delta),
+        "DeviceLm.from_numpy": lambda: tdevice.DeviceLm.from_numpy(
+            *tdevice.lm_arrays(delta)),
+    }
+
+
+ENTRY_POINTS = ("Recognizer", "BatchDecoder", "AcousticModel",
+                "AcousticModel.read", "DeviceFst.build",
+                "DeviceFst.from_numpy", "DeviceLm.build",
+                "DeviceLm.from_numpy")
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(model, monkeypatch, entry):
+    """Called without `device` where no card is present, every entry point
+    raises the port's CatEarsError (the CLI's message), never running on
+    the CPU instead."""
+    from catears_tpu_torch.utils.errors import CatEarsError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(CatEarsError, match="no CUDA device is available"):
+        _entry_point_calls(model[1])[entry]()
 
 
 def _one_line_error(rc, out, err, needle):
@@ -176,10 +274,10 @@ def test_graph_not_eps_free_is_rejected():
     """An epsilon path with two output labels keeps the graph out of
     prepare_decode_graph's eps-free mode, which the port's decoder does not
     carry yet."""
-    from catears_tpu.graph.fst import FlatFst
-    from catears_tpu.graph.transform import prepare_decode_graph
-    from catears_tpu.utils.errors import NotImplementedError_
     from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.graph.fst import FlatFst
+    from catears_tpu_torch.graph.transform import prepare_decode_graph
+    from catears_tpu_torch.utils.errors import NotImplementedError_
 
     arcs = np.array([(0, 1, 0, 1, 0.5), (1, 2, 0, 2, 0.5), (0, 0, 1, 0, 1.0),
                      (2, 2, 2, 0, 1.0)])
@@ -192,4 +290,4 @@ def test_graph_not_eps_free_is_rejected():
         arc_weight=arcs[:, 4].astype(np.float32))
     assert prepare_decode_graph(fst)[2] != "eps_free"
     with pytest.raises(NotImplementedError_, match="not yet ported"):
-        BatchDecoder(fst, np.arange(3, dtype=np.int32))
+        BatchDecoder(fst, np.arange(3, dtype=np.int32), device=CPU)
