@@ -1,13 +1,20 @@
-"""Acoustic model: nnet + log-prior + transition->pdf map (port of
-catears_tpu/am/model.py, whole-utterance path).
+"""Acoustic model: nnet + log-prior + transition->pdf map, with streaming
+(port of catears_tpu/am/model.py).
 
 Output is the nnet's log-softmax minus the log-prior (pseudo
 log-likelihood).  `forward_padded` takes context-padded features, [L + T + R,
 40] for one utterance or [B, L + T + R, 40] for a padded batch, and returns
-[T, P] / [B, T, P].  The streaming wrapper (AMStream) is not ported yet.
+[T, P] / [B, T, P].  `forward` is the JAX package's whole-utterance host
+path (numpy in and out, edges replicated) and `AMStream` its chunked
+streaming wrapper.  Both pad the rows to the JAX package's bucketed counts
+with the replicated last frame: with `quantized = true` the pad takes part
+in each layer's min/max, so another row count would give other int8
+log-probs.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -15,6 +22,7 @@ from torch import nn
 
 from catears_tpu_torch.am.nnet import NnetDef, Nnet, build_nnet
 from catears_tpu_torch.am.quant import calibrate_ranges, quantize_params
+from catears_tpu_torch.frontend.fbank import bucket
 from catears_tpu_torch.io.binfmt import read_nnet_file, read_vec0_file
 from catears_tpu_torch.io.config import Configuration
 from catears_tpu_torch.utils.device import Device, resolve_device
@@ -86,8 +94,78 @@ class AcousticModel(nn.Module):
                           for x in padded_feats],
                          margin=margin, guard=guard)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+    def forward_padded(self, feats: torch.Tensor) -> torch.Tensor:
         """Context-padded features -> log-likelihoods (see module doc)."""
         return self.nnet(feats) - self.log_prior
 
-    forward_padded = forward  # the JAX AcousticModel's name
+    def _padded_numpy(self, padded: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            out = self.forward_padded(torch.as_tensor(
+                np.asarray(padded, np.float32)).to(self.device))
+        return out.cpu().numpy()
+
+    def forward(self, feats: np.ndarray) -> np.ndarray:
+        """[T, 40] -> [T, P] (numpy): replicate-pad the edges, pad the rows
+        to the bucketed count with the last frame, run the nnet once."""
+        t = feats.shape[0]
+        if t == 0:
+            return np.zeros((0, self.num_pdfs), np.float32)
+        padded = np.concatenate([
+            self.pad_context(feats),
+            np.repeat(feats[-1:], bucket(t) - t, axis=0)])
+        return self._padded_numpy(padded)[:t]
+
+    def pad_context(self, feats: np.ndarray) -> np.ndarray:
+        return np.concatenate([
+            np.repeat(feats[:1], self.left_context, axis=0),
+            feats,
+            np.repeat(feats[-1:], self.right_context, axis=0),
+        ])
+
+
+class AMStream:
+    """Streaming chunked inference with the reference's padding: the first
+    frame replicated left_context times at the start, the last frame
+    right_context times at the end of the stream."""
+
+    def __init__(self, am: AcousticModel):
+        self.am = am
+        self._buffer: Optional[np.ndarray] = None  # [n, 40]
+        self._started = False
+
+    def process(self, feats: np.ndarray) -> np.ndarray:
+        """Append frames; emit chunk_size log-prob rows per full window."""
+        am = self.am
+        if feats.shape[0] == 0:
+            return np.zeros((0, am.num_pdfs), np.float32)
+        if not self._started:
+            self._buffer = np.repeat(feats[:1], am.left_context, axis=0)
+            self._started = True
+        self._buffer = np.concatenate([self._buffer, feats])
+
+        outputs: List[np.ndarray] = []
+        window = am.left_context + am.right_context + am.chunk_size
+        while self._buffer.shape[0] >= window:
+            outputs.append(am._padded_numpy(self._buffer[:window]))
+            self._buffer = self._buffer[am.chunk_size:]
+        if not outputs:
+            return np.zeros((0, am.num_pdfs), np.float32)
+        return np.concatenate(outputs)
+
+    def end_of_stream(self) -> np.ndarray:
+        """Pad the right context with the last frame and flush."""
+        am = self.am
+        if self._buffer is None or self._buffer.shape[0] == 0:
+            return np.zeros((0, am.num_pdfs), np.float32)
+        if (self._buffer.shape[0] + am.right_context
+                <= am.left_context + am.right_context):
+            return np.zeros((0, am.num_pdfs), np.float32)
+        t = self._buffer.shape[0] - am.left_context  # valid output rows
+        buf = np.concatenate([
+            self._buffer,
+            np.repeat(self._buffer[-1:], am.right_context + bucket(t) - t,
+                      axis=0),
+        ])
+        out = am._padded_numpy(buf)
+        self._buffer = np.zeros((0, FEAT_DIM), np.float32)
+        return out[:t]

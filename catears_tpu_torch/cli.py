@@ -1,31 +1,36 @@
-"""Command-line batch decoder on PyTorch (port of catears_tpu/cli.py's scp
-batch path).
+"""Command-line decoder on PyTorch (port of catears_tpu/cli.py).
 
-Usage: python -m catears_tpu_torch.cli --batch[=N] [--device=cuda|cpu]
-           <config-file> <list.scp>
-  --batch[=N]  decode the scp's `name path` entries N at a time (default
-               16) in one batched beam search; prints `name hyp` per line.
-  --device     where the AM and the decoder run; default cuda.  A default
-               run without a CUDA device fails; it never falls back to the
-               CPU.
+Usage: python -m catears_tpu_torch.cli [--batch[=N]] [--device=cuda|cpu]
+           <config-file> <input-file>
+  *.wav        decode this file through the streaming Utterance path (fused
+               chunk steps), print the hypothesis.
+  *.scp        decode `name path` entries one by one the same way, print
+               `name hyp` per line.
+  --batch[=N]  decode the scp's entries N at a time (default 16) in one
+               batched beam search instead.
+  --device     where the fbank, the AM and the decoder run; default cuda.
+               A default run without a CUDA device fails; it never falls
+               back to the CPU.
 
-The config may name a delta-LM (`large_lm` + `original_lm`): the decode is
-then rescored by it, as the JAX CLI's is.  Inputs the port does not carry
-yet fail with a one-line `catears:` error: a .wav input or an scp without
---batch (the streaming Utterance path), `cmvn_stats`, and graphs whose
-epsilon removal does not reach the eps-free mode.
+The config may name a delta-LM (`large_lm` + `original_lm`) and online CMVN
+stats (`cmvn_stats`), on either path, as the JAX CLI's may.  Graphs whose
+epsilon removal does not reach the eps-free mode, and `select_compact`,
+fail with a one-line `catears:` error.
 """
 
 from __future__ import annotations
 
 import sys
 
-from catears_tpu_torch.utils.errors import CatEarsError, NotImplementedError_
+from catears_tpu_torch.utils.errors import CatEarsError
 
 
 def print_usage() -> None:
-    print("Usage: catears-torch --batch[=N] [--device=cuda|cpu] "
-          "<model-config> <list.scp>")
+    print("Usage: catears-torch [--batch[=N]] [--device=cuda|cpu] "
+          "<model-config> <input-file>")
+    print("  Input-file:")
+    print("    *.wav: decode this file.")
+    print("    *.scp: decode audios listed in it.")
     sys.exit(1)
 
 
@@ -46,6 +51,8 @@ def main(argv=None) -> int:
     if len(argv) != 2 or device not in ("cuda", "cpu"):
         print_usage()
     config_file, input_file = argv
+    if len(input_file) < 4:
+        print_usage()
     try:
         return _run(config_file, input_file, batch_size, device)
     except (CatEarsError, OSError) as e:
@@ -55,17 +62,21 @@ def main(argv=None) -> int:
 
 def _run(config_file: str, input_file: str, batch_size: int,
          device: str) -> int:
-    if input_file.endswith(".wav") or batch_size <= 0:
-        raise NotImplementedError_(
-            "single-utterance streaming decode is not yet ported to the "
-            "PyTorch backend; pass an scp with --batch")
-    from catears_tpu_torch.runtime.batch import decode_scp
-    from catears_tpu_torch.runtime.recognizer import Recognizer
+    from catears_tpu_torch.io.wav import read_scp
+    from catears_tpu_torch.runtime.recognizer import (Recognizer,
+                                                      decode_wav_file)
 
     recognizer = Recognizer(config_file, device=device)
-    for name, hyp in decode_scp(recognizer, input_file,
-                                batch_size=batch_size):
-        print(f"{name} {hyp}")
+    if input_file.endswith(".wav"):
+        print(decode_wav_file(recognizer, input_file))
+    elif batch_size > 0:
+        from catears_tpu_torch.runtime.batch import decode_scp
+        for name, hyp in decode_scp(recognizer, input_file,
+                                    batch_size=batch_size):
+            print(f"{name} {hyp}")
+    else:
+        for name, wav_path in read_scp(input_file):
+            print(f"{name} {decode_wav_file(recognizer, wav_path)}")
     return 0
 
 

@@ -1,11 +1,15 @@
-"""Batched decoder runtime around the beam search (port of
-catears_tpu/decode/decoder.py: safe_config, BatchDecoder with optional
-delta-LM rescoring, the overflow regrow-and-retry and the device-backtrace
-decode with the host's final-weight pick).
+"""Decoder runtime around the beam search (port of
+catears_tpu/decode/decoder.py).
 
-The single-utterance streaming `Decoder` and `autosize` are not ported
-yet.  Only eps-free decode graphs are: `prepare_decode_graph` must return
-mode 'eps_free', otherwise construction raises NotImplementedError_.
+`Decoder` is the single-utterance streaming decoder (the reference Decoder
+lifecycle: initialize / process / end_of_stream / best_path, with
+get_state / set_state), buffering log-prob rows into fixed chunks decoded
+under a frame_valid mask; `autosize` sizes a deployment's capacities from
+one generous decode.  `BatchDecoder` is the batch path: optional delta-LM
+rescoring, the overflow regrow-and-retry and the device backtrace with the
+host's final-weight pick.  Only eps-free decode graphs are ported:
+`prepare_decode_graph` must return mode 'eps_free', otherwise
+construction raises NotImplementedError_.
 """
 
 from __future__ import annotations
@@ -19,12 +23,18 @@ import torch
 
 from catears_tpu_torch.decode.beam import (
     BeamConfig,
+    BeamState,
     FrameTrace,
     backtrace_device,
     decode_chunk,
     init_beam_batch,
 )
-from catears_tpu_torch.decode.hyp import assemble_words
+from catears_tpu_torch.decode.hyp import (
+    HostTrace,
+    IncrementalBacktracker,
+    assemble_words,
+    best_path,
+)
 from catears_tpu_torch.decode.oracle import Hypothesis
 from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
                                             expansion_bounds)
@@ -63,6 +73,225 @@ def safe_config(fst: FlatFst, arc_group: int, base: BeamConfig,
 
 def _round_up(v: int, quantum: int) -> int:
     return -(-v // quantum) * quantum
+
+
+def _eps_free_graph(fst: FlatFst):
+    """(decode graph, olabel2) of prepare_decode_graph; raises unless its
+    mode is eps-free, the one the port's decoder carries."""
+    dec_fst, olab2, mode = prepare_decode_graph(fst)
+    if mode != "eps_free":
+        raise NotImplementedError_(
+            f"decode graph mode '{mode}' is not yet ported (the PyTorch "
+            f"decoder runs eps-free graphs only)")
+    return dec_fst, olab2
+
+
+def autosize(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
+             am_scale: float = 0.1,
+             delta_lm: Optional[DeltaLmFst] = None,
+             base: Optional[BeamConfig] = None,
+             margin: float = 1.25,
+             arc_group: int = 4,
+             csr_group: int = None,
+             device: Device = "cuda") -> BeamConfig:
+    """One-call deployment geometry from a representative decode.
+
+    Runs `logp` ([T, P] or [B, T, P] log-prob frames) through a decode
+    with generous capacities (safe_config bounds, uncapped delta-LM walk),
+    reads the capacity high-water telemetry and returns a tight BeamConfig
+    with `margin` headroom.  Genuine overshoot at decode time is still
+    caught by the overflow flag (BeamCapacityError).
+    """
+    base = base or BeamConfig(am_scale=am_scale)
+    if base.am_scale != am_scale:
+        base = dataclasses.replace(base, am_scale=am_scale)
+    sizing = dataclasses.replace(
+        safe_config(fst, arc_group, base, delta_lm is not None,
+                    csr_group=csr_group, lm_dup_factor=8),
+        lm_expand_size=0)
+    lp = np.asarray(logp, np.float32)
+    if lp.ndim == 2:
+        lp = lp[None]
+    hw = np.zeros(5, np.int64)
+    for row in lp:
+        dec = Decoder(fst, tid2pdf, am_scale=am_scale, delta_lm=delta_lm,
+                      config=sizing, arc_group=arc_group,
+                      csr_group=csr_group, device=device)
+        dec.process(row)
+        dec.end_of_stream()
+        dec.check_capacity()
+        hw = np.maximum(hw, dec.capacity_high_water)
+    g = csr_group or arc_group
+    return dataclasses.replace(
+        base,
+        expand_size=max(_round_up(int(hw[0] * margin), 512), g),
+        eps_expand_size=max(_round_up(int(hw[1] * margin), 512), g)
+        if hw[1] else base.eps_expand_size,
+        lm_expand_size=(_round_up(int(hw[2] * margin), 128)
+                        if delta_lm is not None and hw[2] else 0),
+    )
+
+
+def _traces_to_host(trace: FrameTrace, num_valid: int,
+                    utt: int) -> List[HostTrace]:
+    """Slice a stacked [C, B, ...] FrameTrace to per-frame host traces."""
+    prev = trace.prev_slot[:, utt].cpu().numpy()
+    words = trace.words[:, utt].cpu().numpy()
+    return [HostTrace(prev[f], words[f]) for f in range(num_valid)]
+
+
+class Decoder:
+    """Single-utterance streaming decoder (reference Decoder parity API)."""
+
+    def __init__(self, fst: FlatFst, tid2pdf: np.ndarray,
+                 am_scale: float = 0.1,
+                 delta_lm: Optional[DeltaLmFst] = None,
+                 config: Optional[BeamConfig] = None,
+                 chunk_frames: int = 20,
+                 arc_group: int = 4,
+                 csr_group: int = None,
+                 dfst: Optional[DeviceFst] = None,
+                 dlm: Optional[DeviceLm] = None,
+                 device: Device = "cuda"):
+        """config=None sizes the capacities by safe_config (LM off they
+        cannot truncate); an explicit config relies on the overflow flag.
+        A prebuilt `dfst` (and `dlm`) is adopted, and its device used; else
+        the tables are built on `device` (the card unless the CPU is asked
+        for) as BatchDecoder builds them."""
+        auto_capacity = config is None
+        if config is None:
+            config = BeamConfig(am_scale=am_scale)
+        elif config.am_scale != am_scale:
+            config = dataclasses.replace(config, am_scale=am_scale)
+        if dfst is not None:
+            # Adopt a prebuilt device graph (the runtime caches one per
+            # Recognizer so repeated utterances skip the transform+build).
+            assert not auto_capacity, \
+                "prebuilt dfst requires an explicit BeamConfig"
+            self.dfst = dfst
+        else:
+            device = resolve_device(device)
+            dec_fst, olab2 = _eps_free_graph(fst)
+            if auto_capacity:
+                config = safe_config(dec_fst, arc_group, config,
+                                     delta_lm is not None,
+                                     csr_group=csr_group)
+            self.dfst = DeviceFst.build(dec_fst, tid2pdf, group=arc_group,
+                                        eps_depth_cap=1, csr_group=csr_group,
+                                        olabel2=olab2, device=device)
+        self.cfg = config
+        self.fst = fst
+        self.delta_lm = delta_lm
+        if dlm is not None:
+            self.dlm = dlm
+        else:
+            self.dlm = (DeviceLm.build(delta_lm, device=self.dfst.device)
+                        if delta_lm is not None else None)
+        self.has_lm = delta_lm is not None
+        self.chunk_frames = chunk_frames
+        self.initialize()
+
+    @property
+    def device(self) -> torch.device:
+        return self.dfst.device
+
+    def initialize(self) -> None:
+        beam, trace = init_beam_batch(self.cfg, 1, self.dfst, self.dlm)
+        self.beam = beam
+        self.traces: List[HostTrace] = [
+            HostTrace(trace.prev_slot[0].cpu().numpy(),
+                      trace.words[0].cpu().numpy())
+        ]
+        self._pending: List[np.ndarray] = []
+        self.num_frames_decoded = 0
+        self.is_end_of_stream = False
+        # Partial-hypothesis refreshes walk only the frames since the
+        # last call (see hyp.IncrementalBacktracker).
+        self._tracker = IncrementalBacktracker()
+
+    def process(self, logp: np.ndarray) -> None:
+        """Queue [n, P] log-prob rows; decodes in chunk_frames batches."""
+        for row in np.asarray(logp, np.float32):
+            self._pending.append(row)
+        self._flush(force=False)
+
+    def end_of_stream(self) -> None:
+        self._flush(force=True)
+        self.is_end_of_stream = True
+
+    def _flush(self, force: bool) -> None:
+        c = self.chunk_frames
+        while self._pending and (len(self._pending) >= c or force):
+            n = min(len(self._pending), c)
+            rows = self._pending[:n]
+            self._pending = self._pending[n:]
+            p = rows[0].shape[0]
+            logp = np.zeros((c, 1, p), np.float32)
+            logp[:n, 0] = rows
+            valid = np.zeros((c, 1), bool)
+            valid[:n] = True
+            self.beam, trace = decode_chunk(
+                self.cfg, self.dfst, self.beam,
+                torch.from_numpy(logp).to(self.device),
+                torch.from_numpy(valid).to(self.device), self.dlm)
+            self.traces.extend(_traces_to_host(trace, n, 0))
+            self.num_frames_decoded += n
+            log.count("frames_decoded", n)
+
+    @property
+    def overflowed(self) -> bool:
+        """True if any frame's arc expansion truncated (result suspect)."""
+        return bool(self.beam.overflow[0])
+
+    @property
+    def capacity_high_water(self) -> tuple:
+        """(emit_overflow, eps, lm_walk, select, cold_emit) slots the
+        decode actually needed (the last is always 0: the port has no
+        hot/cold emit split)."""
+        return tuple(int(x) for x in self.beam.hiwater[0].cpu().numpy())
+
+    def check_capacity(self) -> None:
+        if self.overflowed:
+            raise BeamCapacityError(
+                f"arc expansion overflowed capacity (expand_size="
+                f"{self.cfg.expand_size}, eps_expand_size="
+                f"{self.cfg.eps_expand_size}) after "
+                f"{self.num_frames_decoded} frames",
+                hiwater=self.capacity_high_water)
+
+    def best_path(self) -> Hypothesis:
+        self.check_capacity()
+        states = self.beam.states[0].cpu().numpy()
+        lms = self.beam.lm[0].cpu().numpy()
+        costs = self.beam.costs[0].cpu().numpy()
+        return best_path(self.traces, states, lms, costs, self.fst,
+                         self.delta_lm,
+                         end_of_stream=self.is_end_of_stream,
+                         tracker=self._tracker)
+
+    # -- session checkpoint/resume -----------------------------------------
+
+    def get_state(self) -> dict:
+        """Snapshot the decode session as plain numpy arrays (the JAX
+        Decoder's keys and dtypes)."""
+        return {
+            "beam": tuple(x.cpu().numpy() for x in self.beam),
+            "traces": [(t.prev_slot.copy(), t.words.copy())
+                       for t in self.traces],
+            "pending": [r.copy() for r in self._pending],
+            "num_frames_decoded": self.num_frames_decoded,
+            "is_end_of_stream": self.is_end_of_stream,
+        }
+
+    def set_state(self, state: dict) -> None:
+        self.beam = BeamState(*(torch.as_tensor(np.asarray(x)).to(
+            self.device) for x in state["beam"]))
+        self.traces = [HostTrace(p, w) for p, w in state["traces"]]
+        # The tracker memo indexes the restored trace list, not the old one.
+        self._tracker = IncrementalBacktracker()
+        self._pending = [r.copy() for r in state["pending"]]
+        self.num_frames_decoded = state["num_frames_decoded"]
+        self.is_end_of_stream = state["is_end_of_stream"]
 
 
 RETRY_MARGIN = 1.5  # regrown capacity = high-water mark x this
@@ -106,11 +335,7 @@ class BatchDecoder:
         retry.  The tables live on `device` (the card unless the CPU is
         asked for)."""
         device = resolve_device(device)
-        dec_fst, olab2, mode = prepare_decode_graph(fst)
-        if mode != "eps_free":
-            raise NotImplementedError_(
-                f"decode graph mode '{mode}' is not yet ported (the PyTorch "
-                f"decoder runs eps-free graphs only)")
+        dec_fst, olab2 = _eps_free_graph(fst)
         self.auto_capacity = config is None
         if config is None:
             config = safe_config(dec_fst, arc_group, BeamConfig(),

@@ -5,15 +5,20 @@ pre-emphasis 0.97, Hamming window, zero-pad 400 -> 512, power spectrum,
 40 triangular mel bins over FFT bins [0, 256), floor at FLT_EPSILON, log.
 The real DFT and the mel bank are two float32 `torch.matmul`s (TF32 is off
 package-wide), exactly as the JAX version computes them outside any kernel.
+`Fbank.compute` pads a wave to the JAX package's bucketed frame count (each
+frame is independent, so the pad changes no valid row; both packages run
+the same shapes), and `FbankStream` carries leftover samples between calls.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from catears_tpu_torch.utils.device import Device, resolve_device
 
 SAMPLE_RATE = 16000
 FRAME_SHIFT = 160  # 10 ms
@@ -94,3 +99,57 @@ def fbank_from_frames(frames: torch.Tensor) -> torch.Tensor:
 def fbank_from_wave(wave: torch.Tensor, n_frames: int) -> torch.Tensor:
     """[..., S] -> [..., n_frames, 40]."""
     return fbank_from_frames(frame_signal(wave, n_frames))
+
+
+def bucket(n: int, base: int = 16) -> int:
+    """A frame, row or sample count rounded up as the JAX package rounds it
+    for its jit cache: `base`, then powers of two."""
+    if n <= base:
+        return base
+    return 1 << (n - 1).bit_length()
+
+
+class Fbank:
+    """Host-facing extractor: numpy samples in, numpy features out, the
+    work on `device` (the card unless the CPU is asked for)."""
+
+    def __init__(self, device: Device = "cuda"):
+        self.device = resolve_device(device)
+
+    def compute(self, wave: np.ndarray) -> np.ndarray:
+        """[S] float32 samples -> [T, 40] float32 features (numpy)."""
+        t = num_frames(wave.shape[0])
+        if t == 0:
+            return np.zeros((0, NUM_BINS), np.float32)
+        t_pad = bucket(t)
+        s_pad = (t_pad - 1) * FRAME_SHIFT + FRAME_LENGTH
+        padded = np.zeros(s_pad, np.float32)
+        padded[:wave.shape[0]] = wave
+        with torch.no_grad():
+            feats = fbank_from_wave(torch.from_numpy(padded).to(self.device),
+                                    t_pad)
+        return feats[:t].cpu().numpy()
+
+
+class FbankStream:
+    """Streaming wrapper: carries leftover samples between process() calls.
+
+    Each call emits every complete frame in the accumulated buffer and then
+    drops FRAME_SHIFT * n_frames samples, keeping the 240-sample overlap for
+    the next call.
+    """
+
+    def __init__(self, fbank: Optional[Fbank] = None):
+        self._fbank = fbank or Fbank()
+        self._buffer = np.zeros(0, np.float32)
+
+    def process(self, samples: np.ndarray) -> np.ndarray:
+        if samples.size:
+            self._buffer = np.concatenate([self._buffer,
+                                           samples.astype(np.float32)])
+        t = num_frames(self._buffer.shape[0])
+        if t == 0:
+            return np.zeros((0, NUM_BINS), np.float32)
+        feats = self._fbank.compute(self._buffer)
+        self._buffer = self._buffer[FRAME_SHIFT * t:]
+        return feats

@@ -6,7 +6,10 @@ the [B, T, P] log-probs there.  Ragged batches stay exact per utterance:
 waves are padded to one bucketed length (base 4096 samples), features are
 context-padded per utterance with a clipped index gather (edge frames
 replicated), and the int8 AM quantizes each utterance's own padded rows,
-as the JAX batch path does under vmap.
+as the JAX batch path does under vmap.  With online CMVN (`cmvn_stats`)
+each utterance goes through the host frontend instead (fbank, the float64
+OnlineCMVN, the bucketed whole-utterance AM), as in the JAX batch path: the
+sliding window is sequential per utterance.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import numpy as np
 import torch
 
 from catears_tpu_torch.decode.decoder import BatchDecoder
-from catears_tpu_torch.frontend.fbank import (NUM_BINS, fbank_from_wave,
-                                              num_frames)
+from catears_tpu_torch.frontend.cmvn import OnlineCMVN
+from catears_tpu_torch.frontend.fbank import (NUM_BINS, bucket,
+                                              fbank_from_wave, num_frames)
 from catears_tpu_torch.io.wav import read_16k_pcm, read_scp
 from catears_tpu_torch.runtime.recognizer import Recognizer
 from catears_tpu_torch.utils import log
@@ -27,12 +31,6 @@ from catears_tpu_torch.utils import log
 def load_waves(paths: List[str]) -> List[np.ndarray]:
     """One float32 sample array per 16 kHz WAV file."""
     return [read_16k_pcm(p) for p in paths]
-
-
-def _bucket(n: int, base: int = 4096) -> int:
-    if n <= base:
-        return base
-    return 1 << (n - 1).bit_length()
 
 
 def _batched_logp(am, t_max: int, waves: torch.Tensor,
@@ -58,7 +56,7 @@ def batched_logp(am, waves: List[np.ndarray]) -> Tuple[torch.Tensor,
     """Ragged waves -> ([B, T_max, P] log-probs on am.device, lengths)."""
     lengths = [num_frames(w.shape[0]) for w in waves]
     t_max = max(max(lengths), 1)
-    s_max = _bucket(max(w.shape[0] for w in waves))
+    s_max = bucket(max(w.shape[0] for w in waves), base=4096)
     t_bucket = num_frames(s_max)
     padded = np.zeros((len(waves), s_max), np.float32)
     for i, w in enumerate(waves):
@@ -89,6 +87,8 @@ def decode_scp(recognizer: Recognizer, scp_path: str,
     """Decode every `name path` entry; returns (name, hyp) pairs in order."""
     entries = read_scp(scp_path)
     results: List[Tuple[str, str]] = []
+    cmvn = (OnlineCMVN(recognizer.cmvn_stats)
+            if recognizer.cmvn_stats is not None else None)
     table = recognizer.symbol_table
     dec = get_batch_decoder(recognizer)
     audio_s = 0.0
@@ -96,7 +96,16 @@ def decode_scp(recognizer: Recognizer, scp_path: str,
         chunk = entries[lo:lo + batch_size]
         waves = load_waves([path for _, path in chunk])
         audio_s += sum(w.shape[0] for w in waves) / 16000.0
-        logp, lengths = batched_logp(recognizer.am, waves)
+        if cmvn is None:
+            logp, lengths = batched_logp(recognizer.am, waves)
+        else:
+            logps = [recognizer.am.forward(cmvn.apply(
+                recognizer.fbank.compute(wave))) for wave in waves]
+            lengths = [lp.shape[0] for lp in logps]
+            logp = np.zeros((len(chunk), max(max(lengths), 1),
+                             logps[0].shape[1]), np.float32)
+            for i, lp in enumerate(logps):
+                logp[i, :lp.shape[0]] = lp
         hyps = dec.decode(logp, lengths)
         for (name, _), hyp in zip(chunk, hyps):
             results.append((name, " ".join(table.get(w) for w in hyp.words)))

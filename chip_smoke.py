@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's offline batch decode (`catears_tpu_torch.cli --batch`) on
-the card with the full-width int8 model the JAX bench runs (TDNN-1024 on
-the 50k-word trie, 617,940 states; random weights from seed 0), LM off and
-with delta-LM rescoring by the bench's 50k-word G' (`write_trie_model(...,
-with_lm=True)`, walk capacity lm_expand_size = 384), and checks every
-phase; exits non-zero if any fails:
+Drives the port's offline batch decode (`catears_tpu_torch.cli --batch`) and
+its live-stream path (`Recognizer.create_stream_batch`, fed in 20-frame
+ticks, and a solo `Utterance`) on the card with the full-width int8 model
+the JAX bench runs (TDNN-1024 on the 50k-word trie, 617,940 states; random
+weights from seed 0), LM off and with delta-LM rescoring by the bench's
+50k-word G' (`write_trie_model(..., with_lm=True)`, walk capacity
+lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
 
   device      a CUDA card is present (exit 1 otherwise, before any result)
   build       the hand-written kernels compile from catears_tpu_torch/csrc
@@ -23,7 +24,9 @@ phase; exits non-zero if any fails:
               bit for bit, with dynamic, static (`rng`) and guarded
               (`grng`) activation scales, at the AM's shapes and at ragged
               ones; per AM shape the call's device and host times beside
-              the plain version's and its bound
+              the plain version's and its bound; and at the streaming
+              shapes (one 20-frame chunk window of B = 1 and 8 streams,
+              one scale per stream), with their device times
   am          quantized batched_logp on cuda vs the same on the CPU, for
               two utterances: max error < 1% of the output range (the CPU
               tests' bar for the int8 stack); one fused launch per linear
@@ -44,12 +47,31 @@ phase; exits non-zero if any fails:
               launched at least once per linear layer per batch, and the
               same transcripts as the same command with --device=cpu
   e2e-lm      the same with the delta-LM config
+  stream      the toy model with online CMVN (tests/data/cmvn_stats.bin),
+              float and int8, over en-us-hello.wav and en-us-cat.wav: the
+              fused Utterance equals the componentized one on the card and
+              both equal the same run on the CPU, transcripts non-empty,
+              the fused kernel launched in every int8 run
+  stream-decoder
+              planted trie log-probs through the single-utterance Decoder
+              on the card, LM off and with the G': the words BatchDecoder
+              gives on the card, and the planted WER
+  stream-trie 8 streams of the seeded waves through create_stream_batch(8),
+              fed by process_batch in 20-frame ticks, then end_of_stream
+              per stream: the first 2 streams' transcripts equal those of
+              the same 2 streams on the CPU (the whole 8 do not fit the
+              time limit with the CPU's LM-on decode), no
+              capacity overflow, the fused kernel launched once per linear
+              per chunk step; the tick latency p50/p99 (host clock around
+              a synchronize), audio seconds per wall second, and a solo
+              Utterance over the 10 s wave (its chunk latency)
+  stream-trie-lm  the same with the delta-LM config
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  The one kernel,
 matmul_s8.cu, is listed once, by the entry point the main path launches it
-through (`qmatmul`, the fused epilogue): launches summed over the two e2e
-runs, each counted from 0 just before its run; error, times and bound from
+through (`qmatmul`, the fused epilogue): launches summed over the e2e,
+stream and stream-trie runs, each counted from 0 just before its run; error, times and bound from
 this run, summed over the AM's three shapes.  Its int32 entry point
 (`matmul_s8`, which the main path does not launch) is nested in the entry
 with its own launches, error, times, bound and torch._int_mm's time.
@@ -94,6 +116,14 @@ KERNEL_SHAPES = [(8, 1638, 120, 1024), (8, 1636, 3072, 1024),
 EXACT_SHAPES = [(1, 37, 7, 5), (3, 300, 130, 1000), (2, 129, 33, 17),
                 (8, 1646, 120, 1024), (8, 1646, 3072, 1024),
                 (8, 1646, 1024, 3600)]
+# (rows, K, N) of the three linears in one streaming chunk step: the window
+# is L + 20 + R = 24 rows (L = R = 2), narrowed by 2 per splice.
+STREAM_SHAPES = [(22, 120, 1024), (20, 3072, 1024), (20, 1024, 3600)]
+STREAM_GEOMETRY = ("beam_size = 256", "expand_size = 2048",
+                   "eps_expand_size = 1024", "max_eps_iters = 6", "beam = 1e9")
+TICK = 3200  # samples per live tick: 20 frames of 10 ms
+CPU_STREAMS = 2  # of the 8 live streams, also decoded on the CPU
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM, dense
 
@@ -375,6 +405,29 @@ def qkernel_phase(card):
                   plain_ms=f"{t_p:.4f}",
                   bound_ms=f"{b_ms:.4f}", bound_by=b_by,
                   share_of_bound=f"{b_ms / t_k:.3f}", card=f"'{card}'")
+    # The streaming chunk step: M far below the tile height, one scale per
+    # stream (B = 8 packs 8 windows into the tiles' rows).
+    for b in (1, 8):
+        for m, k, n in STREAM_SHAPES:
+            aq, wq, colsum, bias = quantized_operands(b, m, k, n, "dynamic",
+                                                      g, cuda)
+            bt = quant.transpose_pad(wq.values)
+            got = quant.qmatmul(aq, wq, colsum, bias=bias, bt=bt)
+            ref = quant.qmatmul_ref(aq, wq, colsum, bias)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+            if not torch.equal(got, ref):
+                fail(f"qmatmul differs from qmatmul_ref at the streaming "
+                     f"shape {b}x{m}x{k}x{n}: max abs err {err}")
+            fused = lambda: quant.qmatmul(aq, wq, colsum, bias=bias, bt=bt)
+            b_ms, b_by = bound(b, m, k, n, extra_bytes=8 * n + 8 * b)
+            t_k = device_ms(fused)
+            phase("qkernel", shape=f"{b}x{m}x{k}x{n}", streaming=True,
+                  scales=b, bit_equal=True, ms=f"{t_k:.4f}",
+                  call_ms=f"{time_ms(fused):.4f}", bound_ms=f"{b_ms:.4f}",
+                  bound_by=b_by, share_of_bound=f"{b_ms / t_k:.3f}",
+                  card=f"'{card}'")
     return totals
 
 
@@ -589,6 +642,231 @@ def e2e_phase(name, conf, scp, linears, card):
              f"{cpu_lines!r}")
     return launches
 
+def decode_utterance(rec, payload, fused, chunk_bytes=1024):
+    """An Utterance over PCM bytes (16 kHz, 16-bit mono): its hypothesis."""
+    from catears_tpu_torch.io.wav import WaveFormat
+    from catears_tpu_torch.runtime.recognizer import Utterance
+
+    utt = Utterance(rec, WaveFormat(1, 16000, 16), fused=fused)
+    for off in range(0, len(payload), chunk_bytes):
+        utt.process(payload[off:off + chunk_bytes])
+    utt.end_of_stream()
+    return utt.hyp
+
+
+def stream_phase(work, card):
+    """The toy model with online CMVN, float and int8, through Utterance
+    fused and componentized on cuda and on the CPU; returns the fused
+    kernel's launches in the card's int8 runs (each counted from 0)."""
+    from catears_tpu_torch.io.wav import read_pcm_header
+    from catears_tpu_torch.runtime.recognizer import Recognizer
+    from catears_tpu_torch.tools.toy import write_toy_model
+
+    cuda, cpu = torch.device("cuda:0"), torch.device("cpu")
+    data = os.path.join(REPO, "tests", "data")
+    d = os.path.join(work, "toy")
+    base = write_toy_model(d, num_words=5, hidden=32, num_pdfs=24)
+    shutil.copy(os.path.join(data, "cmvn_stats.bin"), d)
+    launches = 0
+    for quantized in (False, True):
+        conf = os.path.join(d, f"stream{int(quantized)}.conf")
+        with open(base) as src, open(conf, "w") as dst:
+            dst.write(src.read() + "".join(
+                f"{x}\n" for x in STREAM_GEOMETRY
+                + ("cmvn_stats = cmvn_stats.bin",)
+                + (("quantized = true",) if quantized else ())))
+        recs = {"cuda": Recognizer(conf, device=cuda),
+                "cpu": Recognizer(conf, device=cpu)}
+        for wav in ("hello", "cat"):
+            with open(os.path.join(data, f"en-us-{wav}.wav"), "rb") as fd:
+                read_pcm_header(fd)
+                payload = fd.read()
+            hyps, runs = {}, []
+            t0 = time.perf_counter()
+            for dev, rec in recs.items():
+                for fused in (True, False):
+                    torch.cuda.synchronize()
+                    quant.qmatmul.launches = 0
+                    hyps[dev, fused] = decode_utterance(rec, payload, fused)
+                    if dev == "cuda":
+                        runs.append(quant.qmatmul.launches)
+            launches += sum(runs)
+            same = len(set(hyps.values())) == 1
+            phase("stream", wav=wav, quantized=quantized, cmvn=True,
+                  hyp=f"'{hyps['cuda', True]}'", all_equal=same,
+                  fused_launches=runs[0], componentized_launches=runs[1],
+                  seconds=f"{time.perf_counter() - t0:.2f}")
+            if not same:
+                fail(f"stream {wav} (quantized={quantized}): fused and "
+                     f"componentized on cuda and cpu disagree: {hyps}")
+            if not hyps["cuda", True]:
+                fail(f"stream {wav} (quantized={quantized}): empty "
+                     f"transcript")
+            if quantized and not all(runs):
+                fail(f"stream {wav}: an int8 run on cuda launched the fused "
+                     f"kernel {runs} times")
+            if not quantized and any(runs):
+                fail(f"stream {wav}: the float AM launched the int8 kernel")
+    return launches
+
+
+def decoder_words(dec, row):
+    """The single-utterance Decoder over [T, P] log-probs: its
+    end-of-stream words, or, when no final state is reachable, the cheapest
+    token's (BatchDecoder's final_fallback)."""
+    dec.process(row)
+    dec.end_of_stream()
+    dec.check_capacity()
+    hyp = dec.best_path()
+    if not hyp.words and hyp.weight == 0.0:  # best_path's "no final"
+        dec.is_end_of_stream = False
+        hyp = dec.best_path()
+    return hyp.words
+
+
+def stream_decoder_phase(name, rec, tg, card):
+    """Planted trie log-probs through the single-utterance Decoder on the
+    card: the words BatchDecoder gives on the card, and the planted WER."""
+    from catears_tpu_torch.decode.decoder import Decoder
+    from catears_tpu_torch.runtime.batch import get_batch_decoder
+    from catears_tpu_torch.runtime.recognizer import AM_SCALE
+
+    cuda = torch.device("cuda:0")
+    planted, truth = plant_logp(np.random.RandomState(2), tg, 2, 500)
+    cfg, dfst, dlm = rec._decode_graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words = [decoder_words(Decoder(rec.fst, rec.am.tid2pdf,
+                                   am_scale=AM_SCALE, delta_lm=rec.delta_lm,
+                                   config=cfg, dfst=dfst, dlm=dlm), row)
+             for row in planted]
+    dt = time.perf_counter() - t0
+    batch = get_batch_decoder(rec).decode(torch.from_numpy(planted).to(cuda),
+                                          final_fallback=True)
+    same = words == [h.words for h in batch]
+    errors = sum(token_errors([str(w) for w in t], [str(w) for w in h])
+                 for t, h in zip(truth, words))
+    n_ref = sum(len(t) for t in truth)
+    phase(name, utts=2, frames=500, same_as_batch_decoder=same,
+          words=[len(w) for w in words], wer=f"{errors / n_ref:.4f}",
+          ref_words=n_ref, decode_s=f"{dt:.2f}",
+          ms_per_frame=f"{dt / 1000 * 1e3:.3f}", card=f"'{card}'")
+    if not same:
+        fail(f"{name}: the Decoder's words differ from BatchDecoder's")
+    if errors / n_ref > 0.25:
+        fail(f"{name}: planted-path WER {errors / n_ref:.3f} is too high")
+
+
+def percentile_ms(seconds, q):
+    return f"{float(np.percentile(np.asarray(seconds) * 1e3, q)):.2f}"
+
+
+def run_streams(rec, waves, timed):
+    """The waves as live streams of one BatchStreamingSession: TICK samples
+    per stream per tick through process_batch, then end_of_stream per
+    stream.  Returns (words per stream, tick seconds, partials() seconds,
+    chunk steps, wall seconds)."""
+    batch = rec.create_stream_batch(len(waves))
+    steps = [0]
+    step_group = batch._step_group
+
+    def counted(group, first):
+        steps[0] += 1
+        step_group(group, first)
+
+    batch._step_group = counted
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    ticks, partials = [], []
+    n_ticks = max(-(-w.shape[0] // TICK) for w in waves)
+    sync()
+    t_start = time.perf_counter()
+    for t in range(n_ticks):
+        t0 = time.perf_counter()
+        batch.process_batch([w[t * TICK:(t + 1) * TICK] for w in waves])
+        sync()
+        t1 = time.perf_counter()
+        if timed:
+            batch.partials()
+        ticks.append(t1 - t0)
+        partials.append(time.perf_counter() - t1)
+    for u in range(len(waves)):
+        batch.end_of_stream(u)
+    words = [batch.best_path(u, end_of_stream=True).words
+             for u in range(len(waves))]
+    sync()
+    return words, ticks, partials, steps[0], time.perf_counter() - t_start
+
+
+def solo_utterance(rec, wave):
+    """One Utterance over a wave fed TICK samples per call: per-call
+    seconds (host clock around a synchronize) and the wall seconds."""
+    from catears_tpu_torch.io.wav import WaveFormat
+    from catears_tpu_torch.runtime.recognizer import Utterance
+
+    pcm = wave.astype("<i2").tobytes()
+    utt = Utterance(rec, WaveFormat(1, 16000, 16))
+    calls = []
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for off in range(0, len(pcm), 2 * TICK):
+        t0 = time.perf_counter()
+        utt.process(pcm[off:off + 2 * TICK])
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+    utt.end_of_stream()
+    torch.cuda.synchronize()
+    return calls, time.perf_counter() - t_start
+
+
+def stream_trie_phase(name, rec, conf, waves, n_linears, card):
+    """8 live streams on the card, the first CPU_STREAMS of them checked
+    against the same streams on the CPU (each stream's result does not
+    depend on the others), then a solo Utterance; returns the launches of
+    the card's stream run."""
+    from catears_tpu_torch.runtime.recognizer import Recognizer
+
+    from catears_tpu_torch.utils.errors import BeamCapacityError
+
+    audio_s = sum(w.shape[0] for w in waves) / 16000.0
+    try:
+        run_streams(rec, [w[:2 * TICK] for w in waves], True)  # warm-up
+        torch.cuda.synchronize()
+        quant.matmul_s8.launches = quant.qmatmul.launches = 0
+        words, ticks, partials, steps, wall = run_streams(rec, waves, True)
+        launches = {"matmul_s8": quant.matmul_s8.launches,
+                    "qmatmul": quant.qmatmul.launches}
+        t0 = time.perf_counter()
+        cpu_words = run_streams(Recognizer(conf, device=torch.device("cpu")),
+                                waves[:CPU_STREAMS], False)[0]
+        cpu_s = time.perf_counter() - t0
+        calls, solo_wall = solo_utterance(rec, waves[0])
+    except BeamCapacityError as e:
+        fail(f"{name}: {e}")
+    solo_audio = waves[0].shape[0] / 16000.0
+    phase(name, streams=len(waves), ticks=len(ticks), chunk_steps=steps,
+          words=[len(w) for w in words], cpu_streams=CPU_STREAMS,
+          same_as_cpu=words[:CPU_STREAMS] == cpu_words,
+          fused_launches=launches["qmatmul"], linears=n_linears,
+          tick_ms_p50=percentile_ms(ticks, 50),
+          tick_ms_p99=percentile_ms(ticks, 99),
+          partials_ms_p50=percentile_ms(partials, 50),
+          partials_ms_p99=percentile_ms(partials, 99),
+          wall_s=f"{wall:.2f}", audio_s=f"{audio_s:.2f}",
+          audio_s_per_s=f"{audio_s / wall:.3f}", cpu_wall_s=f"{cpu_s:.2f}",
+          solo_audio_s=f"{solo_audio:.2f}", solo_wall_s=f"{solo_wall:.2f}",
+          solo_audio_s_per_s=f"{solo_audio / solo_wall:.3f}",
+          solo_chunk_ms_p50=percentile_ms(calls, 50),
+          solo_chunk_ms_p99=percentile_ms(calls, 99), card=f"'{card}'")
+    if words[:CPU_STREAMS] != cpu_words:
+        fail(f"{name}: transcripts on cuda {words[:CPU_STREAMS]} differ from "
+             f"the CPU's {cpu_words}")
+    # Each chunk step runs every linear once; so does each stream's
+    # end-of-stream tail.
+    if launches["qmatmul"] != n_linears * (steps + len(waves)):
+        fail(f"{name}: {launches['qmatmul']} fused launches for {steps} "
+             f"chunk steps and {len(waves)} tails of {n_linears} linears")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -689,6 +967,16 @@ def main():
         n_linears = linears(rec.am)
         runs = [e2e_phase("e2e", conf, scp, n_linears, card),
                 e2e_phase("e2e-lm", lm_conf, scp, n_linears, card)]
+
+        # -- the live-stream path: toy model, Decoder, 8 trie streams ------
+        runs.append({"matmul_s8": 0, "qmatmul": stream_phase(work, card)})
+        stream_decoder_phase("stream-decoder", rec, tg, card)
+        stream_decoder_phase("stream-decoder-lm", rec_lm, tg, card)
+        waves = load_waves([p for _, p in read_scp(scp)])
+        runs.append(stream_trie_phase("stream-trie", rec, conf, waves,
+                                      n_linears, card))
+        runs.append(stream_trie_phase("stream-trie-lm", rec_lm, lm_conf,
+                                      waves, n_linears, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -6,11 +6,14 @@ config: the 50k-word G' and lm_expand_size = 384) and times, on the host
 clock around work that ends in a synchronize: the batch's WAV load
 (`load_waves`), set-up, `batched_logp`, the
 whole `BatchDecoder.decode`, `init_beam_batch`, one 50-frame
-`decode_chunk` and `backtrace_device` over the batch's frames.  Then it
-profiles one 50-frame chunk and one `batched_logp` with torch.profiler:
-device busy time, the device's idle share of the unprofiled wall time and
-device ops (kernels, copies, memsets) per frame; with --lm also one capped
-LM walk at the frame's shape (8 x 384 word lanes out of the expansion).
+`decode_chunk` and `backtrace_device` over the batch's frames; and, on the
+live-stream path, one steady 20-frame tick of 8 streams
+(`BatchStreamingSession.process_batch`) and one steady chunk of a solo
+`StreamingSession`.  Then it profiles one 50-frame chunk, one
+`batched_logp`, one tick and one solo chunk with torch.profiler: device
+busy time, the device's idle share of the unprofiled wall time and device
+ops (kernels, copies, memsets) per frame; with --lm also one capped LM
+walk at the frame's shape (8 x 384 word lanes out of the expansion).
 
 Run from the repo root on a machine with a card (no JAX needed):
 
@@ -45,6 +48,7 @@ from catears_tpu_torch.io.wav import read_scp
 from catears_tpu_torch.runtime.batch import (batched_logp, get_batch_decoder,
                                              load_waves)
 from catears_tpu_torch.runtime.recognizer import Recognizer
+from catears_tpu_torch.runtime.streaming import StreamingSession
 
 CHUNK = 50
 # Run with the checkout as the working directory, so that its
@@ -161,12 +165,44 @@ def main(argv=None):
             lambda: tb.backtrace_device(traces, best),
             max(1, args.reps - 2)))
 
+        # The live-stream path: steady chunk steps (the first chunk, which
+        # takes F + R frames, is fed before timing), on waves tiled to 60 s
+        # so that every call steps every stream.
+        long = [np.tile(w, -(-60 * 16000 // w.size))[:60 * 16000]
+                for w in waves]
+        streams = rec.create_stream_batch(b)
+        solo = StreamingSession(rec.am, rec.fst, rec.delta_lm,
+                                *rec._decode_graph())
+        fed = [0, 0]
+
+        def tick():
+            lo = fed[0]
+            fed[0] += cs.TICK
+            streams.process_batch([w[lo:lo + cs.TICK] for w in long])
+
+        def solo_chunk():
+            lo = fed[1]
+            fed[1] += cs.TICK
+            solo.process(long[0][lo:lo + cs.TICK])
+
+        for _ in range(2):
+            tick()
+            solo_chunk()
+        tick_secs = host_times(tick, args.reps)
+        solo_secs = host_times(solo_chunk, args.reps)
+        report("stream_tick", tick_secs)
+        report("stream_solo_chunk", solo_secs)
+
         # The idle share is taken against the unprofiled median wall time:
         # the profiler slows the host, not the device.
         logp_fn = lambda: batched_logp(rec.am, waves)
         work_items = [("chunk", chunk, CHUNK, float(np.median(chunk_secs))),
                       ("batched_logp", logp_fn, 1,
-                       float(np.median(host_times(logp_fn, args.reps))))]
+                       float(np.median(host_times(logp_fn, args.reps)))),
+                      ("stream_tick", tick, solo.f,
+                       float(np.median(tick_secs))),
+                      ("stream_solo_chunk", solo_chunk, solo.f,
+                       float(np.median(solo_secs)))]
         if dlm is not None:
             # One capped walk at the frame's shape: the expansion's lanes,
             # a beam's worth of LM states and ~300 word labels per row.
@@ -196,6 +232,16 @@ def main(argv=None):
             tables.append(f"== {name} ==\n" + ka.table(
                 sort_by="self_device_time_total", row_limit=25,
                 max_name_column_width=60))
+        # N ticks of TICK samples hold 20 N - 1 frames: the first chunk
+        # (F + R) steps at the second tick, then one chunk per tick.
+        want = [(fed[0] // cs.TICK - 1) * solo.f] * b
+        want.append((fed[1] // cs.TICK - 1) * solo.f)
+        if streams.num_frames_decoded + [solo.num_frames_decoded] != want:
+            print(f"torch_profile: a tick did not step every stream once "
+                  f"({streams.num_frames_decoded}, "
+                  f"{solo.num_frames_decoded}; wanted {want})",
+                  file=sys.stderr)
+            return 1
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,"
              "power.limit,temperature.gpu", "--format=csv"],

@@ -18,6 +18,13 @@ from catears_tpu_torch.graph.transform import prepare_decode_graph
 
 CPU = torch.device("cpu")  # every CPU test passes it to the port explicitly
 
+# The suite runs in several worker processes at once (pytest-xdist), each
+# of which imports this module while collecting: one intra-op thread per
+# process keeps PyTorch's thread pools from oversubscribing the host's
+# cores (the port's tests run many small ops, which gain nothing from
+# more threads).
+torch.set_num_threads(1)
+
 DFST_META = ("eps_depth", "group", "csr_group", "eps_group", "eps_meta_ok",
              "max_emit_fanout", "eps_removed", "has_emit_olabel",
              "emit_compact")
@@ -117,3 +124,41 @@ def write_scp(path: str, wavs) -> str:
         for i, wav in enumerate(wavs):
             fd.write(f"u{i} {wav}\n")
     return path
+
+
+# The streaming tests' decoder geometry (tests/test_streaming.py's TEST_BEAM).
+STREAM_BEAM = dict(beam_size=256, expand_size=2048, eps_expand_size=1024,
+                   max_eps_iters=6, beam=1e9, am_scale=0.1)
+
+
+def write_stream_toy(d: str, data_dir: str, quantized: bool = False,
+                     cmvn: bool = False) -> str:
+    """tests/test_streaming.py's toy model (5 words, hidden 32, 24 pdfs,
+    default seed) in `d`, with `quantized = true` and the CMVN stats of
+    tests/data when asked; returns the config path."""
+    import os
+    import shutil
+
+    from catears_tpu_torch.tools.toy import write_toy_model
+
+    conf = write_toy_model(d, num_words=5, hidden=32, num_pdfs=24)
+    extra = []
+    if quantized:
+        extra.append("quantized = true")
+    if cmvn:
+        shutil.copy(os.path.join(data_dir, "cmvn_stats.bin"),
+                    os.path.join(d, "cmvn_stats.bin"))
+        extra.append("cmvn_stats = cmvn_stats.bin")
+    with open(conf, "a") as fd:
+        fd.write("".join(f"{x}\n" for x in extra))
+    return conf
+
+
+def wav_payload(path: str, truncate: int = 0):
+    """(WaveFormat of the port, PCM payload bytes) of a wav file."""
+    from catears_tpu_torch.io.wav import read_pcm_header
+
+    with open(path, "rb") as fd:
+        fmt = read_pcm_header(fd)
+        payload = fd.read()
+    return fmt, payload[:truncate] if truncate else payload

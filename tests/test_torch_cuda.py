@@ -292,3 +292,55 @@ def test_decoder_with_lm_cuda_vs_cpu(cuda):
                 for dev in (torch.device("cpu"), cuda)]
         assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
         assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+
+
+# (rows, K, N) of the TDNN-1024's three linears in one streaming chunk: the
+# window is L + 20 + R = 24 rows (L = R = 2), narrowed by 2 per splice.
+STREAM_SHAPES = [(22, 120, 1024), (20, 3072, 1024), (20, 1024, 3600)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("m,k,n", STREAM_SHAPES)
+def test_qmatmul_streaming_shapes_bit_equal(cuda, b, m, k, n):
+    aq, wq, colsum, bias = _quantized_operands(b, m, k, n, "dynamic",
+                                               b + m + k)
+    assert aq.scale.shape == (b,)  # one scale per stream
+    aq, wq = _to(aq, cuda), _to(wq, cuda)
+    colsum, bias = colsum.to(cuda), bias.to(cuda)
+    before = quant.qmatmul.launches
+    got = quant.qmatmul(aq, wq, colsum, bias=bias,
+                        bt=quant.transpose_pad(wq.values))
+    ref = quant.qmatmul_ref(aq, wq, colsum, bias)
+    torch.cuda.synchronize()
+    assert quant.qmatmul.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def test_fused_streaming_session_cuda_vs_cpu(cuda, toy_quant_conf):
+    """One utterance through the fused int8 session on cuda and on the CPU:
+    the first chunk's carried context within 1e-3, the same transcript, and
+    the kernel launched once per linear per chunk step."""
+    from catears_tpu_torch.io.wav import read_16k_pcm
+    from catears_tpu_torch.runtime.recognizer import Recognizer
+    from catears_tpu_torch.runtime.streaming import StreamingSession
+
+    cfg = BeamConfig(beam_size=256, expand_size=2048, eps_expand_size=1024,
+                     beam=1e9)
+    samples = read_16k_pcm(os.path.join(DATA, "en-us-hello.wav"))
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        rec = Recognizer(toy_quant_conf, beam_config=cfg, device=dev)
+        graph = rec._decode_graph()
+        sess = StreamingSession(rec.am, rec.fst, None, *graph)
+        before = quant.qmatmul.launches
+        sess.process(samples[:4000])  # one chunk: 20 + R frames
+        ctx = sess._ctx.cpu()
+        launched = quant.qmatmul.launches - before
+        sess.process(samples[4000:])
+        sess.end_of_stream()
+        out.append((ctx, sess.best_path(end_of_stream=True).words, launched,
+                    sess.num_frames_decoded))
+    linears = sum(1 for layer in rec.am.nnet_def if layer[0] == "linear")
+    assert out[1][2] == linears and out[0][2] == 0
+    assert torch.allclose(out[0][0], out[1][0], atol=1e-3)
+    assert out[0][1:2] + out[0][3:] == out[1][1:2] + out[1][3:]

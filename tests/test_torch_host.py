@@ -3,8 +3,9 @@
 `catears_tpu_torch` keeps its own copies of the host code it needs (io,
 graph.fst, graph.transform, tools, utils) at the JAX package's module
 paths.  From the same seeds and files: the generators write byte-identical
-model files, the graph code gives equal arrays, the readers equal results,
-and the error paths the same exception names and messages.  Exact
+model files, the graph code gives equal arrays, the readers and online CMVN
+equal results, the error paths the same exception names and messages (and
+the same last-error record), and the metrics registry the same counters.  Exact
 throughout: the copies are the same numpy code.
 """
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import random_fst
+from catears_tpu.frontend import cmvn as jcmvn
 from catears_tpu.graph import fst as jfst
 from catears_tpu.graph import transform as jtransform
 from catears_tpu.io import binfmt as jbinfmt
@@ -27,6 +29,8 @@ from catears_tpu.tools import biggraph as jbiggraph
 from catears_tpu.tools import score as jscore
 from catears_tpu.tools import toy as jtoy
 from catears_tpu.utils import errors as jerrors
+from catears_tpu.utils import log as jlog
+from catears_tpu_torch.frontend import cmvn as tcmvn
 from catears_tpu_torch.graph import fst as tfst
 from catears_tpu_torch.graph import transform as ttransform
 from catears_tpu_torch.io import binfmt as tbinfmt
@@ -38,6 +42,7 @@ from catears_tpu_torch.tools import biggraph as tbiggraph
 from catears_tpu_torch.tools import score as tscore
 from catears_tpu_torch.tools import toy as ttoy
 from catears_tpu_torch.utils import errors as terrors
+from catears_tpu_torch.utils import log as tlog
 
 FST_FIELDS = ("final", "offsets", "arc_next", "arc_ilabel", "arc_olabel",
               "arc_weight")
@@ -302,3 +307,71 @@ def test_token_errors_equal(seed):
         assert tscore.token_errors(ref, hyp) == jscore.token_errors(ref, hyp)
         assert tscore.edit_distance(ref, hyp) == jscore.edit_distance(ref,
                                                                       hyp)
+
+
+# -- online CMVN, the last-error record, the metrics registry ------------------
+
+
+@pytest.mark.parametrize("t,step", [(0, 5), (1, 1), (650, 37), (1300, 600)])
+def test_online_cmvn_equal(t, step):
+    rng = np.random.RandomState(t)
+    feats = (rng.randn(t, 40) * 4 + 9).astype(np.float32)
+    stats = np.concatenate([rng.rand(40) * 1e5, [3e4]])
+    ref = jcmvn.OnlineCMVN(stats).apply(feats)
+    got = tcmvn.OnlineCMVN(stats).apply(feats)
+    assert ref.dtype == got.dtype and np.array_equal(ref, got)
+    js, ts = jcmvn.CMVNStream(stats), tcmvn.CMVNStream(stats)
+    for i in range(0, t, step):
+        a, b = js.process(feats[i:i + step]), ts.process(feats[i:i + step])
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(js._history, ts._history)
+    assert (tcmvn.CMVN_WINDOW, tcmvn.CMVN_GLOBAL_FRAMES, tcmvn.FEAT_DIM) == (
+        jcmvn.CMVN_WINDOW, jcmvn.CMVN_GLOBAL_FRAMES, jcmvn.FEAT_DIM)
+    for mod in (jcmvn, tcmvn):
+        with pytest.raises(AssertionError):
+            mod.OnlineCMVN(stats[:40])
+
+
+def test_last_error_record_equal():
+    """Raising any error records `<code>: <message>`; record_error
+    overwrites it; BeamCapacityError carries its high-water marks."""
+    seen = []
+    for errs in (jerrors, terrors):
+        for cls in (errs.IOError_, errs.CorruptionError, errs.RuntimeError_,
+                    errs.NotImplementedError_, errs.CatEarsError):
+            with pytest.raises(cls):
+                raise cls("went wrong")
+            seen.append(errs.last_error())
+        cls()
+        seen.append(errs.last_error())
+        err = errs.BeamCapacityError("over", hiwater=(1, 2, 3, 4, 5))
+        seen.append((errs.last_error(), err.hiwater, err.code))
+        errs.record_error("by hand")
+        seen.append(errs.last_error())
+    half = len(seen) // 2
+    assert seen[:half] == seen[half:]
+    assert seen[1] == "Corruption: went wrong"
+
+
+def test_metrics_registry_equal():
+    """count / timed / reset_metrics keep the same keys and counts."""
+    out = []
+    for mod in (jlog, tlog):
+        mod.reset_metrics()
+        mod.count("frames_decoded", 20)
+        mod.count("frames_decoded")
+        with mod.timed("decode"):
+            pass
+        with pytest.raises(ZeroDivisionError):
+            with mod.timed("am"):
+                1 / 0
+        m = mod.metrics()
+        assert m["decode_seconds"] >= 0 and m["am_seconds"] >= 0
+        out.append((sorted(m), m["frames_decoded"]))
+        mod.info("x %d", 1)
+        mod.warn("x")
+        mod.debug("x")
+        mod.reset_metrics()
+        assert mod.metrics() == {}
+    assert out[0] == out[1] == (["am_seconds", "decode_seconds",
+                                 "frames_decoded"], 21.0)

@@ -3,8 +3,8 @@
 Transcripts must be identical, for the float and the int8 (`quantized =
 true`) acoustic model, LM off and with delta-LM rescoring.  Also: the port
 imports neither jax nor the JAX package, its entry points run on the card
-unless asked for the CPU, and inputs it does not carry yet fail with a
-one-line `catears:` error.
+unless asked for the CPU, and what it does not carry (`select_compact`,
+graphs that are not eps-free) fails with a one-line `catears:` error.
 """
 
 import ast
@@ -200,7 +200,8 @@ def test_port_names_no_jax_package_in_imports(path):
 def _entry_point_calls(conf):
     """Each public constructor of the port, called without `device`."""
     from catears_tpu_torch.am.model import AcousticModel
-    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.decode.decoder import BatchDecoder, Decoder
+    from catears_tpu_torch.frontend.fbank import Fbank
     from catears_tpu_torch.graph import device as tdevice
     from catears_tpu_torch.graph.fst import FlatFst
     from catears_tpu_torch.io.config import Configuration
@@ -214,6 +215,8 @@ def _entry_point_calls(conf):
     return {
         "Recognizer": lambda: Recognizer(conf),
         "BatchDecoder": lambda: BatchDecoder(fst, tid2pdf),
+        "Decoder": lambda: Decoder(fst, tid2pdf),
+        "Fbank": lambda: Fbank(),
         "AcousticModel": lambda: AcousticModel(
             (("relu",),), [{}], np.zeros(4), tid2pdf, 0, 0, 8, 4),
         "AcousticModel.read": lambda: AcousticModel.read(config),
@@ -226,7 +229,8 @@ def _entry_point_calls(conf):
     }
 
 
-ENTRY_POINTS = ("Recognizer", "BatchDecoder", "AcousticModel",
+ENTRY_POINTS = ("Recognizer", "BatchDecoder", "Decoder", "Fbank",
+                "AcousticModel",
                 "AcousticModel.read", "DeviceFst.build",
                 "DeviceFst.from_numpy", "DeviceLm.build",
                 "DeviceLm.from_numpy")
@@ -252,15 +256,27 @@ def _one_line_error(rc, out, err, needle):
 
 
 def test_unported_inputs_fail_cleanly(model, data_dir):
+    """Inputs the port once refused now decode: a .wav, an scp without
+    --batch (the streaming Utterance path) and a `cmvn_stats` config with
+    --batch.  The knob it does not port, `select_compact`, still fails with
+    a one-line `catears:` error."""
     d, conf, scp = model
+    conf = _with_keys(d, conf, "narrow.conf", ["beam_size = 256",
+                                               "expand_size = 2048",
+                                               "eps_expand_size = 1024"])
     wav = os.path.join(data_dir, "en-us-hello.wav")
-    _one_line_error(*_run(torch_main, ["--device=cpu", conf, wav]),
-                    "not yet ported")
-    _one_line_error(*_run(torch_main, ["--device=cpu", conf, scp]),
-                    "not yet ported")
-    cmvn = _with_keys(d, conf, "cmvn.conf", ["cmvn_stats = c.bin"])
-    _one_line_error(*_run(torch_main, ["--batch", "--device=cpu", cmvn, scp]),
-                    "cmvn_stats")
+    rc, out, _ = _run(torch_main, ["--device=cpu", conf, wav])
+    assert rc == 0 and len(out.splitlines()) == 1
+    rc, out, _ = _run(torch_main, ["--device=cpu", conf, scp])
+    assert rc == 0 and [x.split()[0] for x in out.splitlines()] == ["u0",
+                                                                   "u1"]
+    cmvn = _with_keys(d, conf, "cmvn.conf", [
+        "cmvn_stats = " + os.path.join(data_dir, "cmvn_stats.bin")])
+    rc, out, _ = _run(torch_main, ["--batch", "--device=cpu", cmvn, scp])
+    assert rc == 0 and len(out.splitlines()) == 2
+    compact = _with_keys(d, conf, "compact.conf", ["select_compact = 4096"])
+    _one_line_error(*_run(torch_main, ["--device=cpu", compact, wav]),
+                    "select_compact")
 
 
 def test_default_device_needs_cuda(model):
@@ -274,7 +290,7 @@ def test_graph_not_eps_free_is_rejected():
     """An epsilon path with two output labels keeps the graph out of
     prepare_decode_graph's eps-free mode, which the port's decoder does not
     carry yet."""
-    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.decode.decoder import BatchDecoder, Decoder
     from catears_tpu_torch.graph.fst import FlatFst
     from catears_tpu_torch.graph.transform import prepare_decode_graph
     from catears_tpu_torch.utils.errors import NotImplementedError_
@@ -291,3 +307,5 @@ def test_graph_not_eps_free_is_rejected():
     assert prepare_decode_graph(fst)[2] != "eps_free"
     with pytest.raises(NotImplementedError_, match="not yet ported"):
         BatchDecoder(fst, np.arange(3, dtype=np.int32), device=CPU)
+    with pytest.raises(NotImplementedError_, match="not yet ported"):
+        Decoder(fst, np.arange(3, dtype=np.int32), device=CPU)
