@@ -6,19 +6,23 @@ its counterpart's layout and function names (`frontend/`, `am/`, `graph/`,
 `decode/`, `runtime/`, `cli.py`), and the tests run both on the same numpy
 inputs.  It imports nothing of `catears_tpu`: the host modules it needs
 (`io/` config, binary formats, OpenFST reader, WAV, symbols;
-`graph/fst.py` and the eps-free `graph/transform.py`; the `tools/` toy and
-trie generators and the token-error count; `utils/` errors and counters)
-are copies kept at the JAX package's module paths, stripped to what the
-port calls; WAV, ConstFst and edit distance take their Python paths.
+`graph/fst.py` and `graph/transform.py`; the `tools/` toy and trie
+generators, the token-error count and the Kaldi conversion recipe;
+`utils/` errors and counters) are copies kept at the JAX package's module
+paths, stripped to what the port calls; WAV, ConstFst and edit distance
+take their Python paths.
 
-What this package carries so far is the offline batched decode
-(`cli.py --batch`): fbank -> TDNN acoustic model (float, or int8 with
+It carries the offline batched decode (`cli.py --batch`) and the live
+stream (`Recognizer.create_utterance`, `create_stream_batch`, the CLI on a
+.wav): fbank (+ online CMVN) -> TDNN acoustic model (float, or int8 with
 `quantized = true`, its activation ranges dynamic or calibrated by
-`AcousticModel.calibrate`) -> eps-free WFST beam search, LM off or
-rescored on the fly by a delta-LM (`large_lm` + `original_lm`).  The int8
-GEMM (`am.quant.matmul_s8`) is a hand-written CUDA kernel for sm_90a
-(`csrc/matmul_s8.cu`); everything else, the LM walk included, is plain
-PyTorch.
+`AcousticModel.calibrate`) -> WFST beam search over a graph of any
+epsilon mode (eps-free, closed or raw), LM off or rescored on the fly by a
+delta-LM (`large_lm` + `original_lm`).  `tools/` converts a Kaldi model
+(`convert_am`, `convert_fst`, `convert_misc`, `lm`, `arpa`, `mkgraph`).
+The int8 GEMM (`am.quant.matmul_s8`) is a hand-written CUDA kernel for
+sm_90a (`csrc/matmul_s8.cu`); everything else, the LM walk and the
+epsilon closure included, is plain PyTorch.
 
 Precision: importing this package turns TF32 off for CUDA matmuls and
 cuDNN (`torch.backends.cuda.matmul.allow_tf32 = False`,

@@ -13,9 +13,9 @@ Usage: python -m catears_tpu_torch.cli [--batch[=N]] [--device=cuda|cpu]
                back to the CPU.
 
 The config may name a delta-LM (`large_lm` + `original_lm`) and online CMVN
-stats (`cmvn_stats`), on either path, as the JAX CLI's may.  Graphs whose
-epsilon removal does not reach the eps-free mode, and `select_compact`,
-fail with a one-line `catears:` error.
+stats (`cmvn_stats`), on either path, and a graph of any epsilon mode, as
+the JAX CLI's may.  `select_compact` fails with a one-line `catears:`
+error.
 """
 
 from __future__ import annotations

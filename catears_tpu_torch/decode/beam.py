@@ -1,5 +1,5 @@
 """Batched frame-synchronous Viterbi beam search with optional delta-LM
-rescoring (port of catears_tpu/decode/beam.py for eps-free graphs).
+rescoring (port of catears_tpu/decode/beam.py).
 
 The JAX decoder vmaps one utterance's frame step and scans it over frames;
 here the batch dimension is written out (every beam array is [B, K]) and
@@ -11,7 +11,23 @@ backpointers, words, overflow flags and high-water marks are identical:
           CSR overflow) -> cost = token + arc weight - am_scale*logp[pdf]
           (+ the delta-LM walks of the arc's output labels) -> exact dedup
           by (state, lm) (min cost, stable) + top-K + beam threshold;
+          then, unless the graph is eps-removed, the epsilon closure;
           padded and dead frames keep the previous beam.
+
+The three graph modes of graph.transform.prepare_decode_graph:
+* eps-removed: `_eps_free_step`, one selection per frame;
+* a static epsilon depth (closed graphs, depth 1; raw graphs of depth <=
+  max_eps_iters): `_emitting_step` + `_eps_closure_fused`, one merge
+  selection per round with the trace composed in place;
+* any other depth: `_emitting_step` + `_eps_closure` over a backpointer
+  arena + `_resolve_chains`.  The JAX closure is a while_loop that stops
+  after the first round accepting no candidate; here all max_eps_iters
+  rounds run, with no read of the device.  A round after that stop changes
+  nothing: no candidate wins, so the merge keeps the same entries in the
+  same (cost, state, lm) order, its empty slots keep their backpointers
+  (they are the beam's own state -1 entries, taken in slot order), and the
+  arena block it writes is zeros, as an unwritten block is.  So every
+  later round sees the same input, and the result is the JAX one.
 
 Notes on matching the reference bit for bit:
 * Sorts: `lax.sort` is stable and compares floats as IEEE numbers (-0.0 ==
@@ -24,9 +40,10 @@ Notes on matching the reference bit for bit:
   columns.
 * Acoustic term: a plain gather logp[b, pdf] (the JAX one-hot matmul
   lookup is exact, and so is a gather).  XLA contracts `cost - am_scale *
-  logp` into one fused multiply-add; `_fms` computes that single rounding
-  exactly, in float64 with round-to-odd, on any device.  The LM weights
-  are then added one walk at a time, as JAX adds them.
+  logp` (`_eps_free_step`) and `cost + (-am_scale * logp)`
+  (`_emitting_step`) into one fused multiply-add; `_fms` computes that
+  single rounding exactly, in float64 with round-to-odd, on any device.
+  The LM weights are then added one walk at a time, as JAX adds them.
 * Integer fields are int32 as in JAX; logical shifts are `>>` plus the
   field's mask, since torch's `>>` on int32 is arithmetic.
 """
@@ -49,8 +66,8 @@ I32 = torch.int32
 
 @dataclass(frozen=True)
 class BeamConfig:
-    """Static decoder geometry (the JAX fields and defaults that the
-    eps-free decode reads)."""
+    """Static decoder geometry (the JAX fields and defaults that the port
+    reads; `select_compact` and the hot/cold split are not ported)."""
 
     beam_size: int = 4096  # K: max active tokens
     expand_size: int = 8192  # emitting-arc CSR overflow capacity
@@ -62,6 +79,11 @@ class BeamConfig:
     max_eps_iters: int = 6  # closure round bound
     beam: float = 16.0  # beam width
     am_scale: float = 0.1  # acoustic scale
+
+    def arena_rows(self, dfst: DeviceFst) -> int:
+        """Backpointer arena rows of the dynamic closure: one block of K
+        for the emitting step, one per closure round."""
+        return (1 + _closure_rounds(self, dfst)) * self.beam_size
 
 
 def _closure_rounds(cfg: BeamConfig, dfst: DeviceFst) -> int:
@@ -311,6 +333,7 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         self_pdf = eb[..., 7] & 0xFFF
         n_emit_raw = _srl(eb[..., 7], 13) & 0x3FF
         over_lo = eb[..., 8]
+        eps_meta_self = torch.zeros_like(state_c)  # compact => eps_removed
     else:
         lanes_a = DeviceFst.ARC_LANES
         sp = eb[..., g * lanes_a:g * lanes_a + 4]
@@ -327,9 +350,11 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         self_pdf = sf[..., 3]
         n_emit_raw = sp[..., 3]
         over_lo = sp[..., 2]
-    # Emitting expansion runs only on eps-removed graphs, where lane 4 is
-    # the composed second olabel, which a true self-loop never has.
-    eps_meta_self = torch.zeros_like(state_c)
+        # A self-loop's destination is its own state, whose epsilon
+        # metadata is in the state lanes; in eps_removed mode lane 4 is the
+        # composed second olabel, which a true self-loop never has.
+        eps_meta_self = (torch.zeros_like(state_c) if dfst.eps_removed
+                         else (sp[..., 0] << 9) | sp[..., 1])
     n_emit = torch.where(valid_tok, n_emit_raw, 0)
     lanes = _arange(g, dev)
     valid_a = lanes[None, None, :] < n_emit[..., None]
@@ -464,12 +489,57 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     return new_beam, torch.where(keep, tok, 0), words
 
 
+def _emitting_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
+                   beam: BeamState, logp: torch.Tensor):
+    """Relax all emitting arcs of a graph that keeps its epsilon arcs; the
+    closure follows.  One LM walk (the emitting olabel) whenever a G' is
+    present.  With a static closure depth the destinations' packed eps
+    metadata rides the selection, so the closure needs no state gather.
+
+    Returns (beam', parent [B, K], olab0 [B, K], cutoff [B, 1], eps_info):
+    beam.bp is the identity, eps_info is (eps_meta,) or ().
+    """
+    need_eps = (dfst.eps_depth is not None
+                and 0 < dfst.eps_depth <= cfg.max_eps_iters
+                and dfst.eps_meta_ok)
+    c = _expand(cfg, dfst, beam, cfg.expand_size, True,
+                need_lm=dlm is not None, need_bp=False, need_eps=need_eps)
+    cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
+    overflow = beam.overflow | c.overflow
+    hiwater = _max_at(beam.hiwater, 0, c.needed)
+    lm_state = None
+    if dlm is not None:
+        lm_state, lm_w, lm_over, lm_needed = _lm(cfg, dlm, c.lm, c.olabel,
+                                                 c.valid)
+        cost = cost + lm_w
+        overflow = overflow | lm_over
+        hiwater = _max_at(hiwater, 2, lm_needed)
+    cand_state = torch.where(c.valid, c.next_state, SENTINEL_STATE)
+    cand_cost = torch.where(c.valid, cost, INF)
+    payloads = [c.tok, c.olabel] + ([c.eps] if need_eps else [])
+    (states, lms, costs, parent, olab, *eps_info), sel_needed = \
+        _select_sorts(cfg, cand_state, lm_state, cand_cost, payloads,
+                      report_demand=True)
+    cutoff = torch.amin(costs, dim=1, keepdim=True) + cfg.beam
+    keep = costs <= cutoff
+    states = torch.where(keep, states, -1)
+    costs = torch.where(keep, costs, INF)
+    new_beam = BeamState(
+        states, lms, costs,
+        _arange(cfg.beam_size, states.device).expand_as(states).contiguous(),
+        overflow, _max_at(hiwater, 3, sel_needed))
+    return (new_beam, parent, torch.where(keep, olab, 0), cutoff,
+            tuple(eps_info))
+
+
 def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst,
                        dlm: Optional[DeviceLm], beam: BeamState,
                        parent: torch.Tensor, olab0: torch.Tensor,
                        eps_info: Tuple, cutoff: float):
-    """Static-depth epsilon closure with inline trace composition (serves
-    the decode-root closure).  beam.bp must be the identity.
+    """Static-depth epsilon closure with inline trace composition: each
+    round extends every chain by one hop, so the per-slot (prev_slot,
+    words) trace is composed with one row gather per round and no arena.
+    beam.bp must be the identity, as _emitting_step returns it.
 
     Returns (beam', prev_slot [B, K], words [B, K, rounds+1] newest-first).
     """
@@ -532,6 +602,94 @@ def _eps_closure_fused(cfg: BeamConfig, dfst: DeviceFst,
     return beam, prev, words
 
 
+def _arena_from_emit(cfg: BeamConfig, dfst: DeviceFst, parent: torch.Tensor,
+                     olab: torch.Tensor) -> torch.Tensor:
+    """Arena [B, rows, 2] of the dynamic closure, block 0 from the
+    emitting step.  Rows are packed (parent_enc, olabel); parent_enc =
+    -(prev_slot + 1) marks a previous-frame reference."""
+    b, k = parent.shape
+    arena = torch.zeros((b, cfg.arena_rows(dfst), 2), dtype=I32,
+                        device=parent.device)
+    arena[:, :k, 0] = -(parent + 1)
+    arena[:, :k, 1] = olab
+    return arena
+
+
+def _static_depth(cfg: BeamConfig, dfst: DeviceFst) -> bool:
+    return dfst.eps_depth is not None and dfst.eps_depth <= cfg.max_eps_iters
+
+
+def _eps_closure(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
+                 beam: BeamState, arena: torch.Tensor, cutoff):
+    """Bounded epsilon closure over the backpointer arena (graphs without a
+    static depth): max_eps_iters rounds of expand the beam's epsilon arcs
+    -> merge beam + candidates (beam entries first, so a cost tie keeps
+    the beam entry) -> one selection; round j's accepted candidates get
+    arena block 1 + j.  No round reads the device (module docstring)."""
+    k = cfg.beam_size
+    m = arena.shape[1]
+    slots = _arange(k, arena.device)
+    for j in range(cfg.max_eps_iters):
+        c = _expand(cfg, dfst, beam, cfg.eps_expand_size, False,
+                    need_lm=dlm is not None, need_bp=True)
+        cost = c.cost
+        overflow = beam.overflow | c.overflow
+        hiwater = _max_at(beam.hiwater, 1, c.needed)
+        m_lms = None
+        if dlm is not None:
+            lm_state, lm_w, lm_over, lm_needed = _lm(cfg, dlm, c.lm,
+                                                     c.olabel, c.valid)
+            cost = cost + lm_w
+            overflow = overflow | lm_over
+            hiwater = _max_at(hiwater, 2, lm_needed)
+            m_lms = torch.cat([beam.lm, lm_state], dim=1)
+        valid_e = c.valid & (cost <= cutoff)
+        m_states = torch.cat([beam.states, torch.where(
+            valid_e, c.next_state, SENTINEL_STATE)], dim=1)
+        m_costs = torch.cat([beam.costs, torch.where(valid_e, cost, INF)],
+                            dim=1)
+        # Candidate refs are offset by the arena's row count, so one
+        # payload column also says which entries are candidates.
+        m_ref = torch.cat([beam.bp, c.bp + m], dim=1)
+        m_olab = torch.cat([torch.zeros_like(beam.bp), c.olabel], dim=1)
+        (states, lms, costs, ref_enc, olab), sel_needed = _select_sorts(
+            cfg, m_states, m_lms, m_costs, [m_ref, m_olab])
+        iscand = ref_enc >= m
+        ref = torch.where(iscand, ref_enc - m, ref_enc)
+        accepted = iscand & (states >= 0)
+        base = (1 + j) * k
+        arena[:, base:base + k, 0] = torch.where(accepted, ref, 0)
+        arena[:, base:base + k, 1] = torch.where(accepted, olab, 0)
+        beam = BeamState(states, lms, costs,
+                         torch.where(accepted, base + slots, ref), overflow,
+                         _max_at(hiwater, 3, sel_needed))
+    return beam, arena
+
+
+def _resolve_chains(cfg: BeamConfig, dfst: DeviceFst, bp: torch.Tensor,
+                    arena: torch.Tensor):
+    """Walk each slot's same-frame arena chain -> (prev_slot [B, K],
+    words [B, K, W] newest-first), W = 1 + the closure rounds."""
+    if dfst.eps_depth is not None:
+        hops = min(dfst.eps_depth, cfg.max_eps_iters) + 1
+    else:
+        hops = cfg.max_eps_iters + 1
+    b, k = bp.shape
+    prev_slot = torch.full((b, k), -1, dtype=I32, device=bp.device)
+    cur = bp
+    active = torch.ones((b, k), dtype=torch.bool, device=bp.device)
+    words = []
+    for _ in range(hops):
+        row = torch.gather(arena, 1, cur.long()[..., None].expand(b, k, 2))
+        p, o = row[..., 0], row[..., 1]
+        words.append(torch.where(active, o, 0))
+        prev_slot = torch.where(active & (p < 0), -p - 1, prev_slot)
+        step = active & (p >= 0)
+        cur = torch.where(step, p, cur)
+        active = step
+    return prev_slot, torch.stack(words, dim=2)
+
+
 def _frame_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
                 beam: BeamState, logp: torch.Tensor,
                 frame_valid: torch.Tensor):
@@ -540,9 +698,21 @@ def _frame_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     If an utterance's beam dies (no token survives), its previous beam is
     frozen so the best path still returns the last partial hypothesis.
     """
-    if not dfst.eps_removed:
-        raise NotImplementedError("only eps-free decode graphs are ported")
-    new_beam, prev_slot, words = _eps_free_step(cfg, dfst, dlm, beam, logp)
+    if dfst.eps_removed:
+        new_beam, prev_slot, words = _eps_free_step(cfg, dfst, dlm, beam,
+                                                    logp)
+    else:
+        new_beam, parent, olab0, cutoff, eps_info = _emitting_step(
+            cfg, dfst, dlm, beam, logp)
+        if _static_depth(cfg, dfst):
+            new_beam, prev_slot, words = _eps_closure_fused(
+                cfg, dfst, dlm, new_beam, parent, olab0, eps_info, cutoff)
+        else:
+            arena = _arena_from_emit(cfg, dfst, parent, olab0)
+            new_beam, arena = _eps_closure(cfg, dfst, dlm, new_beam, arena,
+                                           cutoff)
+            prev_slot, words = _resolve_chains(cfg, dfst, new_beam.bp,
+                                               arena)
     # Overflow only counts on real frames.
     overflow = torch.where(frame_valid, new_beam.overflow, beam.overflow)
     died = ~torch.isfinite(new_beam.costs[:, 0])
@@ -579,15 +749,20 @@ def init_beam_batch(cfg: BeamConfig, batch: int, dfst: DeviceFst,
     beam = BeamState(states, lms, costs, bp,
                      torch.zeros(1, dtype=torch.bool, device=dev),
                      torch.zeros((1, 5), dtype=I32, device=dev))
-    static = (dfst.eps_depth is not None
-              and dfst.eps_depth <= cfg.max_eps_iters)
-    if not static:
-        raise NotImplementedError("dynamic epsilon closure is not ported")
-    sp = dfst.state_packed[torch.clamp(states, 0,
-                                       dfst.num_states - 1).long()]
-    eps_info = ((sp[..., 0] << 9) | torch.where(states >= 0, sp[..., 1], 0),)
-    beam, _, words = _eps_closure_fused(cfg, dfst, dlm, beam, bp,
-                                        torch.zeros_like(bp), eps_info, INF)
+    if _static_depth(cfg, dfst):
+        sp = dfst.state_packed[torch.clamp(states, 0,
+                                           dfst.num_states - 1).long()]
+        eps_info = ((sp[..., 0] << 9)
+                    | torch.where(states >= 0, sp[..., 1], 0),)
+        beam, _, words = _eps_closure_fused(cfg, dfst, dlm, beam, bp,
+                                            torch.zeros_like(bp), eps_info,
+                                            INF)
+    else:
+        # Root entries end the backtrace: parent slot of a frame that does
+        # not exist.
+        arena = _arena_from_emit(cfg, dfst, bp, torch.zeros_like(bp))
+        beam, arena = _eps_closure(cfg, dfst, dlm, beam, arena, INF)
+        _, words = _resolve_chains(cfg, dfst, beam.bp, arena)
     trace = FrameTrace(torch.full((1, k), -1, dtype=I32, device=dev), words)
     beam = BeamState(beam.states, beam.lm, beam.costs, bp, beam.overflow,
                      beam.hiwater)

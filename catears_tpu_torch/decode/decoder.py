@@ -7,9 +7,11 @@ get_state / set_state), buffering log-prob rows into fixed chunks decoded
 under a frame_valid mask; `autosize` sizes a deployment's capacities from
 one generous decode.  `BatchDecoder` is the batch path: optional delta-LM
 rescoring, the overflow regrow-and-retry and the device backtrace with the
-host's final-weight pick.  Only eps-free decode graphs are ported:
-`prepare_decode_graph` must return mode 'eps_free', otherwise
-construction raises NotImplementedError_.
+host's final-weight pick (or the host backtrace), `decode_batch` its
+one-shot form.  Both decode every mode of `prepare_decode_graph`:
+eps-free and closed graphs with the transformed graph (epsilon depth
+capped at 1), raw ones (or any graph when close_eps=False) with the
+original graph and its own epsilon depth, as the JAX decoders do.
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst
 from catears_tpu_torch.graph.transform import prepare_decode_graph
 from catears_tpu_torch.utils import log
 from catears_tpu_torch.utils.device import Device, resolve_device
-from catears_tpu_torch.utils.errors import (BeamCapacityError,
-                                            NotImplementedError_)
+from catears_tpu_torch.utils.errors import BeamCapacityError
 
 
 def safe_config(fst: FlatFst, arc_group: int, base: BeamConfig,
@@ -75,15 +76,15 @@ def _round_up(v: int, quantum: int) -> int:
     return -(-v // quantum) * quantum
 
 
-def _eps_free_graph(fst: FlatFst):
-    """(decode graph, olabel2) of prepare_decode_graph; raises unless its
-    mode is eps-free, the one the port's decoder carries."""
-    dec_fst, olab2, mode = prepare_decode_graph(fst)
-    if mode != "eps_free":
-        raise NotImplementedError_(
-            f"decode graph mode '{mode}' is not yet ported (the PyTorch "
-            f"decoder runs eps-free graphs only)")
-    return dec_fst, olab2
+def _decode_graph(fst: FlatFst, close_eps: bool):
+    """(decode graph, eps_depth_cap, olabel2), the JAX decoders' choice:
+    with close_eps, prepare_decode_graph's graph at depth 1 unless its mode
+    is 'raw'; otherwise the original graph at its own epsilon depth."""
+    if close_eps:
+        g2, olab2, mode = prepare_decode_graph(fst)
+        if mode != "raw":
+            return g2, 1, olab2
+    return fst, None, None
 
 
 def autosize(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
@@ -149,6 +150,7 @@ class Decoder:
                  config: Optional[BeamConfig] = None,
                  chunk_frames: int = 20,
                  arc_group: int = 4,
+                 close_eps: bool = True,
                  csr_group: int = None,
                  dfst: Optional[DeviceFst] = None,
                  dlm: Optional[DeviceLm] = None,
@@ -157,7 +159,7 @@ class Decoder:
         cannot truncate); an explicit config relies on the overflow flag.
         A prebuilt `dfst` (and `dlm`) is adopted, and its device used; else
         the tables are built on `device` (the card unless the CPU is asked
-        for) as BatchDecoder builds them."""
+        for) from the graph `_decode_graph` picks."""
         auto_capacity = config is None
         if config is None:
             config = BeamConfig(am_scale=am_scale)
@@ -171,14 +173,15 @@ class Decoder:
             self.dfst = dfst
         else:
             device = resolve_device(device)
-            dec_fst, olab2 = _eps_free_graph(fst)
+            dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
             if auto_capacity:
                 config = safe_config(dec_fst, arc_group, config,
                                      delta_lm is not None,
                                      csr_group=csr_group)
             self.dfst = DeviceFst.build(dec_fst, tid2pdf, group=arc_group,
-                                        eps_depth_cap=1, csr_group=csr_group,
-                                        olabel2=olab2, device=device)
+                                        eps_depth_cap=cap,
+                                        csr_group=csr_group, olabel2=olab2,
+                                        device=device)
         self.cfg = config
         self.fst = fst
         self.delta_lm = delta_lm
@@ -294,17 +297,15 @@ class Decoder:
         self.is_end_of_stream = state["is_end_of_stream"]
 
 
-RETRY_MARGIN = 1.5  # regrown capacity = high-water mark x this
-
-
-def _regrow_config(config: BeamConfig, hiwater) -> BeamConfig:
+def _regrow_config(config: BeamConfig, hiwater,
+                   margin: float = 1.5) -> BeamConfig:
     """New geometry from measured demand: each capacity grows to its
-    high-water mark x RETRY_MARGIN (the mark is a lower bound on the true
-    demand once truncation happened)."""
+    high-water mark x margin (the mark is a lower bound on the true demand
+    once truncation happened)."""
     emit, eps, lm = int(hiwater[0]), int(hiwater[1]), int(hiwater[2])
 
     def grow(cur, need):
-        return max(cur, _round_up(int(need * RETRY_MARGIN), 512))
+        return max(cur, _round_up(int(need * margin), 512))
 
     return dataclasses.replace(
         config, expand_size=grow(config.expand_size, emit),
@@ -325,64 +326,105 @@ class BatchDecoder:
     """
 
     def __init__(self, fst: FlatFst, tid2pdf: np.ndarray,
+                 am_scale: float = 0.1,
+                 delta_lm: Optional[DeltaLmFst] = None,
                  config: Optional[BeamConfig] = None,
+                 chunk_frames: int = 50,
                  arc_group: int = 4,
+                 close_eps: bool = True,
                  csr_group: int = None,
-                 device: Device = "cuda",
-                 delta_lm: Optional[DeltaLmFst] = None):
+                 dfst: Optional[DeviceFst] = None,
+                 device: Device = "cuda"):
         """config=None sizes the capacities by safe_config (LM off they
         cannot truncate); an explicit config relies on the overflow
-        retry.  The tables live on `device` (the card unless the CPU is
-        asked for)."""
-        device = resolve_device(device)
-        dec_fst, olab2 = _eps_free_graph(fst)
+        retry, with its am_scale replaced by `am_scale`.  The tables are
+        built on `device` (the card unless the CPU is asked for) from the
+        graph `_decode_graph` picks; a prebuilt `dfst` is adopted instead,
+        on its own device, and `fst` must then be the graph it was built
+        from (its final weights drive the host backtrace)."""
+        self.fst = fst
+        self.delta_lm = delta_lm
+        self.chunk_frames = chunk_frames
+        dec_fst, cap, olab2 = (_decode_graph(fst, close_eps) if dfst is None
+                               else (fst, None, None))
         self.auto_capacity = config is None
         if config is None:
-            config = safe_config(dec_fst, arc_group, BeamConfig(),
+            config = safe_config(dec_fst, arc_group,
+                                 BeamConfig(am_scale=am_scale),
                                  delta_lm is not None, csr_group=csr_group)
+        elif config.am_scale != am_scale:
+            config = dataclasses.replace(config, am_scale=am_scale)
         self.cfg = config
-        self.dfst = DeviceFst.build(dec_fst, tid2pdf, group=arc_group,
-                                    eps_depth_cap=1, csr_group=csr_group,
-                                    olabel2=olab2, device=device)
-        self.delta_lm = delta_lm
-        self.dlm = (DeviceLm.build(delta_lm, device=device)
+        self.dfst = dfst if dfst is not None else DeviceFst.build(
+            dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
+            csr_group=csr_group, olabel2=olab2, device=resolve_device(device))
+        self.dlm = (DeviceLm.build(delta_lm, device=self.dfst.device)
                     if delta_lm is not None else None)
 
     def decode(self, logp, lengths: Optional[Sequence[int]] = None,
+               device_backtrace: bool = True,
                retry_on_overflow: bool = True,
+               retry_margin: float = 1.5,
                final_fallback: bool = False) -> List[Hypothesis]:
         """Decode a [B, T, P] log-prob batch; one Hypothesis per row.
 
         An overflow of an explicit config's capacities regrows the geometry
-        from the decode's high-water telemetry and decodes the batch ONCE
-        more; only a second overflow raises BeamCapacityError.
-        final_fallback=True backtraces the cheapest token when no final
-        state is reachable.
+        from the decode's high-water telemetry (x retry_margin) and decodes
+        the batch ONCE more; only a second overflow raises
+        BeamCapacityError.  device_backtrace=False pulls every frame's
+        trace and backtraces each utterance on the host (end-of-stream
+        best path, no fallback).  final_fallback=True makes the device
+        backtrace take the cheapest token when no final state is
+        reachable.
         """
         if self.auto_capacity:
-            retry_on_overflow = False  # as the JAX BatchDecoder
+            retry_on_overflow = False  # safe_config bounds cannot truncate
+        args = (self.fst, self.dfst, self.dlm, self.delta_lm, logp, lengths)
         try:
-            return _decode_batch_once(self.dfst, self.dlm, self.delta_lm,
-                                      logp, lengths, self.cfg,
-                                      final_fallback)
+            return _decode_batch_once(*args, self.cfg, self.chunk_frames,
+                                      device_backtrace, final_fallback)
         except BeamCapacityError as err:
             if not retry_on_overflow or err.hiwater is None:
                 raise
-            regrown = _regrow_config(self.cfg, err.hiwater)
+            regrown = _regrow_config(self.cfg, err.hiwater, retry_margin)
             log.count("overflow_retries", 1)
             print(f"# catears: capacity overflow (hiwater={err.hiwater}); "
                   f"regrowing geometry to expand={regrown.expand_size} "
                   f"eps={regrown.eps_expand_size} "
                   f"lm={regrown.lm_expand_size} and retrying once",
                   file=sys.stderr)
-            return _decode_batch_once(self.dfst, self.dlm, self.delta_lm,
-                                      logp, lengths, regrown, final_fallback)
+            return _decode_batch_once(*args, regrown, self.chunk_frames,
+                                      device_backtrace, final_fallback)
 
 
-def _decode_batch_once(dfst: DeviceFst, dlm: Optional[DeviceLm],
+def decode_batch(fst: FlatFst, tid2pdf: np.ndarray, logp,
+                 lengths: Optional[Sequence[int]] = None,
+                 am_scale: float = 0.1,
+                 delta_lm: Optional[DeltaLmFst] = None,
+                 config: Optional[BeamConfig] = None,
+                 chunk_frames: int = 50,
+                 arc_group: int = 4,
+                 close_eps: bool = True,
+                 csr_group: int = None,
+                 device_backtrace: bool = True,
+                 retry_on_overflow: bool = True,
+                 retry_margin: float = 1.5,
+                 device: Device = "cuda") -> List[Hypothesis]:
+    """One-shot decode of a [B, T, P] batch (see BatchDecoder)."""
+    return BatchDecoder(fst, tid2pdf, am_scale=am_scale, delta_lm=delta_lm,
+                        config=config, chunk_frames=chunk_frames,
+                        arc_group=arc_group, close_eps=close_eps,
+                        csr_group=csr_group, device=device).decode(
+        logp, lengths, device_backtrace=device_backtrace,
+        retry_on_overflow=retry_on_overflow, retry_margin=retry_margin)
+
+
+def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
+                       dlm: Optional[DeviceLm],
                        delta_lm: Optional[DeltaLmFst], logp,
                        lengths: Optional[Sequence[int]],
-                       config: BeamConfig,
+                       config: BeamConfig, chunk_frames: int,
+                       device_backtrace: bool,
                        final_fallback: bool = False) -> List[Hypothesis]:
     dev = dfst.device
     logp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
@@ -391,12 +433,18 @@ def _decode_batch_once(dfst: DeviceFst, dlm: Optional[DeviceLm],
     beam, init_trace = init_beam_batch(config, b, dfst, dlm)
     len_arr = np.asarray(lengths)
     log.count("frames_decoded", int(len_arr.sum()))
-    # One pass over all T frames: the JAX decoder scans fixed-size chunks
-    # only because its shapes are static; the frame steps are the same.
+    # Chunks of real frames only: the JAX decoder pads its last chunk with
+    # invalid (identity) frames because its shapes are static.
     valid = torch.as_tensor(np.arange(t)[:, None] < len_arr[None, :],
                             device=dev)
-    beam, trace = decode_chunk(config, dfst, beam, logp.transpose(0, 1),
-                               valid, dlm)
+    logp_t = logp.transpose(0, 1)
+    prevs, words = [], []
+    for off in range(0, t, chunk_frames):
+        beam, trace = decode_chunk(config, dfst, beam,
+                                   logp_t[off:off + chunk_frames],
+                                   valid[off:off + chunk_frames], dlm)
+        prevs.append(trace.prev_slot)
+        words.append(trace.words)
 
     overflow = beam.overflow.cpu().numpy()
     if overflow.any():
@@ -410,6 +458,19 @@ def _decode_batch_once(dfst: DeviceFst, dlm: Optional[DeviceLm],
     states = beam.states.cpu().numpy()
     lms = beam.lm.cpu().numpy()
     costs = beam.costs.cpu().numpy()
+    if not device_backtrace:
+        prev = torch.cat(prevs).cpu().numpy()
+        word = torch.cat(words).cpu().numpy()
+        init_prev = init_trace.prev_slot.cpu().numpy()
+        init_words = init_trace.words.cpu().numpy()
+        return [
+            best_path([HostTrace(init_prev[u], init_words[u])]
+                      + [HostTrace(prev[f, u], word[f, u])
+                         for f in range(lengths[u])],
+                      states[u], lms[u], costs[u], fst, delta_lm,
+                      end_of_stream=True)
+            for u in range(b)
+        ]
     final = dfst.final.cpu().numpy()
     # Exact final-weight selection on the host (a delta-LM final needs the
     # backoff walk), then ONE backtrace on the device for the whole batch.
@@ -436,14 +497,14 @@ def _decode_batch_once(dfst: DeviceFst, dlm: Optional[DeviceLm],
             total = np.where(ok, costs[u], np.inf)
         best_slots[u] = int(np.argmin(total))
         totals[u] = total[best_slots[u]]
-    # A graph with no epsilon arcs has a 1-wide init trace beside 2-wide
-    # frame traces (the JAX decoder fails to concatenate them); words are
-    # zero-padded, so widening with zeros changes nothing.
-    pad = trace.words.shape[-1] - init_trace.words.shape[-1]
+    # In eps-free mode a graph with no epsilon arcs has a 1-wide init
+    # trace beside 2-wide frame traces (the JAX decoder fails to
+    # concatenate them); in the other modes the widths are equal.  Words
+    # are zero-padded, so widening with zeros changes nothing.
+    pad = (words[0].shape[-1] - init_trace.words.shape[-1]) if words else 0
     init_words = torch.nn.functional.pad(init_trace.words, (0, pad))
-    traces = FrameTrace(
-        torch.cat([init_trace.prev_slot[None], trace.prev_slot]),
-        torch.cat([init_words[None], trace.words]))
+    traces = FrameTrace(torch.cat([init_trace.prev_slot[None]] + prevs),
+                        torch.cat([init_words[None]] + words))
     frame_words = backtrace_device(
         traces, torch.as_tensor(best_slots, device=dev)).cpu().numpy()
     return [

@@ -1,9 +1,9 @@
 """Device-resident WFST and delta-LM tables and the vectorized LM walk (port
 of catears_tpu/graph/device.py).
 
-`DeviceFst.build` lays an (eps-free, after graph.transform) HCLG out as the
-same integer tables the JAX decoder gathers from, byte for byte, then moves
-them to a torch device:
+`DeviceFst.build` lays an HCLG (eps-free or closed after graph.transform,
+or raw) out as the same integer tables the JAX decoder gathers from, byte
+for byte, then moves them to a torch device:
 
 * `emit_block [S, G*5 + 8]` (classic row) — every state's first G remaining
   emitting arcs ++ the state_packed lanes ++ its extracted first emitting
@@ -16,7 +16,8 @@ them to a torch device:
     7: self_pdf | self_has << 12 | n_emit << 13
     8: emit_over_lo
 * `over_packed [Ro, Gc*5]` — emitting arcs beyond the first G (CSR overflow).
-* `eps_packed [Re, Ge*5]` — epsilon arcs (they serve the init closure).
+* `eps_packed [Re, Ge*5]` — epsilon arcs (the closure rounds' CSR; in
+  eps-removed graphs only the init closure's).
 * `state_packed [S, 4]` — (eps_row_lo, n_eps, emit_over_lo, n_emit).
 
 Each arc is 5 int32 lanes (next, olabel, weight_bits, pdf, lane4), with
@@ -593,10 +594,11 @@ def lm_propagate(dlm: Optional[DeviceLm], states: torch.Tensor,
     phase2 = torch.zeros_like(active0)
     bo_it = torch.zeros_like(states)
     # Built once: a Python scalar in torch.where costs ops every iteration.
-    seed1 = torch.tensor(dlm.hash_seed1, dtype=torch.int64,
-                         device=states.device)
-    seed2 = torch.tensor(dlm.hash_seed2, dtype=torch.int64,
-                         device=states.device)
+    # torch.full fills on the device (no host copy, so no synchronize).
+    seed1 = torch.full((), dlm.hash_seed1, dtype=torch.int64,
+                       device=states.device)
+    seed2 = torch.full((), dlm.hash_seed2, dtype=torch.int64,
+                       device=states.device)
     for _ in range(lm_iterations(dlm)):
         # One probe round: the bucket row gather + 4-slot compare (the
         # second-choice bucket in phase 2); state 0 reads the dense table.

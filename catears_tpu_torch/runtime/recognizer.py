@@ -18,9 +18,10 @@ catears_tpu/runtime/recognizer.py; the reference's ce_stt lifecycle).
   decode_wav_file(r, path)  one wav streamed through an Utterance (the CLI)
 
 `device` places the acoustic model, the fbank and the decode graph: the
-card unless the CPU is asked for.  `select_compact` fails with
-NotImplementedError_ (that knob is not ported), and so do graphs whose
-epsilon removal does not reach the eps-free mode.
+card unless the CPU is asked for.  The graph decodes in whichever mode
+graph.transform.prepare_decode_graph gives it (eps-free, closed or raw),
+as in JAX.  `select_compact` fails with NotImplementedError_ (that knob is
+not ported).
 """
 
 from __future__ import annotations

@@ -42,11 +42,30 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               CPU: identical words, bit-equal costs; plus the WER of
               planted trie paths decoded on cuda
   decoder-lm  the same with the delta-LM, and the planted WER under it
+  decoder-closed, decoder-raw, decoder-raw-dynamic
+              the trie with its epsilon arcs: closed (close_epsilons, the
+              tables built with eps_depth_cap = 1 on cuda and on the CPU,
+              adopted by BatchDecoder(dfst=...)), raw (BatchDecoder(
+              close_eps=False): depth 2, two static closure rounds) and
+              raw at max_eps_iters = 1 (depth 2 > 1: the arena closure).
+              The AM's 2 utterances on the card with no device read in
+              the frame loop (ms per frame, host clock between
+              synchronizes, and the high-water marks), their first
+              CUT_FRAMES frames on cuda and cpu (identical words, bit-equal
+              costs), and the planted WER on the card (not held to a bar
+              for raw-dynamic: 1 round truncates the closure)
+  decoder-closed-lm, decoder-raw-lm
+              closed and raw with the G', all on CUT_FRAMES frames
   e2e         cli.main(["--batch=8", conf, scp]) on cuda: exit 0, one line
               per utterance, no capacity overflow, the fused kernel
-              launched at least once per linear layer per batch, and the
-              same transcripts as the same command with --device=cpu
+              launched once per linear layer per batch, and the first
+              CPU_UTTS transcripts equal to the same command with
+              --device=cpu on those utterances
   e2e-lm      the same with the delta-LM config
+  e2e-raw     the same with a config whose graph is the trie plus one
+              unreachable epsilon path carrying two words, so
+              prepare_decode_graph returns 'raw': no device read in the
+              frame loop, its ms per frame and high-water marks
   stream      the toy model with online CMVN (tests/data/cmvn_stats.bin),
               float and int8, over en-us-hello.wav and en-us-cat.wav: the
               fused Utterance equals the componentized one on the card and
@@ -56,6 +75,10 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               planted trie log-probs through the single-utterance Decoder
               on the card, LM off and with the G': the words BatchDecoder
               gives on the card, and the planted WER
+  stream-decoder-raw
+              the same through Decoder(close_eps=False) against
+              BatchDecoder(close_eps=False), no device read in the
+              Decoder's frame loop
   stream-trie 8 streams of the seeded waves through create_stream_batch(8),
               fed by process_batch in 20-frame ticks, then end_of_stream
               per stream: the first 2 streams' transcripts equal those of
@@ -67,14 +90,26 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               Utterance over the 10 s wave (its chunk latency)
   stream-trie-lm  the same with the delta-LM config
 
+Cut in depth (never in width) to stay well inside the time limit: LM on,
+decoder-lm compares LM_FRAMES frames of the 2 utterances and its planted
+WER takes 4 x 300 frames (LM off 4 x 1000); stream-decoder-lm 2 x 150
+planted frames (LM off 2 x 500); the closed and raw phases compare
+CUT_FRAMES frames on the CPU, LM on decode only those on the card, and
+take their planted WER on 2 x 500 frames (LM on 2 x 200); every e2e
+phase runs its CPU side on the first CPU_UTTS utterances; the LM-on solo
+Utterance of stream-trie-lm takes the first SOLO_LM_S seconds of the
+10 s wave.
+
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  The one kernel,
 matmul_s8.cu, is listed once, by the entry point the main path launches it
-through (`qmatmul`, the fused epilogue): launches summed over the e2e,
-stream and stream-trie runs, each counted from 0 just before its run; error, times and bound from
-this run, summed over the AM's three shapes.  Its int32 entry point
-(`matmul_s8`, which the main path does not launch) is nested in the entry
-with its own launches, error, times, bound and torch._int_mm's time.
+through (`qmatmul`, the fused epilogue): launches summed over the e2e
+(LM off, on and raw), stream and stream-trie runs, each counted from 0
+just before its run; error, times and bound from this run, summed over
+the AM's three shapes.  Its int32 entry point (`matmul_s8`, which the
+main path does not launch) is nested in the entry with its own launches,
+error, times, bound and torch._int_mm's time.  The epsilon closure is
+plain PyTorch, like the rest of the decoder: no kernel of its own.
 Bounds: the larger of the bytes the
 function must move (each input read once, the output written once) over
 3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM, dense).
@@ -83,6 +118,7 @@ catears_tpu_torch/_build/, removed at the end.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -123,6 +159,14 @@ STREAM_GEOMETRY = ("beam_size = 256", "expand_size = 2048",
                    "eps_expand_size = 1024", "max_eps_iters = 6", "beam = 1e9")
 TICK = 3200  # samples per live tick: 20 frames of 10 ms
 CPU_STREAMS = 2  # of the 8 live streams, also decoded on the CPU
+CPU_UTTS = 2  # of the 8 utterances of an e2e run, also decoded on the CPU
+CUT_FRAMES = 200  # frames of the 2 AM utterances decoded on the CPU (and
+#                   LM on, on the card) by the closed and raw phases
+LM_FRAMES = 300  # frames of the 2 AM utterances in decoder-lm
+# Planted frames per utterance: (utterances, frames), LM off / LM on.
+PLANTED = {False: (4, 1000), True: (4, 300)}
+CLOSURE_PLANTED = {False: (2, 500), True: (2, 200)}
+SOLO_LM_S = 5.0  # seconds of the 10 s wave the LM-on solo Utterance takes
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM, dense
@@ -529,10 +573,32 @@ def lm_phase(delta, card):
         fail(f"only {moved} of {n} LM queries moved")
 
 
+def planted_wer(dec, tg, lm, planted_frames):
+    """(WER, reference words, decode seconds, utterances, frames) of
+    planted trie paths decoded on the card, as the JAX bench scores them:
+    the cheapest token where an utterance ends mid-word."""
+    n, frames = planted_frames[lm]
+    planted, truth = plant_logp(np.random.RandomState(2), tg, n, frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps = dec.decode(torch.from_numpy(planted).to(torch.device("cuda:0")),
+                      final_fallback=True)
+    dt = time.perf_counter() - t0
+    errors = sum(token_errors([str(w) for w in t], [str(w) for w in h.words])
+                 for t, h in zip(truth, hyps))
+    n_ref = sum(len(t) for t in truth)
+    return errors / n_ref, n_ref, dt, n, frames
+
+
 def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
     """The same log-probs decoded on cuda and cpu, then planted trie paths
-    on cuda; returns nothing, fails on a disagreement or a high WER."""
+    on cuda; returns nothing, fails on a disagreement or a high WER.  LM on,
+    the log-probs are cut to LM_FRAMES frames."""
     cuda = torch.device("cuda:0")
+    lm = dec.dlm is not None
+    if lm:
+        logp = logp[:, :LM_FRAMES]
+        lengths = [min(n, LM_FRAMES) for n in lengths]
     t0 = time.perf_counter()
     # final_fallback: random-weight acoustics rarely end in a final state;
     # backtrace the cheapest token so the paths compared are real.
@@ -541,41 +607,196 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
     same_words = [h.words for h in hyp_gpu] == [h.words for h in hyp_cpu]
     same_cost = ([np.float64(h.weight) for h in hyp_gpu]
                  == [np.float64(h.weight) for h in hyp_cpu])
-    phase(name, utts=len(lengths), same_words=same_words,
-          bit_equal_costs=same_cost,
+    phase(name, utts=len(lengths), frames=lengths,
+          same_words=same_words, bit_equal_costs=same_cost,
           words=[len(h.words) for h in hyp_gpu],
           costs=[h.weight for h in hyp_gpu],
           seconds=f"{time.perf_counter() - t0:.2f}")
     if not (same_words and same_cost):
         fail(f"{name} on cuda and cpu disagree")
 
-    planted, truth = plant_logp(np.random.RandomState(2), tg, 4, 1000)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    # As the JAX bench scores planted paths: the cheapest token where an
-    # utterance ends mid-word.
-    hyps = dec.decode(torch.from_numpy(planted).to(cuda),
-                      final_fallback=True)
-    dt = time.perf_counter() - t0
-    errors = sum(token_errors([str(w) for w in t], [str(w) for w in h.words])
-                 for t, h in zip(truth, hyps))
-    n_ref = sum(len(t) for t in truth)
+    wer, n_ref, dt, n, frames = planted_wer(dec, tg, lm, PLANTED)
     # Planted paths carry words: 3 s of two of them, on cuda and cpu.
-    part = planted[:2, :300]
+    part = plant_logp(np.random.RandomState(2), tg, 2, 300)[0]
     hyp_gpu = dec.decode(torch.from_numpy(part).to(cuda),
                          final_fallback=True)
     hyp_cpu = dec_cpu.decode(part, final_fallback=True)
     same = ([(h.words, np.float64(h.weight)) for h in hyp_gpu]
             == [(h.words, np.float64(h.weight)) for h in hyp_cpu])
     tag = "planted" if name == "decoder" else "planted-lm"
-    phase(tag, utts=4, audio_s=40.0, wer=f"{errors / n_ref:.4f}",
-          ref_words=n_ref, decode_s=f"{dt:.2f}", xrt=f"{40.0 / dt:.2f}",
+    audio_s = n * frames / 100.0
+    phase(tag, utts=n, audio_s=audio_s, wer=f"{wer:.4f}",
+          ref_words=n_ref, decode_s=f"{dt:.2f}", xrt=f"{audio_s / dt:.2f}",
           cuda_equals_cpu_3s=same,
           words_3s=[len(h.words) for h in hyp_gpu], card=f"'{card}'")
-    if errors / n_ref > 0.25:
-        fail(f"{name}: planted-path WER {errors / n_ref:.3f} is too high")
+    if wer > 0.25:
+        fail(f"{name}: planted-path WER {wer:.3f} is too high")
     if not same or not all(h.words for h in hyp_gpu):
         fail(f"{name}: planted frames on cuda and cpu disagree")
+
+
+class FrameLoop:
+    """While entered, the decoders' `decode_chunk` runs with every device
+    read raising (torch.cuda.set_sync_debug_mode("error")) and timed on the
+    host clock between two synchronizes; the high-water marks of the last
+    chunk's beam are kept."""
+
+    def __init__(self):
+        from catears_tpu_torch.decode import decoder
+
+        self.module, self.chunk = decoder, decoder.decode_chunk
+        self.hiwater, self.seconds, self.frames = None, 0.0, 0
+
+    def _watched(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            beam, trace = self.chunk(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.frames += args[3].shape[0]  # the chunk's log-prob rows
+        self.hiwater = beam.hiwater
+        return beam, trace
+
+    def __enter__(self):
+        self.module.decode_chunk = self._watched
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decode_chunk = self.chunk
+
+    def ms_per_frame(self):
+        return f"{self.seconds * 1e3 / self.frames:.3f}"
+
+    def marks(self):
+        """The five high-water slots, max over the batch."""
+        return [int(x) for x in self.hiwater.amax(0).cpu()]
+
+
+def closure_decoders(rec, delta_lm, cfg, dynamic=True):
+    """{mode: (BatchDecoder on cuda, the same on the CPU)} of the trie with
+    its epsilon arcs: 'closed' (close_epsilons, depth capped at 1, prebuilt
+    tables adopted), 'raw' (close_eps=False, depth 2: the static rounds)
+    and, if `dynamic`, 'raw-dynamic' (the raw tables at max_eps_iters = 1:
+    the arena)."""
+    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.graph.device import DeviceFst
+    from catears_tpu_torch.graph.transform import close_epsilons
+
+    closed, ok = close_epsilons(rec.fst)
+    if not ok:
+        fail("close_epsilons refused the trie")
+    tid2pdf = rec.am.tid2pdf
+    decs = {}
+    for dev in (torch.device("cuda:0"), torch.device("cpu")):
+        dfst = DeviceFst.build(closed, tid2pdf, group=rec.arc_group,
+                               eps_depth_cap=1, csr_group=rec.csr_group,
+                               device=dev)
+        decs.setdefault("closed", []).append(BatchDecoder(
+            closed, tid2pdf, config=cfg, dfst=dfst, delta_lm=delta_lm))
+        raw = BatchDecoder(rec.fst, tid2pdf, config=cfg,
+                           arc_group=rec.arc_group, close_eps=False,
+                           csr_group=rec.csr_group, device=dev,
+                           delta_lm=delta_lm)
+        decs.setdefault("raw", []).append(raw)
+        if dynamic:
+            decs.setdefault("raw-dynamic", []).append(BatchDecoder(
+                rec.fst, tid2pdf,
+                config=dataclasses.replace(cfg, max_eps_iters=1),
+                dfst=raw.dfst, delta_lm=delta_lm))
+    for mode, (dec, _) in decs.items():
+        depth = 1 if mode == "closed" else 2
+        static = depth <= dec.cfg.max_eps_iters
+        if (dec.dfst.eps_removed or dec.dfst.eps_depth != depth
+                or static != (mode != "raw-dynamic")):
+            fail(f"{mode}: the trie's graph has eps_depth "
+                 f"{dec.dfst.eps_depth} (eps_removed "
+                 f"{dec.dfst.eps_removed}), not the {mode} path")
+    return decs
+
+
+def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
+                  require_wer=True):
+    """A closed or raw decoder on the card: the AM's log-probs (LM on, cut
+    to CUT_FRAMES) timed per frame with no device read in the frame loop,
+    then CUT_FRAMES of them on cuda and cpu (identical words, bit-equal
+    costs), then the planted-path WER on the card."""
+    cuda = torch.device("cuda:0")
+    lm = dec.dlm is not None
+    frames = CUT_FRAMES if lm else logp.shape[1]
+    cut = [min(n, CUT_FRAMES) for n in lengths]
+    loop = FrameLoop()
+    retries = log.metrics().get("overflow_retries", 0)
+    try:
+        with loop:
+            hyp_gpu = dec.decode(logp[:, :frames],
+                                 [min(n, frames) for n in lengths],
+                                 final_fallback=True)
+            ms_per_frame, hiwater = loop.ms_per_frame(), loop.marks()
+            if frames != CUT_FRAMES:
+                hyp_gpu = dec.decode(logp[:, :CUT_FRAMES], cut,
+                                     final_fallback=True)
+            wer, n_ref, planted_s, n, planted_frames = planted_wer(
+                dec, tg, lm, CLOSURE_PLANTED)
+    except RuntimeError as e:  # set_sync_debug_mode("error") raised
+        fail(f"{name}: a device read in the decode's frame loop: {e}")
+    t0 = time.perf_counter()
+    hyp_cpu = dec_cpu.decode(logp[:, :CUT_FRAMES].cpu(), cut,
+                             final_fallback=True)
+    cpu_s = time.perf_counter() - t0
+    same_words = [h.words for h in hyp_gpu] == [h.words for h in hyp_cpu]
+    same_cost = ([np.float64(h.weight) for h in hyp_gpu]
+                 == [np.float64(h.weight) for h in hyp_cpu])
+    retried = log.metrics().get("overflow_retries", 0) - retries
+    phase(name, utts=len(lengths), frames=frames, cpu_frames=cut,
+          same_words=same_words, bit_equal_costs=same_cost,
+          no_device_read_in_frame_loop=True,
+          ms_per_frame=ms_per_frame, hiwater=hiwater,
+          eps_depth=dec.dfst.eps_depth,
+          max_eps_iters=dec.cfg.max_eps_iters, overflow_retries=retried,
+          planted_utts=n, planted_frames=planted_frames,
+          planted_wer=f"{wer:.4f}", planted_ref_words=n_ref,
+          planted_ms_per_frame=f"{planted_s * 1e3 / planted_frames:.3f}",
+          cpu_s=f"{cpu_s:.2f}", card=f"'{card}'")
+    if not (same_words and same_cost):
+        fail(f"{name} on cuda and cpu disagree")
+    if require_wer and wer > 0.25:
+        fail(f"{name}: planted-path WER {wer:.3f} is too high")
+
+
+def write_raw_conf(work, conf, fst):
+    """A copy of `conf` whose graph is `fst` plus one epsilon path s
+    -eps:1-> s+1 -eps:2-> s+2 on three new states, unreachable from the
+    start.  close_epsilons refuses a path with two output labels, so
+    prepare_decode_graph returns 'raw' and every frame runs the closure
+    rounds; the transcripts are the trie's."""
+    from catears_tpu_torch.graph.fst import FlatFst
+    from catears_tpu_torch.graph.transform import prepare_decode_graph
+    from catears_tpu_torch.io import binfmt
+
+    n = fst.num_states
+    state_of_arc = np.repeat(np.arange(n), np.diff(fst.offsets))
+    raw = FlatFst.from_arrays(
+        fst.start, np.concatenate([fst.final,
+                                   np.full(3, np.inf, np.float32)]),
+        np.concatenate([state_of_arc, [n, n + 1]]),
+        np.concatenate([fst.arc_next, [n + 1, n + 2]]).astype(np.int32),
+        np.concatenate([fst.arc_ilabel, [0, 0]]).astype(np.int32),
+        np.concatenate([fst.arc_olabel, [1, 2]]).astype(np.int32),
+        np.concatenate([fst.arc_weight, [0.5, 0.5]]).astype(np.float32))
+    mode = prepare_decode_graph(raw)[2]
+    if mode != "raw":
+        fail(f"the trie with a two-word epsilon path is '{mode}', not raw")
+    with open(os.path.join(work, "raw.fst"), "wb") as fd:
+        binfmt.write_pkfst(fd, raw.to_raw())
+    path = os.path.join(work, "raw.conf")
+    with open(conf) as src, open(path, "w") as dst:
+        dst.writelines([x for x in src if not x.startswith("fst ")]
+                       + ["fst = raw.fst\n"])
+    return path
 
 
 def linears(am):
@@ -592,10 +813,14 @@ def run_cli(argv):
     return rc, out.getvalue().splitlines(), err.getvalue().strip()
 
 
-def e2e_phase(name, conf, scp, linears, card):
+def e2e_phase(name, conf, scp, cpu_scp, linears, card, watch=False):
     """cli.main(["--batch=8", conf, scp]) on cuda, then the same with
-    --device=cpu; returns the launches the card run made through each entry
-    point of the kernel, counted from 0 just before it."""
+    --device=cpu on `cpu_scp`, the first CPU_UTTS utterances (the longest
+    among them, so the AM's bucket and each utterance's result are the
+    batch's); returns the launches the card run made through each entry
+    point of the kernel, counted from 0 just before it.  With `watch`, the
+    card run's frame loop must make no device read, and its ms per frame
+    and high-water marks are printed."""
     from catears_tpu_torch.io.wav import read_scp
     from catears_tpu_torch.runtime.batch import load_waves
 
@@ -605,26 +830,31 @@ def e2e_phase(name, conf, scp, linears, card):
     retries = log.metrics().get("overflow_retries", 0)
     torch.cuda.synchronize()
     quant.matmul_s8.launches = quant.qmatmul.launches = 0
+    loop = FrameLoop() if watch else contextlib.nullcontext()
     t0 = time.perf_counter()
-    rc, lines, err = run_cli(["--batch=8", conf, scp])
+    with loop:
+        rc, lines, err = run_cli(["--batch=8", conf, scp])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    extra = {} if not watch or not loop.frames else dict(
+        ms_per_frame=loop.ms_per_frame(), hiwater=loop.marks())
     launches = {"matmul_s8": quant.matmul_s8.launches,
                 "qmatmul": quant.qmatmul.launches}
     overflowed = log.metrics().get("overflow_retries", 0) != retries
     t0 = time.perf_counter()
     cpu_rc, cpu_lines, cpu_err = run_cli(["--batch=8", "--device=cpu", conf,
-                                          scp])
+                                          cpu_scp])
     cpu_dt = time.perf_counter() - t0
+    same = lines[:len(cpu_lines)] == cpu_lines
     phase(name, rc=rc, lines=len(lines), utts=n_utts,
           words=[len(line.split()) - 1 for line in lines],
-          same_as_cpu=lines == cpu_lines,
+          cpu_utts=len(cpu_lines), same_as_cpu=same,
           fused_launches=launches["qmatmul"],
           int32_launches=launches["matmul_s8"], linears=linears,
           overflow=overflowed,
           wall_s=f"{dt:.2f}", audio_s=f"{audio_s:.2f}",
           audio_s_per_s=f"{audio_s / dt:.2f}", cpu_wall_s=f"{cpu_dt:.2f}",
-          card=f"'{card}'")
+          **extra, card=f"'{card}'")
     if rc != 0:
         fail(f"{name}: cli exited {rc}: {err}")
     if len(lines) != n_utts or any(
@@ -632,15 +862,16 @@ def e2e_phase(name, conf, scp, linears, card):
         fail(f"{name}: expected one line per utterance, got {lines!r}")
     if overflowed:
         fail(f"{name}: the decode overflowed its capacities")
-    if launches["qmatmul"] < linears * -(-n_utts // 8):
-        fail(f"{name}: only {launches['qmatmul']} fused kernel launches for "
+    if launches["qmatmul"] != linears * -(-n_utts // 8):
+        fail(f"{name}: {launches['qmatmul']} fused kernel launches for "
              f"{linears} linear layers")
     if cpu_rc != 0:
         fail(f"{name}: cli --device=cpu exited {cpu_rc}: {cpu_err}")
-    if lines != cpu_lines:
+    if len(cpu_lines) != CPU_UTTS or not same:
         fail(f"{name}: transcripts on cuda {lines!r} differ from the CPU's "
              f"{cpu_lines!r}")
     return launches
+
 
 def decode_utterance(rec, payload, fused, chunk_bytes=1024):
     """An Utterance over PCM bytes (16 kHz, 16-bit mono): its hypothesis."""
@@ -724,33 +955,54 @@ def decoder_words(dec, row):
     return hyp.words
 
 
-def stream_decoder_phase(name, rec, tg, card):
-    """Planted trie log-probs through the single-utterance Decoder on the
-    card: the words BatchDecoder gives on the card, and the planted WER."""
+def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
+                         batch_decoder=None):
+    """Planted trie log-probs (2 x `frames`) through the single-utterance
+    Decoder on the card (the Recognizer's cached graph, or `decoder`
+    re-initialized per utterance): the words BatchDecoder (the
+    Recognizer's, or `batch_decoder`) gives on the card, and the planted
+    WER.  With `decoder`, no device read in its frame loop, and the
+    high-water marks."""
     from catears_tpu_torch.decode.decoder import Decoder
     from catears_tpu_torch.runtime.batch import get_batch_decoder
     from catears_tpu_torch.runtime.recognizer import AM_SCALE
 
     cuda = torch.device("cuda:0")
-    planted, truth = plant_logp(np.random.RandomState(2), tg, 2, 500)
+    planted, truth = plant_logp(np.random.RandomState(2), tg, 2, frames)
     cfg, dfst, dlm = rec._decode_graph()
+
+    def fresh():
+        if decoder is None:
+            return Decoder(rec.fst, rec.am.tid2pdf, am_scale=AM_SCALE,
+                           delta_lm=rec.delta_lm, config=cfg, dfst=dfst,
+                           dlm=dlm)
+        decoder.initialize()
+        return decoder
+
+    loop = FrameLoop() if decoder is not None else contextlib.nullcontext()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    words = [decoder_words(Decoder(rec.fst, rec.am.tid2pdf,
-                                   am_scale=AM_SCALE, delta_lm=rec.delta_lm,
-                                   config=cfg, dfst=dfst, dlm=dlm), row)
-             for row in planted]
+    try:
+        with loop:
+            words = [decoder_words(fresh(), row) for row in planted]
+    except RuntimeError as e:  # set_sync_debug_mode("error") raised
+        fail(f"{name}: a device read in the Decoder's frame loop: {e}")
     dt = time.perf_counter() - t0
-    batch = get_batch_decoder(rec).decode(torch.from_numpy(planted).to(cuda),
-                                          final_fallback=True)
+    batch = (batch_decoder or get_batch_decoder(rec)).decode(
+        torch.from_numpy(planted).to(cuda), final_fallback=True)
     same = words == [h.words for h in batch]
     errors = sum(token_errors([str(w) for w in t], [str(w) for w in h])
                  for t, h in zip(truth, words))
     n_ref = sum(len(t) for t in truth)
-    phase(name, utts=2, frames=500, same_as_batch_decoder=same,
+    extra = {} if decoder is None else dict(
+        eps_depth=decoder.dfst.eps_depth, hiwater=loop.marks(),
+        step_ms_per_frame=loop.ms_per_frame(),
+        no_device_read_in_frame_loop=True)
+    phase(name, utts=2, frames=frames, same_as_batch_decoder=same,
           words=[len(w) for w in words], wer=f"{errors / n_ref:.4f}",
           ref_words=n_ref, decode_s=f"{dt:.2f}",
-          ms_per_frame=f"{dt / 1000 * 1e3:.3f}", card=f"'{card}'")
+          ms_per_frame=f"{dt * 1e3 / (2 * frames):.3f}", **extra,
+          card=f"'{card}'")
     if not same:
         fail(f"{name}: the Decoder's words differ from BatchDecoder's")
     if errors / n_ref > 0.25:
@@ -818,7 +1070,8 @@ def solo_utterance(rec, wave):
     return calls, time.perf_counter() - t_start
 
 
-def stream_trie_phase(name, rec, conf, waves, n_linears, card):
+def stream_trie_phase(name, rec, conf, waves, n_linears, card,
+                      solo_s=10.0):
     """8 live streams on the card, the first CPU_STREAMS of them checked
     against the same streams on the CPU (each stream's result does not
     depend on the others), then a solo Utterance; returns the launches of
@@ -839,10 +1092,11 @@ def stream_trie_phase(name, rec, conf, waves, n_linears, card):
         cpu_words = run_streams(Recognizer(conf, device=torch.device("cpu")),
                                 waves[:CPU_STREAMS], False)[0]
         cpu_s = time.perf_counter() - t0
-        calls, solo_wall = solo_utterance(rec, waves[0])
+        solo = waves[0][:int(solo_s * 16000)]
+        calls, solo_wall = solo_utterance(rec, solo)
     except BeamCapacityError as e:
         fail(f"{name}: {e}")
-    solo_audio = waves[0].shape[0] / 16000.0
+    solo_audio = solo.shape[0] / 16000.0
     phase(name, streams=len(waves), ticks=len(ticks), chunk_steps=steps,
           words=[len(w) for w in words], cpu_streams=CPU_STREAMS,
           same_as_cpu=words[:CPU_STREAMS] == cpu_words,
@@ -887,12 +1141,12 @@ def main():
 
     totals = {"matmul_s8": kernel_phase(card), "qmatmul": qkernel_phase(card)}
 
-    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.decode.decoder import BatchDecoder, Decoder
     from catears_tpu_torch.io.wav import read_scp
     from catears_tpu_torch.runtime.batch import (batched_logp,
                                                  get_batch_decoder,
                                                  load_waves)
-    from catears_tpu_torch.runtime.recognizer import Recognizer
+    from catears_tpu_torch.runtime.recognizer import AM_SCALE, Recognizer
 
     work = os.path.join(BUILD_DIR, "smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -941,7 +1195,7 @@ def main():
                                device=torch.device("cpu"))
         decoder_phase("decoder", get_batch_decoder(rec), dec_cpu, logp,
                       lengths, tg, card)
-        del dec_cpu
+        del dec_cpu, rec_cpu
 
         t0 = time.perf_counter()
         rec_lm = Recognizer(lm_conf, device=cuda)
@@ -961,22 +1215,52 @@ def main():
         phase("lm-decoders", seconds=f"{time.perf_counter() - t0:.2f}")
         decoder_phase("decoder-lm", dec_lm, dec_lm_cpu, logp, lengths, tg,
                       card)
-        del dec_lm_cpu, rec_cpu
+        del dec_lm_cpu
 
-        # -- e2e: the CLI's batch path on cuda, LM off then on --------------
+        # -- the trie with its epsilon arcs: closed and raw decodes --------
+        for r, delta, tag in ((rec, None, ""), (rec_lm, rec_lm.delta_lm,
+                                                "-lm")):
+            t0 = time.perf_counter()
+            decs = closure_decoders(r, delta, r.beam_config,
+                                    dynamic=delta is None)
+            phase(f"closure-decoders{tag}",
+                  seconds=f"{time.perf_counter() - t0:.2f}")
+            for mode, (dec, dec_c) in decs.items():
+                closure_phase(f"decoder-{mode}{tag}", dec, dec_c, logp,
+                              lengths, tg, card,
+                              require_wer=mode != "raw-dynamic")
+            if delta is None:
+                raw_dec = decs["raw"][0]
+            del decs, dec, dec_c
+
+        # -- e2e: the CLI's batch path on cuda, LM off, on, raw graph ------
         n_linears = linears(rec.am)
-        runs = [e2e_phase("e2e", conf, scp, n_linears, card),
-                e2e_phase("e2e-lm", lm_conf, scp, n_linears, card)]
+        cpu_scp = os.path.join(work, "smoke_cpu.scp")
+        with open(scp) as src, open(cpu_scp, "w") as dst:
+            dst.writelines(src.readlines()[:CPU_UTTS])
+        raw_conf = write_raw_conf(work, conf, rec.fst)
+        runs = [e2e_phase("e2e", conf, scp, cpu_scp, n_linears, card),
+                e2e_phase("e2e-lm", lm_conf, scp, cpu_scp, n_linears, card),
+                e2e_phase("e2e-raw", raw_conf, scp, cpu_scp, n_linears, card,
+                          watch=True)]
 
         # -- the live-stream path: toy model, Decoder, 8 trie streams ------
         runs.append({"matmul_s8": 0, "qmatmul": stream_phase(work, card)})
-        stream_decoder_phase("stream-decoder", rec, tg, card)
-        stream_decoder_phase("stream-decoder-lm", rec_lm, tg, card)
+        stream_decoder_phase("stream-decoder", rec, tg, card, 500)
+        stream_decoder_phase("stream-decoder-lm", rec_lm, tg, card, 150)
+        stream_decoder_phase(
+            "stream-decoder-raw", rec, tg, card, 500,
+            decoder=Decoder(rec.fst, rec.am.tid2pdf, am_scale=AM_SCALE,
+                            config=rec.beam_config, arc_group=rec.arc_group,
+                            close_eps=False, csr_group=rec.csr_group,
+                            device=cuda),
+            batch_decoder=raw_dec)
+        del raw_dec
         waves = load_waves([p for _, p in read_scp(scp)])
         runs.append(stream_trie_phase("stream-trie", rec, conf, waves,
                                       n_linears, card))
         runs.append(stream_trie_phase("stream-trie-lm", rec_lm, lm_conf,
-                                      waves, n_linears, card))
+                                      waves, n_linears, card, SOLO_LM_S))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

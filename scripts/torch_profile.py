@@ -18,7 +18,14 @@ walk at the frame's shape (8 x 384 word lanes out of the expansion).
 Run from the repo root on a machine with a card (no JAX needed):
 
     python3 scripts/torch_profile.py [--lm] [--reps 5] [--out profile.txt]
-                                     [--checkout DIR]
+                                     [--checkout DIR] [--mode MODE]
+
+--mode picks the decode graph of the trie: `eps_free` (the Recognizer's,
+the default), `closed` (close_epsilons, depth capped at 1), `raw`
+(close_eps=False: depth 2, the static closure rounds) or `raw-dynamic`
+(the raw graph at max_eps_iters = 1: the arena closure).  Modes other than
+eps_free time and profile the decoder only: set-up, `init_beam_batch`,
+one 50-frame chunk and the backtrace.
 
 --out also writes the profiler tables, which are long, to that file.
 --checkout DIR also times the WAV load of the catears_tpu_torch in DIR (a
@@ -29,6 +36,7 @@ child processes in turns (DIR, this tree, this tree, DIR), each timing
 
 import argparse
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -43,7 +51,9 @@ import torch
 
 import chip_smoke as cs
 from catears_tpu_torch.decode import beam as tb
-from catears_tpu_torch.graph.device import lm_propagate_capped
+from catears_tpu_torch.decode.decoder import BatchDecoder
+from catears_tpu_torch.graph.device import DeviceFst, lm_propagate_capped
+from catears_tpu_torch.graph.transform import close_epsilons
 from catears_tpu_torch.io.wav import read_scp
 from catears_tpu_torch.runtime.batch import (batched_logp, get_batch_decoder,
                                              load_waves)
@@ -51,6 +61,7 @@ from catears_tpu_torch.runtime.recognizer import Recognizer
 from catears_tpu_torch.runtime.streaming import StreamingSession
 
 CHUNK = 50
+MODES = ("eps_free", "closed", "raw", "raw-dynamic")
 # Run with the checkout as the working directory, so that its
 # catears_tpu_torch is the one imported: argv = [reps, path, ...].
 LOAD_TIMER = """\
@@ -100,6 +111,80 @@ def load_turns(checkout, paths, reps):
                ast.literal_eval(out.stdout.splitlines()[-1]))
 
 
+def mode_decoder(rec, mode):
+    """The Recognizer's cached BatchDecoder (eps_free), or one of the trie
+    with its epsilon arcs on the Recognizer's device."""
+    if mode == "eps_free":
+        return get_batch_decoder(rec)
+    tid2pdf, cfg = rec.am.tid2pdf, rec.beam_config
+    if mode == "closed":
+        closed = close_epsilons(rec.fst)[0]
+        dfst = DeviceFst.build(closed, tid2pdf, group=rec.arc_group,
+                               eps_depth_cap=1, csr_group=rec.csr_group,
+                               device=rec.device)
+        return BatchDecoder(closed, tid2pdf, config=cfg, dfst=dfst,
+                            delta_lm=rec.delta_lm)
+    if mode == "raw-dynamic":
+        cfg = dataclasses.replace(cfg, max_eps_iters=1)
+    return BatchDecoder(rec.fst, tid2pdf, config=cfg,
+                        arc_group=rec.arc_group, close_eps=False,
+                        csr_group=rec.csr_group, device=rec.device,
+                        delta_lm=rec.delta_lm)
+
+
+def stream_items(rec, waves, reps):
+    """The live-stream path: steady chunk steps (the first chunk, which
+    takes F + R frames, is fed before timing), on waves tiled to 60 s so
+    that every call steps every stream.  Returns the profiler's work items
+    and a check, run after them, that every call stepped every stream
+    once (None, or what went wrong)."""
+    long = [np.tile(w, -(-60 * 16000 // w.size))[:60 * 16000]
+            for w in waves]
+    streams = rec.create_stream_batch(len(waves))
+    solo = StreamingSession(rec.am, rec.fst, rec.delta_lm,
+                            *rec._decode_graph())
+    fed = [0, 0]
+
+    def tick():
+        lo = fed[0]
+        fed[0] += cs.TICK
+        streams.process_batch([w[lo:lo + cs.TICK] for w in long])
+
+    def solo_chunk():
+        lo = fed[1]
+        fed[1] += cs.TICK
+        solo.process(long[0][lo:lo + cs.TICK])
+
+    for _ in range(2):
+        tick()
+        solo_chunk()
+    tick_secs = host_times(tick, reps)
+    solo_secs = host_times(solo_chunk, reps)
+    report("stream_tick", tick_secs)
+    report("stream_solo_chunk", solo_secs)
+    # The idle share is taken against the unprofiled median wall time:
+    # the profiler slows the host, not the device.
+    logp_fn = lambda: batched_logp(rec.am, waves)
+    items = [("batched_logp", logp_fn, 1,
+              float(np.median(host_times(logp_fn, reps)))),
+             ("stream_tick", tick, solo.f, float(np.median(tick_secs))),
+             ("stream_solo_chunk", solo_chunk, solo.f,
+              float(np.median(solo_secs)))]
+
+    def check():
+        # N ticks of TICK samples hold 20 N - 1 frames: the first chunk
+        # (F + R) steps at the second tick, then one chunk per tick.
+        want = [(fed[0] // cs.TICK - 1) * solo.f] * len(waves)
+        want.append((fed[1] // cs.TICK - 1) * solo.f)
+        got = streams.num_frames_decoded + [solo.num_frames_decoded]
+        if got != want:
+            return (f"a tick did not step every stream once ({got}; "
+                    f"wanted {want})")
+        return None
+
+    return items, check
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -107,6 +192,8 @@ def main(argv=None):
     ap.add_argument("--lm", action="store_true",
                     help="profile the delta-LM config")
     ap.add_argument("--checkout", help="also time this checkout's WAV load")
+    ap.add_argument("--mode", default="eps_free", choices=MODES,
+                    help="the trie's decode graph")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA card", file=sys.stderr)
@@ -131,7 +218,7 @@ def main(argv=None):
 
         t0 = time.perf_counter()
         rec = Recognizer(conf, device=cuda)
-        dec = get_batch_decoder(rec)
+        dec = mode_decoder(rec, args.mode)
         torch.cuda.synchronize()
         print(f"[setup] recognizer_and_graph_s={time.perf_counter() - t0!r}",
               flush=True)
@@ -140,11 +227,15 @@ def main(argv=None):
         frames = max(lengths)
         audio_s = sum(w.size for w in waves) / 16000.0
         print(f"[batch] utts={len(waves)} audio_s={audio_s!r} "
-              f"frames={frames} lm={dec.dlm is not None}", flush=True)
-        report("batched_logp", host_times(
-            lambda: batched_logp(rec.am, waves), args.reps))
-        report("decode", host_times(lambda: dec.decode(logp, lengths),
-                                    max(1, args.reps - 2)), 1.0, "s")
+              f"frames={frames} lm={dec.dlm is not None} mode={args.mode} "
+              f"eps_depth={dec.dfst.eps_depth} "
+              f"max_eps_iters={dec.cfg.max_eps_iters}", flush=True)
+        eps_free = args.mode == "eps_free"
+        if eps_free:
+            report("batched_logp", host_times(
+                lambda: batched_logp(rec.am, waves), args.reps))
+            report("decode", host_times(lambda: dec.decode(logp, lengths),
+                                        max(1, args.reps - 2)), 1.0, "s")
 
         cfg, dfst, dlm = dec.cfg, dec.dfst, dec.dlm
         b = len(waves)
@@ -165,44 +256,11 @@ def main(argv=None):
             lambda: tb.backtrace_device(traces, best),
             max(1, args.reps - 2)))
 
-        # The live-stream path: steady chunk steps (the first chunk, which
-        # takes F + R frames, is fed before timing), on waves tiled to 60 s
-        # so that every call steps every stream.
-        long = [np.tile(w, -(-60 * 16000 // w.size))[:60 * 16000]
-                for w in waves]
-        streams = rec.create_stream_batch(b)
-        solo = StreamingSession(rec.am, rec.fst, rec.delta_lm,
-                                *rec._decode_graph())
-        fed = [0, 0]
-
-        def tick():
-            lo = fed[0]
-            fed[0] += cs.TICK
-            streams.process_batch([w[lo:lo + cs.TICK] for w in long])
-
-        def solo_chunk():
-            lo = fed[1]
-            fed[1] += cs.TICK
-            solo.process(long[0][lo:lo + cs.TICK])
-
-        for _ in range(2):
-            tick()
-            solo_chunk()
-        tick_secs = host_times(tick, args.reps)
-        solo_secs = host_times(solo_chunk, args.reps)
-        report("stream_tick", tick_secs)
-        report("stream_solo_chunk", solo_secs)
-
-        # The idle share is taken against the unprofiled median wall time:
-        # the profiler slows the host, not the device.
-        logp_fn = lambda: batched_logp(rec.am, waves)
-        work_items = [("chunk", chunk, CHUNK, float(np.median(chunk_secs))),
-                      ("batched_logp", logp_fn, 1,
-                       float(np.median(host_times(logp_fn, args.reps)))),
-                      ("stream_tick", tick, solo.f,
-                       float(np.median(tick_secs))),
-                      ("stream_solo_chunk", solo_chunk, solo.f,
-                       float(np.median(solo_secs)))]
+        work_items = [("chunk", chunk, CHUNK, float(np.median(chunk_secs)))]
+        check = lambda: None
+        if eps_free:
+            items, check = stream_items(rec, waves, args.reps)
+            work_items += items
         if dlm is not None:
             # One capped walk at the frame's shape: the expansion's lanes,
             # a beam's worth of LM states and ~300 word labels per row.
@@ -232,15 +290,9 @@ def main(argv=None):
             tables.append(f"== {name} ==\n" + ka.table(
                 sort_by="self_device_time_total", row_limit=25,
                 max_name_column_width=60))
-        # N ticks of TICK samples hold 20 N - 1 frames: the first chunk
-        # (F + R) steps at the second tick, then one chunk per tick.
-        want = [(fed[0] // cs.TICK - 1) * solo.f] * b
-        want.append((fed[1] // cs.TICK - 1) * solo.f)
-        if streams.num_frames_decoded + [solo.num_frames_decoded] != want:
-            print(f"torch_profile: a tick did not step every stream once "
-                  f"({streams.num_frames_decoded}, "
-                  f"{solo.num_frames_decoded}; wanted {want})",
-                  file=sys.stderr)
+        fault = check()
+        if fault:
+            print(f"torch_profile: {fault}", file=sys.stderr)
             return 1
         smi = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,"

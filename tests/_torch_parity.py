@@ -119,6 +119,97 @@ def eps_free_random_fst(seed: int, flat=FlatFst):
         seed += 1000
 
 
+def run_chunks(jd, td, jcfg, tcfg, logp, lengths, jl=None, tl=None,
+               chunk=8):
+    """Decode [B, T, P] chunk by chunk in both ports (with the delta-LM
+    jl / tl when given); assert every chunk's beam and trace are
+    identical.  Returns the final (JAX) beam."""
+    import jax.numpy as jnp
+
+    from catears_tpu.decode import beam as jbeam
+    from catears_tpu_torch.decode import beam as tbeam
+
+    b, t, p = logp.shape
+    has_lm = jl is not None
+    jb, jtr = jbeam.init_beam_batch(jcfg, has_lm, b, jd, jl)
+    tb, ttr = tbeam.init_beam_batch(tcfg, b, td, tl)
+    for name, x, y in zip(jtr._fields, jtr, ttr):
+        assert_same(x, y, f"init trace {name}")
+    for name, x, y in zip(jb._fields, jb, tb):
+        assert_same(x, y, f"init beam {name}")
+    lens = np.asarray(lengths)
+    for off in range(0, t, chunk):
+        lp = np.zeros((chunk, b, p), np.float32)
+        n = min(chunk, t - off)
+        lp[:n] = np.transpose(logp[:, off:off + n], (1, 0, 2))
+        valid = (off + np.arange(chunk))[:, None] < lens[None, :]
+        jb, jtr = jbeam.decode_chunk(jcfg, has_lm, jd, jl, jb,
+                                     jnp.asarray(lp), jnp.asarray(valid))
+        tb, ttr = tbeam.decode_chunk(tcfg, td, tb, torch.from_numpy(lp),
+                                     torch.from_numpy(valid), tl)
+        for name, x, y in zip(jb._fields, jb, tb):
+            assert_same(x, y, f"chunk {off}: beam {name}")
+        for name, x, y in zip(jtr._fields, jtr, ttr):
+            assert_same(x, y, f"chunk {off}: trace {name}")
+    return jb
+
+
+def dirichlet(rng, p, size):
+    """Log-probs [*size, p], each row a seeded Dirichlet draw."""
+    return np.log(rng.dirichlet(np.ones(p), size=size)).astype(np.float32)
+
+
+def with_lm_words(fst, delta, rng):
+    """The graph with every output label replaced by a word id of the LM
+    `delta` (either package's FlatFst and DeltaLmFst)."""
+    import dataclasses
+
+    vocab = delta.small_lm.size
+    words = rng.randint(3, min(vocab, 200), size=fst.arc_olabel.size)
+    return dataclasses.replace(fst, arc_olabel=np.where(
+        fst.arc_olabel > 0, words, 0).astype(np.int32))
+
+
+def add_two_word_eps_path(fst):
+    """The graph plus one epsilon path s -eps:1-> s+1 -eps:2-> s+2 on three
+    new states, unreachable from the start: prepare_decode_graph returns
+    'raw' (close_epsilons refuses a path with two output labels), so every
+    frame of a decode runs the closure rounds."""
+    n = fst.num_states
+    state_of_arc = np.repeat(np.arange(n), np.diff(fst.offsets))
+    return type(fst).from_arrays(
+        fst.start, np.concatenate([fst.final,
+                                   np.full(3, np.inf, np.float32)]),
+        np.concatenate([state_of_arc, [n, n + 1]]),
+        np.concatenate([fst.arc_next, [n + 1, n + 2]]).astype(np.int32),
+        np.concatenate([fst.arc_ilabel, [0, 0]]).astype(np.int32),
+        np.concatenate([fst.arc_olabel, [1, 2]]).astype(np.int32),
+        np.concatenate([fst.arc_weight, [0.5, 0.5]]).astype(np.float32))
+
+
+def write_raw_conf(conf: str, name: str, extra=()) -> str:
+    """A copy of the model config `conf` whose `fst` is that graph with
+    add_two_word_eps_path, plus the `extra` lines; returns its path."""
+    import os
+
+    from catears_tpu_torch.io import binfmt
+    from catears_tpu_torch.io.config import Configuration
+
+    d = os.path.dirname(conf)
+    fst_path = Configuration.read(conf).get_path("fst")
+    raw = add_two_word_eps_path(FlatFst.read(fst_path))
+    assert prepare_decode_graph(raw)[2] == "raw"
+    with open(os.path.join(d, name + ".fst"), "wb") as fd:
+        binfmt.write_pkfst(fd, raw.to_raw())
+    with open(conf) as src:
+        lines = [x for x in src if not x.startswith("fst ")]
+    path = os.path.join(d, name + ".conf")
+    with open(path, "w") as fd:
+        fd.writelines(lines + [f"fst = {name}.fst\n"]
+                      + [f"{x}\n" for x in extra])
+    return path
+
+
 def write_scp(path: str, wavs) -> str:
     with open(path, "w") as fd:
         for i, wav in enumerate(wavs):

@@ -11,8 +11,9 @@ static (`rng`) and guarded (`grng`) activation scales, at every tile width
 and on misaligned views; operands it does not take raise.  The quantized AM
 on cuda, dynamic or calibrated, must be within 1% of the output range of
 the same AM on the CPU; the delta-LM tables and walk on cuda must equal the
-CPU's (states, bit-equal weights); the decoder on cuda, LM off and on, must
-give the CPU's words and bit-equal costs.
+CPU's (states, bit-equal weights); the decoder on cuda, LM off and on, on
+eps-free, closed and raw graphs, must give the CPU's words and bit-equal
+costs.
 """
 
 import os
@@ -292,6 +293,59 @@ def test_decoder_with_lm_cuda_vs_cpu(cuda):
                 for dev in (torch.device("cpu"), cuda)]
         assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
         assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+
+
+@pytest.mark.parametrize("mode,iters,lm", [
+    ("closed", 4, False), ("raw", 4, False), ("raw", 1, False),
+    ("closed", 4, True), ("raw", 4, True), ("raw", 1, True)])
+def test_decoder_closed_and_raw_cuda_vs_cpu(cuda, monkeypatch, mode, iters,
+                                            lm):
+    """The small trie closed (close_epsilons, depth capped at 1; a
+    prebuilt dfst) and raw (close_eps=False, depth 2: static rounds at
+    max_eps_iters 4, the arena closure at 1), LM off and on: the CPU's
+    words and bit-equal costs, with no read of the device in the decode's
+    frame loop."""
+    from catears_tpu_torch.decode import decoder as tdecoder
+    from catears_tpu_torch.graph.transform import close_epsilons
+    from catears_tpu_torch.tools.biggraph import (make_big_lm,
+                                                  make_trie_graph, plant_logp)
+
+    rng = np.random.RandomState(1)
+    g = make_trie_graph(rng, num_words=120, num_phones=25, bigram_states=30,
+                        variants=2)
+    delta = (make_big_lm(np.random.RandomState(9),
+                         num_words=g.num_words).delta_lm() if lm else None)
+    logp, _ = plant_logp(rng, g, 3, 60)
+    cfg = BeamConfig(beam_size=128, expand_size=2048, eps_expand_size=1024,
+                     max_eps_iters=iters, beam=12.0,
+                     lm_expand_size=64 if lm else 0)
+    chunk = tdecoder.decode_chunk
+
+    def no_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")  # a device read raises
+        try:
+            return chunk(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(tdecoder, "decode_chunk", no_sync)
+    closed = close_epsilons(g.fst)[0]
+    hyps = []
+    for dev in (torch.device("cpu"), cuda):
+        if mode == "closed":
+            dfst = tdevice.DeviceFst.build(closed, g.tid2pdf, group=2,
+                                           eps_depth_cap=1, csr_group=16,
+                                           device=dev)
+            dec = BatchDecoder(closed, g.tid2pdf, config=cfg, dfst=dfst,
+                               delta_lm=delta)
+        else:
+            dec = BatchDecoder(g.fst, g.tid2pdf, config=cfg, arc_group=2,
+                               close_eps=False, csr_group=16, device=dev,
+                               delta_lm=delta)
+        hyps.append(dec.decode(logp, [60, 41, 17]))
+    assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
+    assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+    assert any(h.words for h in hyps[1])
 
 
 # (rows, K, N) of the TDNN-1024's three linears in one streaming chunk: the

@@ -7,7 +7,9 @@ chunk's beam (states, lm, costs bit for bit, bp, overflow, hiwater) and
 trace (prev_slot, words) must be identical, and so must the BatchDecoder
 transcripts and costs (LM final weights included), overflow retry
 included.  No tolerance: the decode is integer bookkeeping plus float32
-sums done in the same order.
+sums done in the same order.  The graphs here are eps-free (the random
+ones drawn by eps_free_random_fst); the closed and raw modes are held to
+JAX in tests/test_torch_eps_modes.py.
 """
 
 import dataclasses
@@ -18,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (CPU, assert_same, dfst_from_jax, dlm_from_jax,
-                           eps_free_random_fst)
+from _torch_parity import (CPU, assert_same, dfst_from_jax, dirichlet,
+                           dlm_from_jax, eps_free_random_fst, run_chunks,
+                           with_lm_words)
 from catears_tpu.decode import beam as jbeam
 from catears_tpu.decode import decoder as jdecoder
 from catears_tpu.graph.device import DeviceFst as JaxDeviceFst
@@ -41,8 +44,6 @@ from catears_tpu_torch.tools import biggraph as tbiggraph
 from catears_tpu_torch.tools import toy as ttoy
 from catears_tpu_torch.utils import errors as terrors
 
-CHUNK = 8
-
 
 def _configs(**kw):
     base = dict(beam_size=32, expand_size=64, eps_expand_size=16,
@@ -59,46 +60,13 @@ def _build(fst, tid2pdf, group, csr_group=None):
     return jd, dfst_from_jax(jd)
 
 
-def run_chunks(jd, td, jcfg, tcfg, logp, lengths, jl=None, tl=None):
-    """Decode [B, T, P] chunk by chunk in both ports (with the delta-LM
-    jl / tl when given); assert every chunk's beam and trace are
-    identical.  Returns the final (JAX) beam."""
-    b, t, p = logp.shape
-    has_lm = jl is not None
-    jb, jtr = jbeam.init_beam_batch(jcfg, has_lm, b, jd, jl)
-    tb, ttr = tbeam.init_beam_batch(tcfg, b, td, tl)
-    for name, x, y in zip(jtr._fields, jtr, ttr):
-        assert_same(x, y, f"init trace {name}")
-    for name, x, y in zip(jb._fields, jb, tb):
-        assert_same(x, y, f"init beam {name}")
-    lens = np.asarray(lengths)
-    for off in range(0, t, CHUNK):
-        lp = np.zeros((CHUNK, b, p), np.float32)
-        n = min(CHUNK, t - off)
-        lp[:n] = np.transpose(logp[:, off:off + n], (1, 0, 2))
-        valid = (off + np.arange(CHUNK))[:, None] < lens[None, :]
-        jb, jtr = jbeam.decode_chunk(jcfg, has_lm, jd, jl, jb,
-                                     jnp.asarray(lp), jnp.asarray(valid))
-        tb, ttr = tbeam.decode_chunk(tcfg, td, tb, torch.from_numpy(lp),
-                                     torch.from_numpy(valid), tl)
-        for name, x, y in zip(jb._fields, jb, tb):
-            assert_same(x, y, f"chunk {off}: beam {name}")
-        for name, x, y in zip(jtr._fields, jtr, ttr):
-            assert_same(x, y, f"chunk {off}: trace {name}")
-    return jb
-
-
-def _dirichlet(rng, p, size):
-    return np.log(rng.dirichlet(np.ones(p), size=size)).astype(np.float32)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_random_eps_free_graphs(seed):
     fst, used = eps_free_random_fst(seed, flat=FlatFst)
     rng = np.random.RandomState(used + 1)
     jd, td = _build(fst, np.arange(11, dtype=np.int32), group=2)
     jcfg, tcfg = _configs()
-    run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 11, (3, 20)), [20, 13, 7])
+    run_chunks(jd, td, jcfg, tcfg, dirichlet(rng, 11, (3, 20)), [20, 13, 7])
 
 
 @pytest.mark.parametrize("group", [1, 4])
@@ -107,7 +75,7 @@ def test_phone_loop_ragged(group):
     g = make_phone_loop_graph(rng, num_words=5, num_pdfs=24)
     jd, td = _build(FlatFst.from_raw(g.fst), g.tid2pdf, group)
     jcfg, tcfg = _configs()
-    final = run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 24, (4, 21)),
+    final = run_chunks(jd, td, jcfg, tcfg, dirichlet(rng, 24, (4, 21)),
                        [21, 16, 9, 2])
     assert np.isfinite(np.asarray(final.costs)).any()
 
@@ -120,7 +88,7 @@ def test_high_fanout_csr_overflow():
     jd, td = _build(FlatFst.from_raw(g.fst), g.tid2pdf, group=1)
     assert td.max_emit_fanout > 1
     jcfg, tcfg = _configs(beam_size=64, expand_size=8, beam=1e9)
-    final = run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 32, (2, 17)),
+    final = run_chunks(jd, td, jcfg, tcfg, dirichlet(rng, 32, (2, 17)),
                        [17, 11])
     assert np.asarray(final.overflow).all()
     assert (np.asarray(final.hiwater)[:, 0] > 8).all()
@@ -167,7 +135,7 @@ def test_batch_decoder_retry_matches_jax():
     fst = FlatFst.from_raw(g.fst)
     port_fst = tfst.FlatFst.from_raw(ttoy.make_phone_loop_graph(
         np.random.RandomState(5), num_words=40, num_pdfs=32).fst)
-    logp = _dirichlet(rng, 32, (2, 30))
+    logp = dirichlet(rng, 32, (2, 30))
     lengths = [30, 19]
     jcfg, tcfg = _configs(beam_size=64, expand_size=8, eps_expand_size=512,
                           beam=1e9)
@@ -221,7 +189,7 @@ def test_init_closure_without_packed_eps_metadata():
     jd, td = _build(fst, np.arange(11, dtype=np.int32), group=2)
     assert not td.eps_meta_ok
     jcfg, tcfg = _configs(eps_expand_size=1024)
-    run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 11, (2, 9)), [9, 5])
+    run_chunks(jd, td, jcfg, tcfg, dirichlet(rng, 11, (2, 9)), [9, 5])
 
 
 # -- delta-LM rescoring ------------------------------------------------------
@@ -250,24 +218,16 @@ def _lm_pair(delta):
     return jl, dlm_from_jax(jl)
 
 
-def _with_lm_words(fst, delta, rng):
-    """The graph with every output label replaced by a toy-LM word id."""
-    vocab = delta.small_lm.size
-    words = rng.randint(3, min(vocab, 200), size=fst.arc_olabel.size)
-    return dataclasses.replace(fst, arc_olabel=np.where(
-        fst.arc_olabel > 0, words, 0).astype(np.int32))
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_graphs_with_delta_lm(toy_delta, seed):
     fst, used = eps_free_random_fst(seed, flat=FlatFst)
     rng = np.random.RandomState(used + 7)
-    fst = _with_lm_words(fst, toy_delta, rng)
+    fst = with_lm_words(fst, toy_delta, rng)
     jd, td = _build(fst, np.arange(11, dtype=np.int32), group=2)
     assert td.has_emit_olabel  # both LM walks run
     jl, tl = _lm_pair(toy_delta)
     jcfg, tcfg = _configs()
-    final = run_chunks(jd, td, jcfg, tcfg, _dirichlet(rng, 11, (3, 20)),
+    final = run_chunks(jd, td, jcfg, tcfg, dirichlet(rng, 11, (3, 20)),
                        [20, 13, 7], jl, tl)
     assert (np.asarray(final.lm) > 0).any()
     assert (np.asarray(final.hiwater)[:, 2] > 0).all()
@@ -343,11 +303,11 @@ def test_batch_decoder_with_delta_lm_matches_jax(planted_lm, port_planted_lm,
 
     fst, used = eps_free_random_fst(4, flat=FlatFst)
     rng = np.random.RandomState(used + 7)
-    fst = _with_lm_words(fst, toy_delta, rng)
-    port_fst = _with_lm_words(eps_free_random_fst(4)[0], port_toy_delta,
+    fst = with_lm_words(fst, toy_delta, rng)
+    port_fst = with_lm_words(eps_free_random_fst(4)[0], port_toy_delta,
                               np.random.RandomState(used + 7))
     tid2pdf = np.arange(11, dtype=np.int32)
-    lp = _dirichlet(rng, 11, (3, 15))
+    lp = dirichlet(rng, 11, (3, 15))
     jcfg, tcfg = _configs()
     ref = jdecoder.decode_batch(fst, tid2pdf, lp, [15, 11, 6],
                                 delta_lm=toy_delta, config=jcfg, arc_group=2,

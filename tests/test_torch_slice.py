@@ -3,8 +3,9 @@
 Transcripts must be identical, for the float and the int8 (`quantized =
 true`) acoustic model, LM off and with delta-LM rescoring.  Also: the port
 imports neither jax nor the JAX package, its entry points run on the card
-unless asked for the CPU, and what it does not carry (`select_compact`,
-graphs that are not eps-free) fails with a one-line `catears:` error.
+unless asked for the CPU, graphs that keep their epsilon arcs (prepare_
+decode_graph's 'raw' mode) decode as in JAX, and the knob it does not
+carry (`select_compact`) fails with a one-line `catears:` error.
 """
 
 import ast
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CPU, write_scp
+from _torch_parity import CPU, write_raw_conf, write_scp
 from catears_tpu.cli import main as jax_main
 from catears_tpu.tools.biggraph import write_trie_model
 from catears_tpu.tools.toy import write_toy_model
@@ -288,24 +289,77 @@ def test_default_device_needs_cuda(model):
 
 def test_graph_not_eps_free_is_rejected():
     """An epsilon path with two output labels keeps the graph out of
-    prepare_decode_graph's eps-free mode, which the port's decoder does not
-    carry yet."""
+    prepare_decode_graph's eps-free and closed modes: the decoders take it
+    raw, with the closure rounds in every frame, and give the words and
+    costs of JAX's BatchDecoder and Decoder."""
+    from catears_tpu.decode import decoder as jdecoder
+    from catears_tpu.graph.fst import FlatFst as JaxFlatFst
     from catears_tpu_torch.decode.decoder import BatchDecoder, Decoder
     from catears_tpu_torch.graph.fst import FlatFst
     from catears_tpu_torch.graph.transform import prepare_decode_graph
-    from catears_tpu_torch.utils.errors import NotImplementedError_
 
     arcs = np.array([(0, 1, 0, 1, 0.5), (1, 2, 0, 2, 0.5), (0, 0, 1, 0, 1.0),
                      (2, 2, 2, 0, 1.0)])
-    fst = FlatFst.from_arrays(
+    fst, jfst = (flat.from_arrays(
         start=0, final=np.zeros(3, np.float32),
         state_of_arc=arcs[:, 0].astype(np.int64),
         arc_next=arcs[:, 1].astype(np.int32),
         arc_ilabel=arcs[:, 2].astype(np.int32),
         arc_olabel=arcs[:, 3].astype(np.int32),
         arc_weight=arcs[:, 4].astype(np.float32))
-    assert prepare_decode_graph(fst)[2] != "eps_free"
-    with pytest.raises(NotImplementedError_, match="not yet ported"):
-        BatchDecoder(fst, np.arange(3, dtype=np.int32), device=CPU)
-    with pytest.raises(NotImplementedError_, match="not yet ported"):
-        Decoder(fst, np.arange(3, dtype=np.int32), device=CPU)
+        for flat in (FlatFst, JaxFlatFst))
+    assert prepare_decode_graph(fst)[2] == "raw"
+    tid2pdf = np.arange(3, dtype=np.int32)
+    # pdf 2 likely: the best path crosses the two-word epsilon path
+    logp = np.log(np.random.RandomState(0).dirichlet(
+        [1.0, 1.0, 8.0], size=(2, 6))).astype(np.float32)
+    ref = jdecoder.BatchDecoder(jfst, tid2pdf).decode(logp, [6, 4])
+    got = BatchDecoder(fst, tid2pdf, device=CPU).decode(logp, [6, 4])
+    assert [(h.words, h.weight) for h in got] == [
+        (h.words, h.weight) for h in ref]
+    assert got[0].words == [1, 2]
+    jdec, tdec = jdecoder.Decoder(jfst, tid2pdf), Decoder(fst, tid2pdf,
+                                                         device=CPU)
+    for dec in (jdec, tdec):
+        dec.process(logp[0])
+        dec.end_of_stream()
+    ref, got = jdec.best_path(), tdec.best_path()
+    assert (got.words, got.weight) == (ref.words, ref.weight)
+
+
+@pytest.fixture(scope="module")
+def raw_conf(model):
+    """The toy model whose graph carries one more epsilon path, unreachable,
+    with two output labels (prepare_decode_graph's 'raw' mode)."""
+    return write_raw_conf(model[1], "raw", ["beam_size = 256",
+                                            "expand_size = 2048",
+                                            "eps_expand_size = 1024"])
+
+
+@pytest.fixture(scope="module")
+def raw_lm_conf(toy_lm_conf):
+    """The same raw graph under the toy G' (delta-LM rescoring)."""
+    return write_raw_conf(toy_lm_conf, "rawlm", ["expand_size = 8192",
+                                                 "eps_expand_size = 1024",
+                                                 "lm_expand_size = 256"])
+
+
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("how", ["batch", "wav"])
+def test_cli_on_a_raw_graph_matches_jax(model, data_dir, raw_conf,
+                                        raw_lm_conf, how, lm):
+    """The Recognizer on the raw toy graph, LM off and with the toy G',
+    through the CLI's batch path and its .wav (streaming Utterance) path:
+    JAX's transcripts."""
+    _, _, scp = model
+    conf = raw_lm_conf if lm else raw_conf
+    if how == "batch":
+        argv = ["--batch=2", conf, scp]
+    else:
+        argv = [conf, os.path.join(data_dir, "en-us-hello.wav")]
+    rc_j, ref, _ = _run(jax_main, argv)
+    rc_t, got, _ = _run(torch_main, ["--device=cpu"] + argv)
+    assert rc_j == rc_t == 0
+    assert got == ref
+    assert len(got.splitlines()) == (2 if how == "batch" else 1)
+    assert all(line.split() for line in got.splitlines())
