@@ -9,8 +9,11 @@ inputs.  It imports nothing of `catears_tpu`: the host modules it needs
 `graph/fst.py` and `graph/transform.py`; the `tools/` toy and trie
 generators, the token-error count and the Kaldi conversion recipe;
 `utils/` errors and counters) are copies kept at the JAX package's module
-paths, stripped to what the port calls; WAV, ConstFst and edit distance
-take their Python paths.
+paths, stripped to what the port calls.  WAV batches, ConstFst, long
+backtraces and edit distances go through the native host library
+(`utils/native.py`, built from `csrc/catears_native.cc` with the host C++
+compiler on first use) and take their Python paths where it cannot be
+built.
 
 It carries the offline batched decode (`cli.py --batch`) and the live
 stream (`Recognizer.create_utterance`, `create_stream_batch`, the CLI on a

@@ -107,6 +107,28 @@ def apply_layer(kind: str, layer: Tuple[Any, ...], x: torch.Tensor,
     raise ValueError(f"unknown layer kind {kind}")
 
 
+def output_dim(nnet_def: NnetDef, params, input_dim: int) -> int:
+    """Static output dimension of the stack."""
+    d = input_dim
+    for layer, p in zip(nnet_def, params):
+        kind = layer[0]
+        if kind == "linear":
+            d = p["w"].shape[1]
+        elif kind == "splice":
+            d = d * len(layer[1])
+    return d
+
+
+def rows_consumed(nnet_def: NnetDef) -> Tuple[int, int]:
+    """Total (left, right) rows consumed by Narrow layers."""
+    left = right = 0
+    for layer in nnet_def:
+        if layer[0] == "narrow":
+            left += layer[1]
+            right += layer[2]
+    return left, right
+
+
 def nnet_forward(nnet_def: NnetDef, params, x) -> torch.Tensor:
     """Run the layer stack on [..., T, D] features (the JAX functional
     form): `params` as build_nnet gives them, numpy or torch; each is read

@@ -1,5 +1,5 @@
-"""Benchmark of the port: full-pipeline ASR throughput on one card (port of
-the repo's bench.py, every mode but `scaling`).
+"""Benchmark of the port: full-pipeline ASR throughput on the card (port of
+the repo's bench.py, every mode).
 
     python -m catears_tpu_torch.bench
 
@@ -24,7 +24,9 @@ Modes (BENCH_MODE):
   am         the AM forward alone, float or BENCH_QUANT=1 (calibrated on
              one utterance unless BENCH_CALIBRATE=0)
              (`am_forward_audio_seconds_per_sec_{float,int8}`)
-  scaling    not ported: it waits for the port of `parallel/`.
+  scaling    `parallel.ShardedPipeline` over 1/2/4/8 devices on a 20k-word
+             sub-trie, 8 x 2 s ragged (`dp_sharding_efficiency_8dev`);
+             with fewer than 8 cards the shards share them round-robin
 
 The random stream is drawn in bench.py's order (trie, planted paths, nnet,
 G' if BENCH_LM=1, wave), so the planted frames, true words, wave and
@@ -627,18 +629,99 @@ def main_am() -> int:
     return 0
 
 
+def main_scaling() -> int:
+    """Data-parallel scaling: the same fixed ragged batch through
+    `ShardedPipeline.full_step` over 1/2/4/8 devices of a ('data',
+    'model') mesh (bench.py's main_scaling; efficiency = xRT at 8 / xRT
+    at 1).
+
+    With 8 cards each shard has its own card.  With fewer, the shards go
+    round-robin over the cards there are, and the measurement is the cost
+    of splitting the batch over host threads and streams, not a
+    multi-card speed-up; BENCH_DEVICE=cpu: n logical CPU devices.
+
+    The workload is bench.py's: a 20k-word sub-trie at the headline beam
+    geometry (beam 2048, expand 32768), TDNN-256, 8 x 2 s with ragged
+    lengths (RandomState(7)), 3 timed runs.
+    """
+    from catears_tpu_torch.frontend.fbank import num_frames
+    from catears_tpu_torch.parallel.mesh import (ShardedPipeline,
+                                                 logical_devices, make_mesh)
+
+    device = bench_device()
+    batch = int(os.environ.get("BENCH_BATCH", 8))
+    seconds = float(os.environ.get("BENCH_SECONDS", 2.0))
+    if batch % 8:
+        raise CatEarsError(f"BENCH_BATCH={batch} does not split evenly over "
+                           f"the scaling mode's 8 devices")
+    defaults = {"BENCH_GRAPH": "trie", "BENCH_WORDS": "20000",
+                "BENCH_HIDDEN": "256", "BENCH_BEAM": "2048",
+                "BENCH_EXPAND": "32768", "BENCH_EPS_EXPAND": "1024"}
+    unset = [k for k in defaults if k not in os.environ]
+    os.environ.update({k: defaults[k] for k in unset})
+    try:
+        am, fst, dfst, _, cfg, wave, _, _ = build_bench_setup(batch, seconds)
+    finally:
+        for k in unset:
+            del os.environ[k]
+    t_frames = num_frames(wave.shape[1])
+    runs = int(os.environ.get("BENCH_RUNS", 3))
+    # Ragged batch: lengths span 50%..100% of the padded frame budget.
+    rng = np.random.RandomState(7)
+    lengths = torch.from_numpy(rng.randint(t_frames // 2, t_frames + 1,
+                                           size=batch).astype(np.int32))
+    audio_seconds = float(lengths.sum()) / 100.0
+
+    results = {}
+    for n_dev in (1, 2, 4, 8):
+        devices = logical_devices(n_dev, device)
+        mesh = make_mesh(n_dev, model_parallel=1, devices=devices)
+        pipe = ShardedPipeline(am, dfst, None, cfg, mesh)
+        step = pipe.jit_full_step(t_frames)
+
+        def run_once():
+            beam = pipe.make_beam(batch)
+            _, beam, _ = step(wave, beam, lengths)
+            return beam.costs.cpu().numpy()
+
+        costs = run_once()  # warm-up
+        assert np.isfinite(costs).any()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            run_once()
+            times.append(time.perf_counter() - t0)
+        results[n_dev] = audio_seconds / min(times)
+        print(f"# devices={n_dev}: {results[n_dev]:.2f} xRT (ragged "
+              f"lengths {int(lengths.min())}..{int(lengths.max())}; shards "
+              f"on {[str(d) for d in devices]})", file=sys.stderr)
+        _report_times(f"scaling-{n_dev}", times, device)
+    eff = results[8] / results[1]
+    print(json.dumps({
+        "metric": "dp_sharding_efficiency_8dev",
+        "value": round(eff, 3),
+        "unit": "ratio",
+        "vs_baseline": round(eff / 0.8, 3),
+    }))
+    distinct = len(set(logical_devices(8, device)))
+    note = ("8 cards: measures multi-card scaling" if distinct == 8 else
+            f"{distinct} distinct device(s) for 8 shards: measures the cost "
+            f"of splitting the batch over host threads and streams, not "
+            f"multi-card speed-up")
+    print(f"# xRT by devices: "
+          f"{ {k: round(v, 2) for k, v in results.items()} } ({note})",
+          file=sys.stderr)
+    return 0
+
+
 MODES = {"streaming": main_streaming, "am": main_am,
-         "product": main_product}
+         "product": main_product, "scaling": main_scaling}
 
 
 def run() -> int:
     """The mode BENCH_MODE names (the headline when unset); raises
-    CatEarsError for `scaling`, for a refused knob and without a card."""
+    CatEarsError for a refused knob and without a card."""
     mode = os.environ.get("BENCH_MODE", "")
-    if mode == "scaling":
-        raise CatEarsError("BENCH_MODE=scaling is not ported: it waits for "
-                           "the port of parallel/ (ROADMAP.md, queue 1, "
-                           "multi-GPU)")
     check_knobs()
     bench_device()
     return MODES.get(mode, main)()

@@ -2,8 +2,8 @@
 (port of catears_tpu/decode/hyp.py).
 
 The decoder emits a per-frame backpointer trace (prev_slot, words); the
-host walks it backwards from the best final slot.  `backtrace` is the
-JAX package's pure-Python walk (the port has no native walker);
+host walks it backwards from the best final slot.  `backtrace` walks in
+Python, or in the native library from 64 frames on, as the JAX package's;
 `IncrementalBacktracker` refreshes a streaming partial hypothesis by
 walking only the frames since the last refresh; `assemble_words` turns the
 device backtrace of the batch path into a transcript.
@@ -30,6 +30,18 @@ class HostTrace:
 
 def backtrace(traces: List[HostTrace], slot: int) -> List[int]:
     """Follow prev_slot links from `slot` in the last trace to the root."""
+    if not traces:
+        return []
+    if len(traces) >= 64:
+        # Long utterances: the native C++ walker beats the per-frame Python
+        # loop once stacking the traces is amortized.
+        from catears_tpu_torch.utils import native
+        if native.available():
+            prev = np.stack([t.prev_slot for t in traces])
+            words = np.stack([t.words for t in traces])
+            out = native.backtrace(prev, words, slot)
+            if out is not None:
+                return out
     words_rev: List[int] = []
     cur = slot
     for f in range(len(traces) - 1, -1, -1):

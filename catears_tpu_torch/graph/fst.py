@@ -122,12 +122,25 @@ class FlatFst:
 
     @classmethod
     def read(cls, path: str) -> "FlatFst":
-        """Load either format by sniffing the file magic (ConstFst with the
-        Python parser)."""
+        """Load either format by sniffing the file magic.
+
+        ConstFst parsing prefers the native C++ parser when available.
+        """
         with open(path, "rb") as fd:
             head = fd.read(9)
         if head == b"pk::fst_0":
             return cls.from_raw(read_pkfst_file(path))
+        from catears_tpu_torch.utils import native
+        if native.available():
+            with open(path, "rb") as fd:
+                parsed = native.parse_const_fst(fd.read())
+            if parsed is not None:
+                start, final, pos, cnt, arcs = parsed
+                state_of_arc = np.repeat(
+                    np.arange(final.size, dtype=np.int64), cnt)
+                return cls.from_arrays(
+                    start, final, state_of_arc, arcs[:, 3], arcs[:, 0],
+                    arcs[:, 1], arcs[:, 2].view(np.float32))
         return cls.from_const_fst(read_const_fst_file(path))
 
     # -- queries (host side) -----------------------------------------------

@@ -1,8 +1,10 @@
 """Batched (offline) decoding of .scp utterance lists (port of
 catears_tpu/runtime/batch.py).
 
-Utterances are read file by file in Python, the whole batch runs fbank + AM on the recognizer's device, and the beam search consumes
-the [B, T, P] log-probs there.  Ragged batches stay exact per utterance:
+Utterances are read by the native threaded loader (`utils/native.py`;
+Python, file by file, where it cannot be built), the whole batch runs fbank
++ AM on the recognizer's device, and the beam search consumes the [B, T, P]
+log-probs there.  Ragged batches stay exact per utterance:
 waves are padded to one bucketed length (base 4096 samples), features are
 context-padded per utterance with a clipped index gather (edge frames
 replicated), and the int8 AM quantizes each utterance's own padded rows,
@@ -25,11 +27,14 @@ from catears_tpu_torch.frontend.fbank import (NUM_BINS, bucket,
                                               fbank_from_wave, num_frames)
 from catears_tpu_torch.io.wav import read_16k_pcm, read_scp
 from catears_tpu_torch.runtime.recognizer import Recognizer
-from catears_tpu_torch.utils import log
+from catears_tpu_torch.utils import log, native
 
 
 def load_waves(paths: List[str]) -> List[np.ndarray]:
-    """One float32 sample array per 16 kHz WAV file."""
+    """Native threaded batch load, falling back to Python per-file reads."""
+    batch = native.load_wav_batch(paths) if native.available() else None
+    if batch is not None:
+        return batch
     return [read_16k_pcm(p) for p in paths]
 
 

@@ -1,5 +1,5 @@
 """Synthetic model/graph generators for tests and benchmarks (the port's
-copy of catears_tpu/tools/toy.py, without the toy LM).
+copy of catears_tpu/tools/toy.py).
 
 The reference repo ships no acoustic model, so parity and performance work
 uses synthetic-but-structurally-faithful artifacts: a TDNN-style NN02 nnet
@@ -149,6 +149,53 @@ def make_phone_loop_graph(rng: np.random.RandomState, num_words: int = 6,
                  arc_olabel=flat.arc_olabel, arc_weight=flat.arc_weight)
     return ToyGraph(fst=raw, words=words, num_transitions=tid,
                     tid2pdf=np.asarray(tid2pdf, np.int32))
+
+
+def make_toy_lm(rng: np.random.RandomState, num_words: int,
+                bos_id: int, eos_id: int) -> Tuple[RawFst, np.ndarray]:
+    """Tiny backoff bigram LM as a pk-format FST + unigram cost vector.
+
+    State 0 = unigram/backoff state: one arc per word (loops back to 0),
+    plus <s> -> state 1 and </s> -> final state 2.  State 1 (post-BOS) has
+    an epsilon backoff arc to state 0 (first in span, LmFst convention) and
+    a few bigram arcs.  The unigram vector matches state 0's word costs so
+    DeltaLmFst deltas are the bigram corrections.
+    """
+    arcs = []  # (src, dst, ilabel, olabel, weight)
+    uni = {w: float(rng.rand() * 2 + 0.5) for w in range(1, num_words + 1)}
+    for w, cost in uni.items():
+        arcs.append((0, 0, w, w, cost))
+    arcs.append((0, 1, bos_id, bos_id, 0.0))
+    arcs.append((0, 2, eos_id, eos_id, float(rng.rand() + 0.2)))
+    arcs.append((1, 0, 0, 0, float(rng.rand() * 0.5)))  # backoff
+    for w in range(1, num_words + 1):
+        if rng.rand() < 0.5:  # some bigrams P(w | <s>)
+            arcs.append((1, 0, w, w, float(rng.rand() + 0.1)))
+    final = np.full(3, np.inf, np.float32)
+    final[2] = 0.0
+    arr = np.array(arcs, dtype=np.float64)
+    from catears_tpu_torch.graph.fst import FlatFst
+    flat = FlatFst.from_arrays(
+        start=0, final=final,
+        state_of_arc=arr[:, 0].astype(np.int64),
+        arc_next=arr[:, 1].astype(np.int32),
+        arc_ilabel=arr[:, 2].astype(np.int32),
+        arc_olabel=arr[:, 3].astype(np.int32),
+        arc_weight=arr[:, 4].astype(np.float32))
+    first_arc = np.full(3, -1, np.int32)
+    for s in range(3):
+        lo, hi = flat.arc_range(s)
+        if hi > lo:
+            first_arc[s] = lo
+    raw = RawFst(start=0, final=final, first_arc=first_arc,
+                 arc_next=flat.arc_next, arc_ilabel=flat.arc_ilabel,
+                 arc_olabel=flat.arc_olabel, arc_weight=flat.arc_weight)
+    small_lm = np.full(eos_id + 1, np.inf, np.float32)
+    for w, cost in uni.items():
+        small_lm[w] = cost
+    small_lm[bos_id] = 0.0
+    small_lm[eos_id] = float(rng.rand() + 0.2)
+    return raw, small_lm
 
 
 def write_toy_model(out_dir: str, rng: Optional[np.random.RandomState] = None,

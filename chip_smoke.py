@@ -107,6 +107,40 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               warm-up included, counted from 0 just before the run), and
               `streaming` solo and with BENCH_STREAMS=16: each prints its
               bench.py metric
+  parallel    `parallel.ShardedPipeline` at the smoke's width (the trie
+              model's float TDNN-1024 x 2, as JAX's pipeline runs the float
+              params; beam 2048, expand 32768), batch 8 of the seeded waves
+              (ragged), over make_mesh(2, 1) and make_mesh(4, 2) of logical
+              shards of the card (of the cards, where there are more): held
+              to the unsharded step on the card (log-probs within 2e-4,
+              states and words equal, costs within 1e-3); each step's wall
+              time; no int8 launch
+  distributed two processes, rank 0 and 1, in one gloo group on localhost,
+              each on its card (cuda:0 for both on one card): each decodes
+              its local_batch_slice through a ShardedPipeline, equal to the
+              parallel phase's unsharded reference, and global_sum gives
+              the total frames; a timeout per rank
+  dryrun      graft_entry.dryrun_multichip(8) on the card (sharded ==
+              unsharded), then entry()'s step once
+  bench-scaling
+              BENCH_MODE=scaling at its defaults (20k-word sub-trie,
+              TDNN-256, beam 2048, batch 8, ragged) cut to 1 s per
+              utterance, BENCH_RUNS=1: its JSON line, xRT per mesh size
+              (1/2/4/8 shards of the card)
+  native      the native host library builds (or the phase fails with the
+              compiler's output); load_wav_batch (the 8 WAVs), the 50k
+              trie written as a ConstFst and read back, a random
+              1000-frame backtrace and 200 edit distances equal the Python
+              paths; host ms of the WAV load native vs Python and seconds of
+              the trie's pk::fst_0 read and ConstFst parse (native, Python)
+  synth       tools.synth.train_am on the card at tests/test_synth.py's size
+              (dev accuracy > 0.5 after 800 steps; WER < 0.15 on 3 fresh
+              utterances through Recognizer(device=cuda)), then at
+              scripts/realism.py's width (TDNN-1024 x 5, 3600 pdfs, the
+              smoke's 50k-word trie): the first step's loss (1e-5
+              relative) and gradients (1e-4 of each one's range) on cuda
+              against the same step on the CPU in float64 (the CPU's
+              float32 error beside it), steps per second and dev accuracy
 
 Cut in depth (never in width) to stay well inside the time limit, which
 a slow host nearly filled (1026 s) before these cuts: decoder and
@@ -118,9 +152,14 @@ decode only those on the card, and take their planted WER on 2 x 500
 frames (LM on 2 x 200); every e2e phase runs its CPU side on the first
 CPU_UTTS (1) utterance, the longest, and e2e-lm runs the first
 E2E_LM_UTTS (4); stream-trie compares CPU_STREAMS (1) stream with the
-CPU; the LM-on live streams take the first STREAM_LM_S (5) seconds of each
+CPU; the LM-on live streams take the first STREAM_LM_S (3) seconds of each
 wave, its solo Utterance SOLO_LM_S (3); the bench's modes other than the
-headline run 2 s of audio, 2 timed runs.
+headline run 2 s of audio, 2 timed runs.  The last slice's phases: the
+parallel and distributed phases decode the first 20% of each wave (60-200
+frames), bench-scaling runs 1 s per utterance (BENCH_SECONDS=1; 2 s took
+108 s), once per mesh size, and the synth phase's
+full-width part trains SYNTH_FULL_STEPS (200) steps on SYNTH_FULL_UTTS (8)
+utterances of 8 s.
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  The one kernel,
@@ -150,6 +189,7 @@ import subprocess
 import sys
 import time
 import wave
+from unittest import mock
 
 import numpy as np
 import torch
@@ -194,7 +234,7 @@ DECODER_FRAMES = {False: 500, True: 200}
 # Planted frames per utterance: (utterances, frames), LM off / LM on.
 PLANTED = {False: (4, 1000), True: (2, 300)}
 CLOSURE_PLANTED = {False: (2, 500), True: (2, 200)}
-STREAM_LM_S = 5.0  # seconds of each wave the LM-on live streams take
+STREAM_LM_S = 3.0  # seconds of each wave the LM-on live streams take
 SOLO_LM_S = 3.0  # seconds of the 10 s wave the LM-on solo Utterance takes
 # (batch, M, K, N) of the bench's distinct linears at 16 x 10 s (998 frames
 # + 5 + 5 context rows, narrowed by 2 per splice): the first, the four
@@ -206,6 +246,18 @@ BENCH_JSON_KEYS = {"metric", "value", "unit", "vs_baseline", "wer",
 BENCH_MODE_SECONDS = "2"  # BENCH_SECONDS of the product, am, streaming runs
 BENCH_MODE_RUNS = "2"  # their BENCH_RUNS
 BENCH_STREAMS = "16"
+# The last slice's phases, cut in depth: the parallel and distributed
+# phases decode the first 20% of each seeded wave (60-200 frames),
+# bench-scaling runs 1 s of each utterance (its 8-shard mesh alone took 60
+# s at 2 s), and the synth phase at full width trains SYNTH_FULL_STEPS
+# steps on SYNTH_FULL_UTTS utterances of SYNTH_FULL_S seconds.
+PARALLEL_FRACTION = 0.2
+SCALING_SECONDS = "1"  # bench-scaling's BENCH_SECONDS (its default: 2)
+PARALLEL_MESHES = ((2, 1), (4, 2))  # (devices, model_parallel)
+DIST_TIMEOUT = 600  # seconds per rank
+NATIVE_REPS = 5  # host timings: best of
+SYNTH_STEPS = 800  # tests/test_synth.py's
+SYNTH_FULL_UTTS, SYNTH_FULL_S, SYNTH_FULL_STEPS = 8, 8.0, 200
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM, dense
@@ -1270,8 +1322,8 @@ def bench_mode_phase(name, metric, card, **knobs):
 
     saved = dict(os.environ)
     os.environ.clear()
-    os.environ.update(bench_env(BENCH_SECONDS=BENCH_MODE_SECONDS,
-                                BENCH_RUNS=BENCH_MODE_RUNS, **knobs))
+    os.environ.update(bench_env(**{"BENCH_SECONDS": BENCH_MODE_SECONDS,
+                                   "BENCH_RUNS": BENCH_MODE_RUNS, **knobs}))
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
     quant.matmul_s8.launches = quant.qmatmul.launches = 0
@@ -1289,13 +1341,15 @@ def bench_mode_phase(name, metric, card, **knobs):
                 "qmatmul": quant.qmatmul.launches}
     wall = time.perf_counter() - t0
     for line in err.getvalue().splitlines():
-        if line.startswith("# ") and ("latency" in line or "times=" in line):
+        if line.startswith("# ") and ("latency" in line or "times=" in line
+                                      or " xRT" in line):
             print(f"[{name}] {line[2:]}", flush=True)
     record = json.loads(out.getvalue().strip().splitlines()[-1])
     phase(name, rc=rc, metric=record["metric"], xrt=record["value"],
           wer=record.get("wer"), fused_launches=launches["qmatmul"],
           wall_s=f"{wall:.2f}", card=f"'{card}'")
-    if rc != 0 or record["metric"] != metric or not record["value"] > 0:
+    if rc != 0 or record["metric"] != metric or not record["value"] > 0 \
+            or not {"metric", "value", "unit", "vs_baseline"} <= set(record):
         fail(f"{name}: rc {rc}, record {record}")
     if record.get("wer", 0.0) > 0.25:
         fail(f"{name}: planted WER {record['wer']} is too high")
@@ -1327,6 +1381,453 @@ def bench_modes(card):
                      "batched_streaming_audio_seconds_per_sec", card,
                      BENCH_MODE="streaming", BENCH_STREAMS=BENCH_STREAMS)
     return launches
+
+
+# -- the last slice: parallel, distributed, dryrun, scaling, native, synth --
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parallel_batch(waves):
+    """The first PARALLEL_FRACTION of each wave, zero-padded into one
+    [B, S] batch, and the ragged frame counts."""
+    from catears_tpu_torch.frontend.fbank import num_frames
+
+    cut = [w[:int(w.shape[0] * PARALLEL_FRACTION)] for w in waves]
+    batch = np.zeros((len(cut), max(w.shape[0] for w in cut)), np.float32)
+    for i, w in enumerate(cut):
+        batch[i, :w.shape[0]] = w
+    return batch, np.array([num_frames(w.shape[0]) for w in cut], np.int32)
+
+
+def unsharded_step(am, dfst, cfg, wave, lengths):
+    """The float AM over the whole batch and one decode_chunk, on dfst's
+    device: (logp [B, T, P], beam, traces)."""
+    from catears_tpu_torch.decode.beam import decode_chunk, init_beam_batch
+    from catears_tpu_torch.frontend.fbank import fbank_from_wave, num_frames
+
+    dev = dfst.device
+    t = num_frames(wave.shape[1])
+    with torch.no_grad():
+        feats = fbank_from_wave(torch.from_numpy(wave).to(dev), t)
+        b = feats.shape[0]
+        padded = torch.cat([feats[:, :1].expand(b, am.left_context, -1),
+                            feats,
+                            feats[:, -1:].expand(b, am.right_context, -1)],
+                           dim=1)
+        logp = am.float_nnet(padded) - am.log_prior
+        beam, _ = init_beam_batch(cfg, b, dfst)
+        valid = (torch.arange(t, device=dev)[:, None]
+                 < torch.from_numpy(lengths).to(dev)[None, :])
+        beam, traces = decode_chunk(cfg, dfst, beam, logp.transpose(0, 1),
+                                    valid)
+    return logp, beam, traces
+
+
+def held_to(name, got, ref):
+    """Sharded (logp, beam, traces) against the unsharded step: log-probs
+    within 2e-4, states and words equal, costs within 1e-3 (the JAX
+    dryrun's bars); returns the numbers for the phase line."""
+    err = float((got[0].cpu() - ref[0].cpu()).abs().max())
+    finite = torch.isfinite(ref[1].costs.cpu())
+    cost_err = float((got[1].costs.cpu() - ref[1].costs.cpu())[finite]
+                     .abs().max())
+    states = torch.equal(got[1].states.cpu(), ref[1].states.cpu())
+    words = torch.equal(got[2].words.cpu(), ref[2].words.cpu())
+    if not (err <= 2e-4 and states and words and cost_err <= 1e-3
+            and torch.equal(torch.isfinite(got[1].costs.cpu()), finite)):
+        fail(f"{name}: sharded != unsharded: logp err {err:.3e}, states "
+             f"{states}, words {words}, cost err {cost_err:.3e}")
+    return dict(max_logp_err=f"{err:.3e}", states_equal=states,
+                words_equal=words, max_cost_err=f"{cost_err:.3e}")
+
+
+def parallel_phase(conf, waves, card, dev=torch.device("cuda:0")):
+    """ShardedPipeline on the card at the smoke's width (the trie model's
+    float TDNN-1024, beam 2048, expand 32768), batch 8 of the seeded waves
+    (their first PARALLEL_FRACTION, ragged), over each mesh of
+    PARALLEL_MESHES (logical shards of the cards there are), held to the
+    unsharded step; returns (batch, lengths, the unsharded reference) for
+    the distributed phase."""
+    from catears_tpu_torch.parallel.mesh import (ShardedPipeline,
+                                                 logical_devices, make_mesh)
+    from catears_tpu_torch.runtime.recognizer import Recognizer
+
+    from catears_tpu_torch.frontend.fbank import num_frames
+
+    rec = Recognizer(conf, device=dev)
+    cfg, dfst, _ = rec._decode_graph()
+    wave, lengths = parallel_batch(waves)
+    quant.matmul_s8.launches = quant.qmatmul.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    ref = unsharded_step(rec.am, dfst, cfg, wave, lengths)
+    words = ref[2].words.cpu()
+    phase("parallel", mesh="unsharded", utts=len(lengths),
+          frames=lengths.tolist(), step_s=f"{time.perf_counter() - t0:.3f}",
+          card=f"'{card}'")
+    for n, mp in PARALLEL_MESHES:
+        devices = logical_devices(n, dev)
+        pipe = ShardedPipeline(rec.am, dfst, None, cfg,
+                               make_mesh(n, mp, devices=devices))
+        step = pipe.jit_full_step(num_frames(wave.shape[1]))
+        sync(dev)
+        t0 = time.perf_counter()
+        got = step(torch.from_numpy(wave), pipe.make_beam(len(wave)),
+                   torch.from_numpy(lengths))
+        got[2].words.cpu()
+        wall = time.perf_counter() - t0
+        phase("parallel", mesh=f"{n // mp}x{mp}",
+              devices=[str(d) for d in devices], step_s=f"{wall:.3f}",
+              **held_to(f"parallel {n // mp}x{mp}", got, ref),
+              card=f"'{card}'")
+    if quant.qmatmul.launches or quant.matmul_s8.launches:
+        fail("parallel: the float AM launched the int8 kernel")
+    return wave, lengths, {"states": ref[1].states.cpu().numpy(),
+                           "costs": ref[1].costs.cpu().numpy(),
+                           "words": words.numpy(),
+                           "logp": ref[0].cpu().numpy()}
+
+
+DIST_WORKER = r"""
+import sys, time
+import numpy as np
+import torch
+
+rank, port, conf, data, kind = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                sys.argv[4], sys.argv[5])
+from catears_tpu_torch.parallel import distributed
+
+distributed.initialize(f"localhost:{port}", num_processes=2, process_id=rank)
+from catears_tpu_torch.frontend.fbank import num_frames
+from catears_tpu_torch.parallel.mesh import (ShardedPipeline,
+                                             logical_devices, make_mesh)
+from catears_tpu_torch.runtime.recognizer import Recognizer
+
+ref = np.load(data)
+dev = logical_devices(2, kind)[rank]
+rec = Recognizer(conf, device=dev)
+cfg, dfst, _ = rec._decode_graph()
+lo, hi = distributed.local_batch_slice(len(ref["lengths"]))
+pipe = ShardedPipeline(rec.am, dfst, None, cfg, make_mesh(1, devices=[dev]))
+if dev.type == "cuda":
+    torch.cuda.synchronize(dev)
+t0 = time.perf_counter()
+logp, beam, traces = pipe.full_step(
+    torch.from_numpy(ref["wave"][lo:hi]), pipe.make_beam(hi - lo),
+    torch.from_numpy(ref["lengths"][lo:hi]),
+    n_frames=num_frames(ref["wave"].shape[1]))
+states = beam.states.cpu().numpy()
+wall = time.perf_counter() - t0
+costs = beam.costs.cpu().numpy()
+assert np.array_equal(states, ref["states"][lo:hi]), "states"
+assert np.array_equal(traces.words.cpu().numpy(), ref["words"][:, lo:hi])
+fin = np.isfinite(ref["costs"][lo:hi])
+assert np.array_equal(np.isfinite(costs), fin)
+assert np.abs(costs[fin] - ref["costs"][lo:hi][fin]).max() <= 1e-3
+assert np.abs(logp.cpu().numpy() - ref["logp"][lo:hi]).max() <= 2e-4
+frames = distributed.global_sum(float(ref["lengths"][lo:hi].sum()))
+assert frames == float(ref["lengths"].sum()), frames
+print(f"rank {rank} ok slice={lo}:{hi} device={dev} step_s={wall:.3f} "
+      f"total_frames={frames:.0f}", flush=True)
+"""
+
+
+def distributed_phase(work, conf, wave, lengths, ref, card, kind="cuda"):
+    """Two processes, rank 0 and 1, in one gloo group over localhost, each
+    on its card (cuda:0 for both on a one-card machine): each decodes its
+    local_batch_slice of the parallel phase's batch through a
+    ShardedPipeline, equal to the in-process unsharded reference, and
+    global_sum gives the total frames.  Each process has a timeout."""
+    import socket
+
+    data = os.path.join(work, "dist_ref.npz")
+    np.savez(data, wave=wave, lengths=lengths, **ref)
+    script = os.path.join(work, "dist_worker.py")
+    with open(script, "w") as fd:
+        fd.write(DIST_WORKER)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, str(r), str(port),
+                               conf, data, kind], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"distributed: a rank ran past {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"rank {r} ok" not in out:
+            fail(f"distributed: rank {r} exited {p.returncode}:\n"
+                 f"{out[-3000:]}")
+    lines = [x.split(" ok ", 1)[1] for out in outs for x in out.splitlines()
+             if " ok slice=" in x]
+    phase("distributed", ranks=2, backend="gloo", results=lines,
+          wall_s=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+
+
+def dryrun_phase(card, kind="cuda"):
+    """graft_entry.dryrun_multichip(8) on the card (it holds the sharded
+    step to the unsharded one and raises otherwise), then entry()'s step
+    once."""
+    from catears_tpu_torch import graft_entry
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            graft_entry.dryrun_multichip(8, kind)
+        fn, args = graft_entry.entry(kind)
+        t1 = time.perf_counter()
+        logp, costs = fn(*args)
+        finite = bool(torch.isfinite(costs).any())
+        step = time.perf_counter() - t1
+    except Exception as e:  # noqa: BLE001 - any failure fails the phase
+        fail(f"dryrun: {type(e).__name__}: {e}")
+    if "dryrun_multichip OK" not in out.getvalue() or not finite:
+        fail(f"dryrun: {out.getvalue()!r}, finite costs {finite}")
+    phase("dryrun", result=f"'{out.getvalue().strip()}'",
+          entry_shapes=[tuple(logp.shape), tuple(costs.shape)],
+          entry_step_s=f"{step:.3f}",
+          wall_s=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+
+
+def native_phase(work, conf, scp, card):
+    """The native host library builds (its compiler output on failure);
+    each entry point equals the Python path: the smoke's 8 WAVs, the trie
+    written as a ConstFst, a random backtrace, edit distances.  Host times
+    (best of NATIVE_REPS) of load_waves native vs Python and of the trie's
+    FlatFst.read: pk::fst_0 (what Recognizer reads), ConstFst native and
+    Python."""
+    from catears_tpu_torch.graph.fst import FlatFst
+    from catears_tpu_torch.io.config import Configuration
+    from catears_tpu_torch.io.openfst import (ConstFst, read_const_fst_file,
+                                              write_const_fst)
+    from catears_tpu_torch.io.wav import read_16k_pcm, read_scp
+    from catears_tpu_torch.decode.hyp import HostTrace, backtrace
+    from catears_tpu_torch.tools.score import edit_distance
+    from catears_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    if native.load() is None:
+        fail(f"native: the library did not build:\n{native.BUILD_LOG}")
+    build_s = time.perf_counter() - t0
+
+    def best(fn):
+        times = []
+        for _ in range(NATIVE_REPS):
+            t = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t)
+        return out, min(times)
+
+    paths = [p for _, p in read_scp(scp)]
+    nat, wav_nat = best(lambda: native.load_wav_batch(paths))
+    py, wav_py = best(lambda: [read_16k_pcm(p) for p in paths])
+    wav_equal = all(a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in zip(nat, py)) and len(nat) == len(py)
+
+    pk_path = Configuration.read(conf).get_path("fst")
+    fst, pk_s = best(lambda: FlatFst.read(pk_path))
+    hclg = os.path.join(work, "trie.hclg")
+    with open(hclg, "wb") as fd:
+        write_const_fst(fd, ConstFst(
+            start=fst.start, final=fst.final,
+            arc_pos=fst.offsets[:-1].astype(np.int64),
+            arc_count=np.diff(fst.offsets).astype(np.int32),
+            arc_ilabel=fst.arc_ilabel, arc_olabel=fst.arc_olabel,
+            arc_weight=fst.arc_weight, arc_next=fst.arc_next))
+    f_nat, const_nat = best(lambda: FlatFst.read(hclg))
+    f_py, const_py = best(lambda: FlatFst.from_const_fst(
+        read_const_fst_file(hclg)))
+    fst_equal = f_nat.start == f_py.start == fst.start and all(
+        np.array_equal(getattr(f_nat, k), getattr(f_py, k))
+        and np.array_equal(getattr(f_nat, k), getattr(fst, k))
+        for k in ("final", "offsets", "arc_ilabel", "arc_olabel",
+                  "arc_weight", "arc_next"))
+
+    rng = np.random.RandomState(3)
+    t_len, k, w = 1000, 2048, 2
+    prev = rng.randint(0, k, (t_len, k)).astype(np.int32)
+    prev[0] = -1
+    words = np.where(rng.rand(t_len, k, w) < 0.05,
+                     rng.randint(1, 50000, (t_len, k, w)), 0).astype(np.int32)
+    traces = [HostTrace(prev[f], words[f]) for f in range(t_len)]
+    slots = [int(s) for s in rng.randint(0, k, 8)]
+    bt_nat = [native.backtrace(prev, words, s) for s in slots]
+    with mock.patch.object(native, "available", lambda: False):
+        bt_py = [backtrace(traces, s) for s in slots]  # the Python walk
+    bt_equal = bt_nat == bt_py and any(bt_py)
+    pairs = [(list(rng.randint(0, 30, rng.randint(0, 60))),
+              list(rng.randint(0, 30, rng.randint(0, 60))))
+             for _ in range(200)]
+    ed_equal = all(native.edit_distance(a, b) == edit_distance(a, b)[0]
+                   for a, b in pairs)
+    phase("native", build_s=f"{build_s:.2f}", wavs=len(paths),
+          wav_equal=wav_equal, load_ms_native=f"{wav_nat * 1e3:.3f}",
+          load_ms_python=f"{wav_py * 1e3:.3f}", states=fst.num_states,
+          arcs=fst.num_arcs, fst_equal=fst_equal,
+          pk_read_s=f"{pk_s:.4f}", const_read_s_native=f"{const_nat:.4f}",
+          const_read_s_python=f"{const_py:.4f}",
+          backtrace_equal=bt_equal, edit_distance_equal=ed_equal,
+          card=f"'{card}'")
+    if not (wav_equal and fst_equal and bt_equal and ed_equal):
+        fail("native: an entry point differs from the Python path")
+
+
+def synth_data(synthesizer, fbank, rng, n, frames, left, right):
+    """n synthesized utterances as train_am's (features, labels) pairs,
+    and every utterance's frame labels."""
+    from catears_tpu_torch.frontend.fbank import num_frames
+    from catears_tpu_torch.tools.synth import fbank_labels
+
+    data, labels = [], []
+    for _ in range(n):
+        s, t, _ = synthesizer.utterance(rng, frames)
+        nf = num_frames(s.shape[0])
+        lab = fbank_labels(t, nf)
+        labels.append(lab)
+        data.append((fbank.compute(s), lab[left:nf - right]))
+    return data, labels
+
+
+def first_step_loss(nnet_def, params, x, y):
+    """tools.synth.loss_fn in float64 (loss_fn itself is float32:
+    nnet_forward reads its inputs as float32): the gradients' reference."""
+    from catears_tpu_torch.am.nnet import apply_layer
+
+    for layer, p in zip(nnet_def, params):
+        x = (torch.matmul(x, p["w"]) + p["b"] if layer[0] == "linear"
+             else apply_layer(layer[0], layer, x, p))
+    return -torch.mean(torch.gather(x, 2, y[:, :, None].long())[:, :, 0])
+
+
+def synth_phase(work, tg, card, cuda=torch.device("cuda:0")):
+    """tools.synth on the card: train_am at tests/test_synth.py's size
+    meets its bars (dev accuracy > 0.5 after 800 steps, WER < 0.15 on 3
+    fresh utterances through Recognizer(device=cuda)); then at the full
+    width of scripts/realism.py (TDNN-1024 x 5 on the smoke's 50k-word
+    trie, 200 phones x 6 variants = 3600 pdfs), cut in depth to
+    SYNTH_FULL_UTTS utterances of SYNTH_FULL_S seconds and
+    SYNTH_FULL_STEPS steps: the first step's loss and gradients on cuda
+    vs cpu, steps per second and dev accuracy (no WER bar: variants are
+    built to be near-indistinguishable)."""
+    from catears_tpu_torch.am.nnet import build_nnet
+    from catears_tpu_torch.decode.beam import BeamConfig
+    from catears_tpu_torch.frontend.fbank import Fbank
+    from catears_tpu_torch.runtime.recognizer import (Recognizer,
+                                                      decode_wav_file)
+    from catears_tpu_torch.tools import synth
+    from catears_tpu_torch.tools.toy import make_toy_nnet
+
+    fbank = Fbank(device=cuda)
+    rng = np.random.RandomState(0)
+    g = make_trie_graph(rng, num_words=60, num_phones=20, variants=1,
+                        bigram_states=15, phones_per_word=(3, 5))
+    synthesizer = synth.Synthesizer(g, 20, 1, rng)
+    spec = make_toy_nnet(rng, hidden=64, num_pdfs=g.num_pdfs,
+                         num_tdnn_layers=2)
+    data, labels = synth_data(synthesizer, fbank, rng, 24, 300,
+                              spec.left_context, spec.right_context)
+    sync(cuda)
+    t0 = time.perf_counter()
+    spec2, acc = synth.train_am(spec, data, steps=SYNTH_STEPS, batch=8,
+                                device=cuda)
+    sync(cuda)
+    train_s = time.perf_counter() - t0
+    d = os.path.join(work, "synth")
+    conf, _ = synth.write_trained_model(
+        d, g, spec2, synth.empirical_prior(labels, g.num_pdfs))
+    rec = Recognizer(conf, beam_config=BeamConfig(
+        beam_size=512, expand_size=4096, eps_expand_size=2048,
+        max_eps_iters=3), device=cuda)
+    test_rng = np.random.RandomState(77)
+    errs = ref_len = 0
+    for i in range(3):
+        s, _, words = synthesizer.utterance(test_rng, 300)
+        wav = os.path.join(d, f"t{i}.wav")
+        synth.write_wav(wav, s)
+        truth = [f"word{w}" for w in words]
+        errs += token_errors(truth, decode_wav_file(rec, wav).split())
+        ref_len += len(truth)
+    wer = errs / max(1, ref_len)
+    phase("synth", size="test_synth", pdfs=g.num_pdfs, steps=SYNTH_STEPS,
+          train_s=f"{train_s:.2f}",
+          steps_per_s=f"{SYNTH_STEPS / train_s:.1f}", dev_acc=f"{acc:.4f}",
+          wer=f"{wer:.4f}", card=f"'{card}'")
+    if not (acc > 0.5 and wer < 0.15):
+        fail(f"synth: dev accuracy {acc:.4f} (bar > 0.5), WER {wer:.4f} "
+             f"(bar < 0.15)")
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1)
+    synthesizer = synth.Synthesizer(tg, 200, 6, rng, markov=True)
+    spec = make_toy_nnet(rng, hidden=HIDDEN, num_pdfs=tg.num_pdfs,
+                         num_tdnn_layers=5)
+    data, _ = synth_data(synthesizer, fbank, rng, SYNTH_FULL_UTTS,
+                         int(SYNTH_FULL_S * 100), spec.left_context,
+                         spec.right_context)
+    data_s = time.perf_counter() - t0
+    spec_bn, feats, labs, n_dev = synth.training_windows(spec, data)
+    nnet_def, params = build_nnet(spec_bn)
+    idx = np.random.RandomState(0).randint(0, feats.shape[0] - n_dev, 8)
+    runs = []
+    for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"),
+                                                torch.float32),
+                       (torch.device("cpu"), torch.float64)):
+        p = [{k: torch.tensor(v, device=dev, dtype=dtype, requires_grad=True)
+              for k, v in layer.items()} for layer in params]
+        x = torch.from_numpy(feats[n_dev:][idx]).to(dev, dtype)
+        fn = synth.loss_fn if dtype == torch.float32 else first_step_loss
+        loss = fn(nnet_def, p, x, torch.from_numpy(labs[n_dev:][idx]).to(dev))
+        loss.backward()
+        runs.append((loss.item(), [(f"{i}.{k}", v.grad.cpu().double())
+                                   for i, layer in enumerate(p)
+                                   for k, v in layer.items()]))
+    (loss_dev, g_dev), (loss_cpu, g_cpu), (loss_64, g_64) = runs
+
+    def worst(grads):
+        """max over tensors of max |g - g64| / max |g64|, and which."""
+        return max((float((g - r).abs().max() / r.abs().max()), name)
+                   for (name, g), (_, r) in zip(grads, g_64))
+    loss_err = abs(loss_dev - loss_64) / abs(loss_64)
+    loss_err_cpu = abs(loss_cpu - loss_64) / abs(loss_64)
+    (grad_err, grad_at), (grad_err_cpu, grad_at_cpu) = (worst(g_dev),
+                                                        worst(g_cpu))
+    sync(cuda)
+    t0 = time.perf_counter()
+    _, acc = synth.train_am(spec, data, steps=SYNTH_FULL_STEPS, batch=8,
+                            device=cuda)
+    sync(cuda)
+    train_s = time.perf_counter() - t0
+    phase("synth", size="realism", words=tg.num_words, pdfs=tg.num_pdfs,
+          hidden=HIDDEN, utts=SYNTH_FULL_UTTS, windows=feats.shape[0],
+          data_s=f"{data_s:.2f}", first_loss=f"{loss_64:.6f}",
+          loss_rel_err=f"{loss_err:.3e}", loss_rel_err_cpu=f"{loss_err_cpu:.3e}",
+          grad_rel_err=f"{grad_err:.3e}@{grad_at}",
+          grad_rel_err_cpu=f"{grad_err_cpu:.3e}@{grad_at_cpu}",
+          steps=SYNTH_FULL_STEPS, train_s=f"{train_s:.2f}",
+          steps_per_s=f"{SYNTH_FULL_STEPS / train_s:.1f}",
+          dev_acc=f"{acc:.4f}", card=f"'{card}'")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-4 and np.isfinite(acc)):
+        fail(f"synth: first step on cuda vs the CPU's float64: loss "
+             f"{loss_err:.3e} (bar 1e-5), gradients {grad_err:.3e} of their "
+             f"range (bar 1e-4)")
+
 
 
 def main():
@@ -1480,6 +1981,17 @@ def main():
         argmin_phase()
         bench_phase(card)
         runs.append(bench_modes(card))
+
+        # -- the last slice: multi-GPU, native host library, synth -------
+        wave, lengths, ref = parallel_phase(conf, waves, card)
+        distributed_phase(work, conf, wave, lengths, ref, card)
+        del ref
+        dryrun_phase(card)
+        bench_mode_phase("bench-scaling", "dp_sharding_efficiency_8dev",
+                         card, BENCH_MODE="scaling", BENCH_RUNS="1",
+                         BENCH_SECONDS=SCALING_SECONDS)
+        native_phase(work, conf, scp, card)
+        synth_phase(work, tg, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

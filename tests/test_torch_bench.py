@@ -8,8 +8,11 @@ BENCH_HIDDEN 64), on the CPU (BENCH_DEVICE=cpu; JAX on the CPU too):
 - the AM forward of the headline equals bench.py's jitted one within the
   AM tests' tolerances (float 1e-4; int8 1% of the range);
 - every mode's JSON line carries bench.py's keys and metric name;
-- every knob without a counterpart raises, and so does a run without a
-  card, as one `catears: ...` line.
+- every knob without a counterpart raises, and so do a run without a
+  card and a `scaling` run whose batch does not split over its 8 devices
+  (the toy batch of 2), as one `catears: ...` line;
+- `scaling` at BENCH_BATCH 8 on 8 logical CPU devices prints bench.py's
+  `dp_sharding_efficiency_8dev` line.
 Marked `slow`, at a reduced trie scale: the headline's per-utterance words,
 WER, capacity high-water marks and hyp0_words equal bench.py's run, LM off
 and on.
@@ -210,8 +213,12 @@ def test_headline_json(toy_env, capsys):
     ("streaming", {}, "streaming_audio_seconds_per_sec", MODE_KEYS),
     ("streaming", {"BENCH_STREAMS": "2"},
      "batched_streaming_audio_seconds_per_sec", MODE_KEYS),
+    ("scaling", {"BENCH_BATCH": "8", "BENCH_SECONDS": "0.5",
+                 "BENCH_BEAM": "128", "BENCH_EXPAND": "1024",
+                 "BENCH_EPS_EXPAND": "256"},
+     "dp_sharding_efficiency_8dev", MODE_KEYS),
 ], ids=["product", "am-float", "am-int8", "am-int8-dynamic", "streaming",
-        "streaming-2"])
+        "streaming-2", "scaling"])
 def test_mode_json(toy_env, capsys, mode, knobs, metric, keys):
     toy_env.setenv("BENCH_MODE", mode)
     for key, value in {**TOY_BEAM, **knobs}.items():
@@ -221,6 +228,9 @@ def test_mode_json(toy_env, capsys, mode, knobs, metric, keys):
     assert set(record) == keys
     assert record["metric"] == metric and record["value"] > 0
     assert record.get("wer", 0.0) <= 0.25
+    if mode == "scaling":
+        assert record["unit"] == "ratio"
+        assert "BENCH_GRAPH" not in os.environ  # its defaults end with it
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -229,6 +239,8 @@ def test_mode_json(toy_env, capsys, mode, knobs, metric, keys):
     ("BENCH_HOT_ROWS", "1000"), ("BENCH_MODE", "scaling"),
     ("BENCH_DEVICE", "tpu")])
 def test_refused_knobs_raise(toy_env, capsys, knob, value):
+    """A knob without a counterpart raises; so does `scaling` on the toy
+    batch of 2, which 8 devices cannot split."""
     toy_env.setenv(knob, value)
     with pytest.raises(CatEarsError) as err:
         tbench.run()
@@ -242,7 +254,8 @@ def test_select_compact_zero_is_accepted(toy_env):
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
-@pytest.mark.parametrize("mode", ["", "product", "streaming", "am"])
+@pytest.mark.parametrize("mode", ["", "product", "streaming", "am",
+                                  "scaling"])
 def test_without_a_card_raises(toy_env, mode):
     toy_env.delenv("BENCH_DEVICE")
     toy_env.setenv("BENCH_MODE", mode)

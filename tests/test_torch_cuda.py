@@ -13,7 +13,8 @@ on cuda, dynamic or calibrated, must be within 1% of the output range of
 the same AM on the CPU; the delta-LM tables and walk on cuda must equal the
 CPU's (states, bit-equal weights); the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
-costs.
+costs.  The sharded pipeline over logical shards of the card must equal the
+same mesh on the CPU, and tools.synth's loss and gradients the CPU's.
 """
 
 import os
@@ -398,3 +399,81 @@ def test_fused_streaming_session_cuda_vs_cpu(cuda, toy_quant_conf):
     assert out[1][2] == linears and out[0][2] == 0
     assert torch.allclose(out[0][0], out[1][0], atol=1e-3)
     assert out[0][1:2] + out[0][3:] == out[1][1:2] + out[1][3:]
+
+
+def test_sharded_pipeline_cuda_vs_cpu(cuda):
+    """ShardedPipeline over 4 logical shards of the card (2 x 2) equals the
+    same pipeline on 4 logical CPU devices: states and words equal, costs
+    within 1e-3, log-probs within 2e-4 (tests/test_parallel.py's bars)."""
+    from catears_tpu_torch.am.nnet import build_nnet
+    from catears_tpu_torch.parallel.mesh import (ShardedPipeline,
+                                                 logical_devices, make_mesh)
+    from catears_tpu_torch.tools.toy import make_toy_nnet
+
+    rng = np.random.RandomState(0)
+    graph = make_phone_loop_graph(rng, num_words=6, num_pdfs=32)
+    nnet = make_toy_nnet(rng, hidden=64, num_pdfs=32)
+    nnet_def, params = build_nnet(nnet)
+    fst = FlatFst.from_raw(graph.fst)
+    cfg = BeamConfig(beam_size=64, expand_size=512, eps_expand_size=256,
+                     max_eps_iters=3)
+    wave = torch.from_numpy((np.random.RandomState(1).randn(8, 4000)
+                             * 1000).astype(np.float32))
+    lengths = torch.tensor([23, 12, 20, 23, 5, 17, 23, 9])
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        am = AcousticModel(nnet_def, params, np.log(np.full(32, 1 / 32)),
+                           graph.tid2pdf, nnet.left_context,
+                           nnet.right_context, 8, 32, device=dev)
+        dfst = tdevice.DeviceFst.build(fst, graph.tid2pdf, device=dev)
+        pipe = ShardedPipeline(am, dfst, None, cfg, make_mesh(
+            4, 2, devices=logical_devices(4, dev)))
+        outs.append(pipe.full_step(wave, pipe.make_beam(8), lengths,
+                                   n_frames=23))
+    (logp, beam, traces), (logp_c, beam_c, traces_c) = outs
+    assert logp.device.type == "cuda"
+    assert (logp.cpu() - logp_c).abs().max() <= 2e-4
+    assert torch.equal(beam.states.cpu(), beam_c.states)
+    assert torch.equal(traces.words.cpu(), traces_c.words)
+    fin = torch.isfinite(beam_c.costs)
+    assert (beam.costs.cpu()[fin] - beam_c.costs[fin]).abs().max() <= 1e-3
+
+
+def test_train_am_first_step_cuda_vs_cpu(cuda):
+    """tools.synth's loss and gradients at one fixed batch on the card
+    against the same step on the CPU in float64: loss within 1e-5
+    relative, each gradient within 1e-4 of its range."""
+    from catears_tpu_torch.am.nnet import apply_layer, build_nnet
+    from catears_tpu_torch.tools import synth
+    from catears_tpu_torch.tools.toy import make_toy_nnet
+
+    rng = np.random.RandomState(3)
+    spec = make_toy_nnet(rng, hidden=256, num_pdfs=300, num_tdnn_layers=3)
+    span = 128 + spec.left_context + spec.right_context
+    data = [((rng.randn(600, 40) * 3 + 20).astype(np.float32),
+             rng.randint(0, 300, 600 - span + 128).astype(np.int32))]
+    spec, feats, labs, n_dev = synth.training_windows(spec, data)
+    nnet_def, params = build_nnet(spec)
+
+    def loss64(p, x, y):
+        for layer, q in zip(nnet_def, p):
+            x = (torch.matmul(x, q["w"]) + q["b"] if layer[0] == "linear"
+                 else apply_layer(layer[0], layer, x, q))
+        return -torch.mean(torch.gather(x, 2, y[:, :, None].long())[..., 0])
+
+    got = []
+    for dev, dtype in ((cuda, torch.float32),
+                       (torch.device("cpu"), torch.float64)):
+        p = [{k: torch.tensor(v, device=dev, dtype=dtype, requires_grad=True)
+              for k, v in layer.items()} for layer in params]
+        x = torch.from_numpy(feats).to(dev, dtype)
+        y = torch.from_numpy(labs).to(dev)
+        loss = (synth.loss_fn(nnet_def, p, x, y) if dtype == torch.float32
+                else loss64(p, x, y))
+        loss.backward()
+        got.append((loss.item(), [v.grad.cpu().double() for layer in p
+                                  for v in layer.values()]))
+    (loss, grads), (loss_ref, grads_ref) = got
+    assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref)
+    for a, b in zip(grads, grads_ref):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()

@@ -1,9 +1,9 @@
 """The port's public host API vs the JAX package's.
 
 The root and every subpackage of `catears_tpu_torch` export the names its
-counterpart in `catears_tpu` exports, at the same paths, all but
-`catears_tpu.parallel`'s (EXCLUDED: the multi-GPU port is still queued).
-Importing them touches no card and builds no kernel.  The functions this
+counterpart in `catears_tpu` exports, at the same paths (EXCLUDED is
+empty: `parallel` is ported).  Importing them touches no card and builds
+no kernel.  The functions this
 API added to the port are held to JAX's: `am.nnet.nnet_forward` (float32
 within 1e-4, the float AM's tolerance; equal to the port's `Nnet` exactly)
 and `decode.oracle.OracleDecoder` (words and weights equal: both are the
@@ -37,9 +37,9 @@ from catears_tpu_torch.tools.toy import make_toy_nnet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Subpackages of catears_tpu whose names the port does not export yet.
-EXCLUDED = ("parallel",)
-PACKAGES = ("", "am", "decode", "frontend", "graph", "io", "runtime",
-            "utils")
+EXCLUDED = ()
+PACKAGES = ("", "am", "decode", "frontend", "graph", "io", "parallel",
+            "runtime", "utils")
 
 
 def _public(module):
@@ -90,6 +90,8 @@ IMPORTS = [
     "from catears_tpu_torch.am import AcousticModel, nnet_forward",
     "from catears_tpu_torch.frontend import Fbank, OnlineCMVN",
     "from catears_tpu_torch.graph import FlatFst, DeltaLmFst, LmFst",
+    "from catears_tpu_torch.parallel import ShardedPipeline, make_mesh",
+    "from catears_tpu_torch.parallel import initialize, global_sum",
 ]
 
 
@@ -114,7 +116,11 @@ def test_import_touches_no_card_and_builds_nothing():
         "    importlib.import_module('catears_tpu_torch' + "
         "('.' + sub if sub else ''))\n"
         "import catears_tpu_torch.bench, catears_tpu_torch.kernels as k\n"
+        "import catears_tpu_torch.parallel.mesh, catears_tpu_torch.graft_entry\n"
+        "import catears_tpu_torch.tools.synth\n"
+        "import catears_tpu_torch.utils.native as native\n"
         "assert not torch.cuda.is_initialized()\n"
+        "assert native._LIB is None and not native._TRIED\n"
         "assert k._libs is None and not k.BUILD_LOG\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
@@ -148,6 +154,22 @@ def test_nnet_forward_matches_jax_and_nnet(batched):
     assert torch.equal(got_np, module) and torch.equal(got_t, module)
     want = ref if batched else ref[0]
     np.testing.assert_allclose(got_np.numpy(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+def test_output_dim_and_rows_consumed_match_jax(layers):
+    """am.nnet.output_dim and rows_consumed, on the port's build of a toy
+    TDNN and on JAX's."""
+    spec = make_toy_nnet(np.random.RandomState(6), hidden=24, num_pdfs=17,
+                         num_tdnn_layers=layers)
+    nnet_def, params = tnn.build_nnet(spec)
+    jdef, jparams = jnn.build_nnet(jmake_toy_nnet(
+        np.random.RandomState(6), hidden=24, num_pdfs=17,
+        num_tdnn_layers=layers))
+    assert tnn.output_dim(nnet_def, params, 40) == jnn.output_dim(
+        jdef, jparams, 40) == 17
+    assert tnn.rows_consumed(nnet_def) == jnn.rows_consumed(jdef) == (
+        spec.left_context, spec.right_context)
 
 
 def _oracles(seed, beam, with_lm, data_dir):

@@ -106,6 +106,23 @@ def test_make_big_lm_byte_identical(tmp_path, num_words, num_trigrams):
         tb.bos_id, tb.eos_id, tb.num_states, tb.num_arcs)
 
 
+@pytest.mark.parametrize("num_words", [6, 40])
+def test_make_toy_lm_byte_identical(tmp_path, num_words):
+    """tools.toy.make_toy_lm (the toy backoff bigram G' and its unigram
+    vector): the same FST and costs from the same seed, written byte for
+    byte alike."""
+    written = []
+    for pkg, binfmt in ((jtoy, jbinfmt), (ttoy, tbinfmt)):
+        raw, small = pkg.make_toy_lm(np.random.RandomState(4), num_words,
+                                     num_words + 1, num_words + 2)
+        path = tmp_path / f"{pkg.__name__}.bin"
+        with open(path, "wb") as fd:
+            binfmt.write_pkfst(fd, raw)
+            binfmt.write_vec0(fd, small)
+        written.append(path.read_bytes())
+    assert written[0] == written[1]
+
+
 def test_trie_graph_and_planted_frames_equal():
     kw = dict(num_words=150, num_phones=25, bigram_states=30, variants=2)
     jrng, trng = np.random.RandomState(1), np.random.RandomState(1)
