@@ -37,9 +37,9 @@ takes `device`, runs on the card by default and raises `CatEarsError`
 without one (`utils/device.py`); the CPU runs only when asked for.
 
 The root and each subpackage re-export the JAX package's public names at
-the same paths (`from catears_tpu_torch.runtime import Recognizer`), all
-but `catears_tpu.parallel`'s, which is not ported yet.  Importing them
-touches no card and builds no kernel.  `python -m catears_tpu_torch.bench`
+the same paths (`from catears_tpu_torch.runtime import Recognizer`;
+`parallel`'s lazily).  Importing them touches no card and builds no
+kernel.  `python -m catears_tpu_torch.bench`
 is the port's benchmark, with `bench.py`'s knobs and output.
 """
 

@@ -37,9 +37,13 @@ time and their median, and the card's name and power limit.
 
 It runs on the card and fails with a one-line `catears: ...` error without
 one; BENCH_DEVICE=cpu runs it on the CPU (for the tests), the counterpart
-of JAX_PLATFORMS=cpu.  Knobs of bench.py whose code is not ported raise:
-BENCH_REORDER, BENCH_COLD, BENCH_HOT_ROWS and a non-zero
-BENCH_SELECT_COMPACT.  JAX_CACHE_DIR is ignored.
+of JAX_PLATFORMS=cpu.  The decode variants take bench.py's knobs:
+BENCH_REORDER=bfs|freq|hot renumbers the trie's states (freq and hot from
+the visit counts of a calibration decode, `_calibrate_counts`), hot with
+the hot/cold emit split (BENCH_HOT_ROWS hot states, default 175,000;
+BENCH_COLD cold lanes, default 1024), and BENCH_SELECT_COMPACT compacts
+the selection.  A BENCH_REORDER value bench.py does not know raises.
+JAX_CACHE_DIR is ignored.
 
 Regression bound (PERF.md, section 2): compare a change with its parent in
 one call on one card, in turns.  A median run time more than 10% above the
@@ -62,23 +66,16 @@ import torch
 from catears_tpu_torch.utils.device import resolve_device
 from catears_tpu_torch.utils.errors import CatEarsError
 
-# bench.py knobs whose code the port leaves out (ROADMAP, "Not carried
-# over"): the state renumberings, the hot/cold emit split, select_compact.
-REFUSED_KNOBS = {
-    "BENCH_REORDER": "the decode-locality renumberings are not ported",
-    "BENCH_COLD": "the hot/cold emit split is not ported",
-    "BENCH_HOT_ROWS": "the hot/cold emit split is not ported",
-}
+REORDERS = ("", "bfs", "freq", "hot")  # BENCH_REORDER's values
 
 
 def check_knobs() -> None:
-    """Raise CatEarsError for a bench.py knob that has no counterpart."""
-    for knob, reason in REFUSED_KNOBS.items():
-        if os.environ.get(knob, ""):
-            raise CatEarsError(f"{knob} is not supported: {reason}")
-    if int(os.environ.get("BENCH_SELECT_COMPACT", 0) or 0):
-        raise CatEarsError("BENCH_SELECT_COMPACT is not supported: "
-                           "select_compact is not ported")
+    """Raise CatEarsError for a knob value that has no counterpart in
+    bench.py (which ignores an unknown BENCH_REORDER)."""
+    reorder = os.environ.get("BENCH_REORDER", "")
+    if reorder not in REORDERS:
+        raise CatEarsError(f"BENCH_REORDER={reorder}: expected one of "
+                           f"{', '.join(REORDERS[1:])}")
 
 
 def bench_device() -> torch.device:
@@ -128,8 +125,9 @@ def build_bench_setup(batch: int, seconds: float, seed: int = 0,
     (None for BENCH_GRAPH=loop).
 
     BENCH_GRAPH=trie (default): the mkgraph-shaped 50k-word prefix-trie
-    HCLG with planted pseudo-likelihoods that walk real graph paths;
-    `loop`: the 2k-word phone loop decoding raw noise.
+    HCLG with planted pseudo-likelihoods that walk real graph paths, its
+    states renumbered by BENCH_REORDER; `loop`: the 2k-word phone loop
+    decoding raw noise.
     """
     from catears_tpu_torch.am.model import AcousticModel
     from catears_tpu_torch.am.nnet import build_nnet
@@ -148,6 +146,7 @@ def build_bench_setup(batch: int, seconds: float, seed: int = 0,
     hidden = int(os.environ.get("BENCH_HIDDEN", 1024))
     samples = int(seconds * 16000)
     planted = true_words = None
+    hot_rows = 0
     if kind == "trie":
         from catears_tpu_torch.tools.biggraph import (make_trie_graph,
                                                       plant_logp)
@@ -159,6 +158,7 @@ def build_bench_setup(batch: int, seconds: float, seed: int = 0,
         # bench.py's geometry: block G=2, CSR rows of 16 arcs, beam 2048,
         # expand sized from the measured high-water mark.
         group, beam, expand, eps_expand = 2, 2048, 32768, 1024
+        fst, hot_rows = _reorder(fst, tid2pdf, planted, device)
     else:
         num_pdfs = int(os.environ.get("BENCH_PDFS", 4096))
         num_words = int(os.environ.get("BENCH_WORDS", 2000))
@@ -187,7 +187,7 @@ def build_bench_setup(batch: int, seconds: float, seed: int = 0,
                            csr_group=int(os.environ.get("BENCH_CSR_GROUP",
                                                         csr_default)) or None,
                            eps_depth_cap=1 if mode != "raw" else None,
-                           olabel2=olab2, device=device)
+                           olabel2=olab2, hot_rows=hot_rows, device=device)
     dlm = None
     if os.environ.get("BENCH_LM") == "1":
         from catears_tpu_torch.tools.biggraph import make_big_lm
@@ -200,12 +200,76 @@ def build_bench_setup(batch: int, seconds: float, seed: int = 0,
         expand_size=int(os.environ.get("BENCH_EXPAND", expand)),
         eps_expand_size=int(os.environ.get("BENCH_EPS_EXPAND", eps_expand)),
         lm_expand_size=int(os.environ.get("BENCH_LM_EXPAND", 0)),
+        select_compact=int(os.environ.get("BENCH_SELECT_COMPACT", 0)),
+        # The hot/cold split's cold lanes (BENCH_REORDER=hot); size from
+        # hiwater slot 4.
+        cold_expand_size=int(os.environ.get(
+            "BENCH_COLD", 1024 if hot_rows else 0)),
         max_eps_iters=3,
         beam=16.0,
     )
     wave = (rng.randn(batch, samples) * 1000).astype(np.float32)
     return (am, fst, dfst, dlm, cfg, torch.from_numpy(wave).to(device),
             planted, true_words)
+
+
+def _reorder(fst, tid2pdf, planted, device):
+    """(fst, hot_rows) after BENCH_REORDER, as bench.py applies it to the
+    trie: bfs, freq (visit counts, BFS order on ties) or hot (the
+    BENCH_HOT_ROWS most visited states first, for the hot/cold split)."""
+    from catears_tpu_torch.graph.transform import (bfs_order,
+                                                   frequency_order,
+                                                   hot_order,
+                                                   renumber_states)
+
+    reorder = os.environ.get("BENCH_REORDER", "")
+    if reorder == "bfs":
+        t0 = time.time()
+        fst = renumber_states(fst, bfs_order(fst))
+        print(f"# reorder=bfs in {time.time() - t0:.0f}s", file=sys.stderr)
+    elif reorder == "freq":
+        counts = _calibrate_counts(fst, tid2pdf, planted, device)
+        fst = renumber_states(
+            fst, frequency_order(counts, tie_break=bfs_order(fst)))
+    elif reorder == "hot":
+        hot_rows = int(os.environ.get("BENCH_HOT_ROWS", 175_000))
+        counts = _calibrate_counts(fst, tid2pdf, planted, device)
+        return renumber_states(fst, hot_order(counts, hot_rows)), hot_rows
+    return fst, 0
+
+
+def _calibrate_counts(fst, tid2pdf, planted, device) -> np.ndarray:
+    """Per-state beam-visit counts [S] from a short calibration decode
+    (bench.py's): up to 4 planted utterances x 300 frames on the original
+    layout, the beam's states counted after every 20-frame chunk."""
+    from catears_tpu_torch.decode.beam import (BeamConfig, decode_chunk,
+                                               init_beam_batch)
+    from catears_tpu_torch.graph.device import DeviceFst
+    from catears_tpu_torch.graph.transform import prepare_decode_graph
+
+    t0 = time.time()
+    dec_fst, olab2, mode = prepare_decode_graph(fst)
+    dfst = DeviceFst.build(dec_fst, tid2pdf, group=2, csr_group=16,
+                           eps_depth_cap=1 if mode != "raw" else None,
+                           olabel2=olab2, device=device)
+    cfg = BeamConfig(beam_size=2048, expand_size=32768,
+                     eps_expand_size=1024, max_eps_iters=3)
+    b = min(4, planted.shape[0])
+    frames = min(300, planted.shape[1])
+    lp = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        planted[:b, :frames], (1, 0, 2)))).to(device)
+    beam, _ = init_beam_batch(cfg, b, dfst)
+    counts = np.zeros(fst.num_states, np.int64)
+    chunk = 20
+    for off in range(0, frames, chunk):
+        part = lp[off:off + chunk]
+        beam, _tr = decode_chunk(cfg, dfst, beam, part, torch.ones(
+            part.shape[:2], dtype=torch.bool, device=device))
+        s = beam.states.cpu().numpy().ravel()
+        counts += np.bincount(s[s >= 0], minlength=fst.num_states)
+    print(f"# calibration: {int((counts > 0).sum())} states visited "
+          f"({time.time() - t0:.0f}s)", file=sys.stderr)
+    return counts
 
 
 def am_forward(am, wave: torch.Tensor, t_frames: int) -> torch.Tensor:
@@ -311,9 +375,9 @@ def measure_headline(setup, cfg, dlm, tag: str, batch: int, seconds: float,
     assert np.isfinite(costs).any(), "beam died"
     hw = tuple(int(x) for x in hiwater.max(axis=0))  # slots actually needed
     assert not overflow.any(), (
-        f"capacity overflowed: needed (emit_over, eps, lm, select) <= "
-        f"{hw}; raise BENCH_EXPAND/BENCH_EPS_EXPAND/BENCH_LM_EXPAND "
-        f"respectively")
+        f"capacity overflowed: needed (emit_over, eps, lm, select, cold) "
+        f"<= {hw}; raise BENCH_EXPAND/BENCH_EPS_EXPAND/BENCH_LM_EXPAND/"
+        f"BENCH_SELECT_COMPACT/BENCH_COLD respectively")
     wer = None if true_words is None else _wer(true_words, hyps)
     runs = int(os.environ.get("BENCH_RUNS", 3))
     times = []

@@ -14,8 +14,8 @@ Usage: python -m catears_tpu_torch.cli [--batch[=N]] [--device=cuda|cpu]
 
 The config may name a delta-LM (`large_lm` + `original_lm`) and online CMVN
 stats (`cmvn_stats`), on either path, and a graph of any epsilon mode, as
-the JAX CLI's may.  `select_compact` fails with a one-line `catears:`
-error.
+the JAX CLI's may, and every decoder geometry key the JAX Recognizer
+reads, `select_compact` included.
 """
 
 from __future__ import annotations

@@ -14,6 +14,14 @@ backpointers, words, overflow flags and high-water marks are identical:
           then, unless the graph is eps-removed, the epsilon closure;
           padded and dead frames keep the previous beam.
 
+The exact variants of the frame, as in JAX: `select_compact` (the frame's
+one selection compacts the beam-threshold survivors of its dedup sort
+before the top-K, `_select_compacted`) and the hot/cold emit split (tokens
+on states below DeviceFst.hot_rows read the small emit_hot table, the
+others are compacted into cold_expand_size lanes that read emit_block,
+`_hot_cold_rows`).  Both overflow loudly: the sticky flag and hiwater
+slots 3 and 4.
+
 The three graph modes of graph.transform.prepare_decode_graph:
 * eps-removed: `_eps_free_step`, one selection per frame;
 * a static epsilon depth (closed graphs, depth 1; raw graphs of depth <=
@@ -57,6 +65,7 @@ import numpy as np
 import torch
 
 from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
+                                            compact_mask,
                                             lm_propagate_capped)
 
 INF = float("inf")
@@ -66,8 +75,8 @@ I32 = torch.int32
 
 @dataclass(frozen=True)
 class BeamConfig:
-    """Static decoder geometry (the JAX fields and defaults that the port
-    reads; `select_compact` and the hot/cold split are not ported)."""
+    """Static decoder geometry (the JAX BeamConfig's fields and
+    defaults)."""
 
     beam_size: int = 4096  # K: max active tokens
     expand_size: int = 8192  # emitting-arc CSR overflow capacity
@@ -76,6 +85,16 @@ class BeamConfig:
     # compacted into this many slots before the walk; 0 walks every lane.
     # Truncation sets the overflow flag (hiwater slot 2).
     lm_expand_size: int = 0
+    # > 0: the frame's selection compacts the post-dedup beam-threshold
+    # survivors into max(select_compact, beam_size) lanes before the top-K
+    # (exact; more survivors set the overflow flag, hiwater slot 3, which
+    # reports the demand even at 0).  0: the classic full-width sorts.
+    select_compact: int = 0
+    # The hot/cold emit split (DeviceFst.hot_rows > 0): tokens on cold
+    # states are compacted into this many lanes before the emit_block
+    # gather (exact; more cold tokens set the overflow flag, hiwater slot
+    # 4).  0: one gather of emit_block.
+    cold_expand_size: int = 0
     max_eps_iters: int = 6  # closure round bound
     beam: float = 16.0  # beam width
     am_scale: float = 0.1  # acoustic scale
@@ -125,6 +144,10 @@ class Cands(NamedTuple):
     bp: Optional[torch.Tensor]
     overflow: torch.Tensor  # bool [B]
     needed: torch.Tensor  # i32 [B] arc slots this expansion wanted
+    # The hot/cold split's cold-token truncation flag and demand [B] (the
+    # emitting pass; None without the split and on the CSR passes).
+    cold_over: Optional[torch.Tensor] = None
+    cold_needed: Optional[torch.Tensor] = None
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -172,16 +195,10 @@ def _ordered_i64(c: torch.Tensor) -> torch.Tensor:
     return ordered.to(torch.int64) + 2**31
 
 
-def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
-                  report_demand: bool = False):
-    """Exact dedup by (state, lm) (min cost, earliest wins ties) + top-K by
-    cost; lms None means LM off (dedup by state, lms out all 0).
-
-    Returns ((states, lms, costs, *payload_columns) at the kept K slots,
-    demand [B]): demand = post-dedup beam-threshold survivor count when
-    report_demand is set, else 0.
-    """
-    k = cfg.beam_size
+def _dedup_sort(states, lms, costs):
+    """The stable (state[, lm], cost, index) sort of [B, N] candidates and
+    its dedup mask: (s_iota, s_states, s_costs, first), `first` marking the
+    cheapest entry of each (state, lm) group."""
     if lms is None:
         key = states.to(torch.int64) * 2**32 + _ordered_i64(costs)
         s_iota = torch.sort(key, dim=1, stable=True).indices
@@ -199,6 +216,89 @@ def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
     if lms is not None:
         s_lms = _take(lms, s_iota)
         first[:, 1:] |= s_lms[:, 1:] != s_lms[:, :-1]
+    return s_iota, s_states, s_costs, first
+
+
+def _select_out(states, lms, costs_k, iota_k, payloads):
+    """The kept K slots: (states, lms, costs, *payload_columns) gathered at
+    iota_k, empty (state -1, lm 0, cost +inf) where costs_k is not finite
+    (the payload columns are not masked, as in JAX)."""
+    valid = torch.isfinite(costs_k)
+    return (
+        torch.where(valid, _take(states, iota_k), -1),
+        (torch.zeros_like(iota_k, dtype=I32) if lms is None
+         else torch.where(valid, _take(lms, iota_k), 0)),
+        torch.where(valid, costs_k, INF),
+    ) + tuple(_take(p, iota_k) for p in payloads)
+
+
+def _select_best(cfg: BeamConfig, states, lms, costs, payloads,
+                 compact: bool = False):
+    """Dedup by (state, lm) keeping the minimum cost, then exact top-K by
+    cost.  Returns ((states, lms, costs, *payload_columns), overflow [B] or
+    None (the classic sorts, which cannot truncate), demand [B]).
+
+    compact=True only where the caller applies the beam threshold to the
+    selected beam at once (the emitting and eps-free steps; the closure
+    merges keep beam entries unconditionally).  There it reports the
+    survivor demand, and with cfg.select_compact set and narrower than the
+    candidates it runs `_select_compacted`; otherwise the classic sorts.
+    """
+    n = states.shape[1]
+    c2 = max(cfg.select_compact, cfg.beam_size) if cfg.select_compact else 0
+    if compact and 0 < c2 < n:
+        return _select_compacted(cfg, c2, states, lms, costs, payloads)
+    out, demand = _select_sorts(cfg, states, lms, costs, payloads,
+                                report_demand=compact)
+    return out, None, demand
+
+
+def _select_compacted(cfg: BeamConfig, c2: int, states, lms, costs,
+                      payloads):
+    """The dedup sort, then the survivors compacted into c2 lanes before
+    the prune.
+
+    Only a candidate that wins its (state, lm) group and meets the beam
+    threshold cost <= min + beam can reach the beam (the caller applies
+    that threshold next, and dedup keeps each group's minimum), so those
+    are compacted in dedup-sort order.  c2 > K: a stable sort by cost of
+    the c2 lanes (ties by dedup position, the classic key), then the first
+    K.  c2 == K: no second sort; the beam comes back in dedup (state)
+    order, which is why the callers take min(costs), not costs[:, 0].
+    More survivors than c2 set the overflow flag; demand = survivors.
+    """
+    k = cfg.beam_size
+    s_iota, s_states, s_costs, first = _dedup_sort(states, lms, costs)
+    mn = torch.amin(costs, dim=1, keepdim=True)
+    # isfinite guards a dead beam, where INF <= INF + beam would keep
+    # every live lane.
+    keep = (first & (s_states < SENTINEL_STATE) & torch.isfinite(s_costs)
+            & (s_costs <= mn + cfg.beam))
+    (c_cost, c_iota), c_valid, total, _src = compact_mask(
+        keep, [s_costs, s_iota], c2)
+    c_cost = torch.where(c_valid, c_cost, INF)
+    if c2 > k:
+        order = torch.sort(_sort_key_f32(c_cost), dim=1,
+                           stable=True).indices[:, :k]
+        sel_cost, sel_iota = _take(c_cost, order), _take(c_iota, order)
+    else:
+        sel_cost, sel_iota = c_cost, c_iota
+    sel_iota = torch.where(torch.isfinite(sel_cost), sel_iota, 0)
+    return (_select_out(states, lms, sel_cost, sel_iota, payloads),
+            total > c2, total)
+
+
+def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
+                  report_demand: bool = False):
+    """Exact dedup by (state, lm) (min cost, earliest wins ties) + top-K by
+    cost; lms None means LM off (dedup by state, lms out all 0).
+
+    Returns ((states, lms, costs, *payload_columns) at the kept K slots,
+    demand [B]): demand = post-dedup beam-threshold survivor count when
+    report_demand is set, else 0.
+    """
+    k = cfg.beam_size
+    s_iota, s_states, s_costs, first = _dedup_sort(states, lms, costs)
     eff_cost = torch.where(first & (s_states < SENTINEL_STATE), s_costs,
                            torch.full_like(s_costs, INF))
     if report_demand:
@@ -210,16 +310,8 @@ def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
                              device=states.device)
     order = torch.sort(_sort_key_f32(eff_cost), dim=1,
                        stable=True).indices[:, :k]
-    top_costs = _take(eff_cost, order)
-    top_iota = _take(s_iota, order)
-    valid = torch.isfinite(top_costs)
-    out = (
-        torch.where(valid, _take(states, top_iota), -1),
-        (torch.zeros_like(top_iota, dtype=I32) if lms is None
-         else torch.where(valid, _take(lms, top_iota), 0)),
-        torch.where(valid, top_costs, INF),
-    ) + tuple(_take(p, top_iota) for p in payloads)
-    return out, demand
+    return (_select_out(states, lms, _take(eff_cost, order),
+                        _take(s_iota, order), payloads), demand)
 
 
 def _expand_csr(table: torch.Tensor, g: int, capacity: int, row_lo, n_arcs,
@@ -299,12 +391,38 @@ def _expand_eps_carried(dfst: DeviceFst, beam: BeamState, capacity: int,
                        beam.costs, beam.lm, beam.bp, need_lm, True, need_eps)
 
 
+def _hot_cold_rows(cfg: BeamConfig, dfst: DeviceFst, state_c: torch.Tensor,
+                   valid_tok: torch.Tensor):
+    """The classic emit rows [B, K, lanes] of the hot/cold split: tokens on
+    states below dfst.hot_rows (and empty slots) read emit_hot; the cold
+    tokens are compacted, in slot order, into min(cold_expand_size, K)
+    lanes that read emit_block and are placed back in their slots.  Cold
+    tokens past those lanes keep emit_hot's row 0 (a wrong row, flagged).
+    Returns (rows, cold_over [B], cold_needed [B])."""
+    b, k = state_c.shape
+    cap = min(cfg.cold_expand_size, k)
+    is_hot = state_c < dfst.hot_rows
+    eb = dfst.emit_hot[torch.where(is_hot, state_c, 0).long()]
+    cold_mask = valid_tok & ~is_hot
+    cold_needed = torch.sum(cold_mask, dim=1, dtype=I32)
+    (cold_states,), cold_ok, _total, lane = compact_mask(cold_mask,
+                                                         [state_c], cap)
+    rows = dfst.emit_block[torch.where(cold_ok, cold_states, 0).long()]
+    # Empty compact lanes write to a spare slot that is cut off (JAX's
+    # mode="drop"); the filled ones hold distinct slots.
+    lane = torch.where(cold_ok, lane, k)[..., None].expand(-1, -1,
+                                                           eb.shape[2])
+    eb = torch.cat([eb, eb[:, :1]], dim=1).scatter(1, lane, rows)[:, :k]
+    return eb, cold_needed > cap, cold_needed
+
+
 def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
             emitting: bool, need_lm: bool, need_bp: bool,
             need_eps: bool = False) -> Cands:
     """Expand the beam's arcs: for emitting arcs the extracted self-loop and
-    the first-G block (one row gather per token) + the CSR overflow pass;
-    for epsilon arcs the state_packed-driven CSR pass."""
+    the first-G block (one row gather per token, or the hot/cold split's
+    two) + the CSR overflow pass; for epsilon arcs the state_packed-driven
+    CSR pass."""
     k = cfg.beam_size
     g = dfst.group
     b = beam.states.shape[0]
@@ -318,8 +436,9 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
                            sp[..., 0], n_eps, beam.costs, beam.lm, beam.bp,
                            need_lm, need_bp, need_eps)
 
-    eb = dfst.emit_block[state_c.long()]  # [B, K, lanes] row gather
+    cold_over = cold_needed = None
     if dfst.emit_compact:
+        eb = dfst.emit_block[state_c.long()]  # [B, K, 9] row gather
         blk_next = torch.stack([eb[..., 0] & 0xFFFFF, eb[..., 2] & 0xFFFFF],
                                -1)
         blk_pdf = torch.stack([_srl(eb[..., 0], 20), _srl(eb[..., 2], 20)],
@@ -335,6 +454,11 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         over_lo = eb[..., 8]
         eps_meta_self = torch.zeros_like(state_c)  # compact => eps_removed
     else:
+        if dfst.hot_rows and cfg.cold_expand_size > 0:
+            eb, cold_over, cold_needed = _hot_cold_rows(cfg, dfst, state_c,
+                                                        valid_tok)
+        else:
+            eb = dfst.emit_block[state_c.long()]  # [B, K, G*5 + 8]
         lanes_a = DeviceFst.ARC_LANES
         sp = eb[..., g * lanes_a:g * lanes_a + 4]
         sf = eb[..., g * lanes_a + 4:]
@@ -383,6 +507,8 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         bp=cat(beam.bp, repk(beam.bp)) if need_bp else None,
         overflow=torch.zeros(b, dtype=torch.bool, device=dev),
         needed=torch.zeros(b, dtype=I32, device=dev),
+        cold_over=cold_over,
+        cold_needed=cold_needed,
     )
     # CSR overflow pass for states with fanout > G (skipped when every
     # state's fanout fits the block).
@@ -407,6 +533,8 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         bp=cat_opt(pass_sa.bp, pass_b.bp),
         overflow=pass_b.overflow,
         needed=pass_b.needed,
+        cold_over=cold_over,
+        cold_needed=cold_needed,
     )
 
 
@@ -423,6 +551,21 @@ def _max_at(hiwater: torch.Tensor, slot: int, value: torch.Tensor):
     out = hiwater.clone()
     out[:, slot] = torch.maximum(out[:, slot], value.to(I32))
     return out
+
+
+def _or(flag: torch.Tensor, other: Optional[torch.Tensor]) -> torch.Tensor:
+    return flag if other is None else flag | other
+
+
+def _emit_telemetry(beam: BeamState, c: Cands):
+    """(overflow, hiwater) after an emitting expansion: its CSR overflow
+    (slot 0) and, with the hot/cold split, its cold tokens (slot 4)."""
+    overflow = beam.overflow | c.overflow
+    hiwater = _max_at(beam.hiwater, 0, c.needed)
+    if c.cold_over is not None:
+        overflow = overflow | c.cold_over
+        hiwater = _max_at(hiwater, 4, c.cold_needed)
+    return overflow, hiwater
 
 
 def _lm(cfg: BeamConfig, dlm: DeviceLm, lm: torch.Tensor,
@@ -453,8 +596,7 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
                 need_lm=dlm is not None, need_bp=False, need_eps=True)
     olab2 = c.eps  # lane 4 = composed second olabel in eps_removed mode
     cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
-    overflow = beam.overflow | c.overflow
-    hiwater = _max_at(beam.hiwater, 0, c.needed)
+    overflow, hiwater = _emit_telemetry(beam, c)
     lm_state = None
     if dlm is not None:
         # Two LM transitions in sequence, each weight added on its own as
@@ -473,9 +615,11 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
         hiwater = _max_at(hiwater, 2, torch.maximum(need1, need2))
     cand_state = torch.where(c.valid, c.next_state, SENTINEL_STATE)
     cand_cost = torch.where(c.valid, cost, INF)
-    (states, lms, costs, tok, w0, w1), sel_needed = _select_sorts(
+    (states, lms, costs, tok, w0, w1), sel_over, sel_needed = _select_best(
         cfg, cand_state, lm_state, cand_cost, [c.tok, olab2, c.olabel],
-        report_demand=True)
+        compact=True)
+    # min, not costs[:, 0]: a compacted selection returns the beam in
+    # dedup (state) order.
     cutoff = torch.amin(costs, dim=1, keepdim=True) + cfg.beam
     keep = costs <= cutoff
     states = torch.where(keep, states, -1)
@@ -483,7 +627,7 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     new_beam = BeamState(
         states, lms, costs,
         _arange(k, states.device).expand_as(states).contiguous(),
-        overflow, _max_at(hiwater, 3, sel_needed))
+        _or(overflow, sel_over), _max_at(hiwater, 3, sel_needed))
     words = torch.stack([torch.where(keep, w0, 0), torch.where(keep, w1, 0)],
                         dim=2)  # newest-first: (eps olab, emit olab)
     return new_beam, torch.where(keep, tok, 0), words
@@ -505,8 +649,7 @@ def _emitting_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     c = _expand(cfg, dfst, beam, cfg.expand_size, True,
                 need_lm=dlm is not None, need_bp=False, need_eps=need_eps)
     cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
-    overflow = beam.overflow | c.overflow
-    hiwater = _max_at(beam.hiwater, 0, c.needed)
+    overflow, hiwater = _emit_telemetry(beam, c)
     lm_state = None
     if dlm is not None:
         lm_state, lm_w, lm_over, lm_needed = _lm(cfg, dlm, c.lm, c.olabel,
@@ -517,9 +660,9 @@ def _emitting_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     cand_state = torch.where(c.valid, c.next_state, SENTINEL_STATE)
     cand_cost = torch.where(c.valid, cost, INF)
     payloads = [c.tok, c.olabel] + ([c.eps] if need_eps else [])
-    (states, lms, costs, parent, olab, *eps_info), sel_needed = \
-        _select_sorts(cfg, cand_state, lm_state, cand_cost, payloads,
-                      report_demand=True)
+    (states, lms, costs, parent, olab, *eps_info), sel_over, sel_needed = \
+        _select_best(cfg, cand_state, lm_state, cand_cost, payloads,
+                     compact=True)
     cutoff = torch.amin(costs, dim=1, keepdim=True) + cfg.beam
     keep = costs <= cutoff
     states = torch.where(keep, states, -1)
@@ -527,7 +670,7 @@ def _emitting_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     new_beam = BeamState(
         states, lms, costs,
         _arange(cfg.beam_size, states.device).expand_as(states).contiguous(),
-        overflow, _max_at(hiwater, 3, sel_needed))
+        _or(overflow, sel_over), _max_at(hiwater, 3, sel_needed))
     return (new_beam, parent, torch.where(keep, olab, 0), cutoff,
             tuple(eps_info))
 

@@ -101,7 +101,8 @@ def autosize(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
     with generous capacities (safe_config bounds, uncapped delta-LM walk),
     reads the capacity high-water telemetry and returns a tight BeamConfig
     with `margin` headroom.  Genuine overshoot at decode time is still
-    caught by the overflow flag (BeamCapacityError).
+    caught by the overflow flag (BeamCapacityError).  select_compact is
+    left 0, as in JAX.
     """
     base = base or BeamConfig(am_scale=am_scale)
     if base.am_scale != am_scale:
@@ -109,7 +110,7 @@ def autosize(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
     sizing = dataclasses.replace(
         safe_config(fst, arc_group, base, delta_lm is not None,
                     csr_group=csr_group, lm_dup_factor=8),
-        lm_expand_size=0)
+        lm_expand_size=0, select_compact=0)
     lp = np.asarray(logp, np.float32)
     if lp.ndim == 2:
         lp = lp[None]
@@ -248,9 +249,15 @@ class Decoder:
 
     @property
     def capacity_high_water(self) -> tuple:
-        """(emit_overflow, eps, lm_walk, select, cold_emit) slots the
-        decode actually needed (the last is always 0: the port has no
-        hot/cold emit split)."""
+        """(emit_overflow, eps, lm_walk, select_compact, cold_emit) slots
+        the decode actually needed.
+
+        Run a representative decode with generous capacities, then size
+        BeamConfig.expand_size / eps_expand_size / lm_expand_size /
+        select_compact / cold_expand_size to these marks (plus margin).
+        Slot 3 is reported even with select_compact=0; slot 4 counts the
+        cold tokens only when the hot/cold split runs.
+        """
         return tuple(int(x) for x in self.beam.hiwater[0].cpu().numpy())
 
     def check_capacity(self) -> None:
@@ -301,8 +308,8 @@ def _regrow_config(config: BeamConfig, hiwater,
                    margin: float = 1.5) -> BeamConfig:
     """New geometry from measured demand: each capacity grows to its
     high-water mark x margin (the mark is a lower bound on the true demand
-    once truncation happened)."""
-    emit, eps, lm = int(hiwater[0]), int(hiwater[1]), int(hiwater[2])
+    once truncation happened); the retry never compacts the selection."""
+    emit, eps, lm, _sel, cold = (int(x) for x in hiwater)
 
     def grow(cur, need):
         return max(cur, _round_up(int(need * margin), 512))
@@ -312,7 +319,11 @@ def _regrow_config(config: BeamConfig, hiwater,
         eps_expand_size=grow(config.eps_expand_size, eps),
         lm_expand_size=(grow(config.lm_expand_size, lm)
                         if config.lm_expand_size > 0 and lm
-                        else config.lm_expand_size))
+                        else config.lm_expand_size),
+        cold_expand_size=(grow(config.cold_expand_size, cold)
+                          if config.cold_expand_size > 0 and cold
+                          else config.cold_expand_size),
+        select_compact=0)
 
 
 class BatchDecoder:

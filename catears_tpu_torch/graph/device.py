@@ -23,7 +23,13 @@ for byte, then moves them to a torch device:
 Each arc is 5 int32 lanes (next, olabel, weight_bits, pdf, lane4), with
 lane4 = the composed second olabel on emitting arcs of an eps-removed graph
 and the destination's packed epsilon metadata (eps_row_lo << 9 | n_eps)
-otherwise.  The hot/cold emit split is not ported.
+otherwise.
+
+The hot/cold emit split: `build(hot_rows=H)` copies rows [0, H) of the
+classic emit_block into `emit_hot`, and with BeamConfig.cold_expand_size
+the decoder serves the tokens on states below H from it (pair with
+graph.transform.hot_order).  `compact=False` or `hot_rows > 0` keeps the
+classic row.
 
 `DeviceLm.build` lays a delta-LM G' out as the JAX DeviceLm's tables (dense
 state-0 arcs, two-choice bucketed arc hash, per-state backoff arcs), byte
@@ -43,7 +49,9 @@ from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst
 from catears_tpu_torch.utils.device import Device, resolve_device
 from catears_tpu_torch.utils.errors import CorruptionError
 
-TABLES = ("final", "state_packed", "over_packed", "eps_packed", "emit_block")
+# emit_hot is None unless the tables were built with hot_rows > 0.
+TABLES = ("final", "state_packed", "over_packed", "eps_packed", "emit_block",
+          "emit_hot")
 LM_TABLES = ("hash_tab", "state_tab", "small_lm", "uni_next", "uni_weight")
 _U32 = 0xFFFFFFFF
 
@@ -63,12 +71,13 @@ def _per_state_arc_counts(fst: FlatFst):
 
 def expansion_bounds(fst: FlatFst, group: int, beam_size: int,
                      distinct_states: bool = True,
-                     csr_group: Optional[int] = None) -> Tuple[int, int]:
+                     csr_group: Optional[int] = None,
+                     eps_group: Optional[int] = None) -> Tuple[int, int]:
     """Worst-case (expand_size, eps_expand_size) for a beam of K tokens:
     the sum of the K largest per-state CSR row counts (K * max rows when
     tokens may share a state)."""
     gc = csr_group or group
-    ge = group
+    ge = eps_group or group
     n_eps, n_emit = _per_state_arc_counts(fst)
     over_rows = -(-np.maximum(n_emit - group, 0) // gc)
     eps_rows = -(-n_eps // ge)
@@ -117,12 +126,16 @@ class DeviceFst:
     eps_depth: Optional[int]  # longest eps chain, None if unbounded
     group: int  # arcs per per-token block row
     csr_group: int  # arcs per overflow CSR gather row
-    eps_group: int  # arcs per epsilon CSR gather row (= group)
+    eps_group: int  # arcs per epsilon CSR gather row
     eps_meta_ok: bool  # dest eps metadata packs into one lane
     max_emit_fanout: int  # max non-self emitting arcs of any state
     eps_removed: bool = False  # lane 4 of emitting arcs = second olabel
     has_emit_olabel: bool = True
     emit_compact: bool = False
+    # The hot/cold emit split: a copy of emit_block's first hot_rows rows
+    # (None and 0 without it).
+    emit_hot: Optional[torch.Tensor] = None
+    hot_rows: int = 0
 
     ARC_LANES = 5
 
@@ -130,26 +143,31 @@ class DeviceFst:
     def build(cls, fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
               eps_depth_cap: Optional[int] = None,
               csr_group: Optional[int] = None,
+              eps_group: Optional[int] = None,
               olabel2: Optional[np.ndarray] = None,
+              hot_rows: int = 0,
+              compact: Optional[bool] = None,
               device: Device = "cuda") -> "DeviceFst":
         """The tables the JAX DeviceFst.build makes from the same
-        arguments (its eps_group, compact and hot_rows left at their
-        defaults), placed on `device` (the card unless the CPU is asked
+        arguments, placed on `device` (the card unless the CPU is asked
         for)."""
         device = resolve_device(device)
         arrays, meta = build_arrays(fst, tid2pdf, group=group,
                                     eps_depth_cap=eps_depth_cap,
-                                    csr_group=csr_group, olabel2=olabel2)
+                                    csr_group=csr_group, eps_group=eps_group,
+                                    olabel2=olabel2, hot_rows=hot_rows,
+                                    compact=compact)
         return cls.from_numpy(arrays, meta, device=device)
 
     @classmethod
     def from_numpy(cls, arrays: Dict[str, np.ndarray], meta: Dict,
                    device: Device = "cuda") -> "DeviceFst":
-        """From numpy tables (e.g. np.asarray of a JAX DeviceFst's fields)
-        and its static fields."""
+        """From numpy tables (e.g. np.asarray of a JAX DeviceFst's fields;
+        a missing or None emit_hot means no hot/cold split) and its static
+        fields."""
         device = resolve_device(device)
         tensors = {name: torch.tensor(np.asarray(arrays[name])).to(device)
-                   for name in TABLES}
+                   for name in TABLES if arrays.get(name) is not None}
         return cls(start=int(arrays["start"]), **tensors, **meta)
 
     @property
@@ -164,10 +182,13 @@ class DeviceFst:
 def build_arrays(fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
                  eps_depth_cap: Optional[int] = None,
                  csr_group: Optional[int] = None,
-                 olabel2: Optional[np.ndarray] = None):
+                 eps_group: Optional[int] = None,
+                 olabel2: Optional[np.ndarray] = None,
+                 hot_rows: int = 0,
+                 compact: Optional[bool] = None):
     """The numpy tables + static fields of DeviceFst.build."""
     gc = csr_group or group
-    ge = group
+    ge = eps_group or group
     s = fst.num_states
     offsets = fst.offsets.astype(np.int64)
     n_all = np.diff(offsets)
@@ -251,9 +272,10 @@ def build_arrays(fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
                             axis=1).astype(np.int32)
     emit_block_np = np.concatenate(
         [block.reshape(s, group * lanes), state_packed, self_arc], axis=1)
-    # Compact 9-lane row: eps-removed G=2 graphs whose fields fit.
-    emit_compact = bool(
-        olabel2 is not None and group == 2
+    # Compact 9-lane row: eps-removed G=2 graphs whose fields fit, unless
+    # compact=False or the hot/cold split asks for the classic row.
+    emit_compact = (compact is not False) and bool(
+        olabel2 is not None and group == 2 and hot_rows == 0
         and s < 2 ** 20
         and arc_pdf.max(initial=0) < 4096
         and int(self_arc[:, 3].max(initial=0)) < 4096
@@ -278,6 +300,7 @@ def build_arrays(fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
                  | (n_emit.astype(np.int64) << 13)),
             emit_over_lo.astype(np.int32),
         ], axis=1)
+    hot_rows = min(hot_rows, s)
     depth = _eps_depth(fst)
     if eps_depth_cap is not None:
         depth = eps_depth_cap if depth is None else min(depth, eps_depth_cap)
@@ -288,6 +311,7 @@ def build_arrays(fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
         "over_packed": over_flat.reshape(n_over_rows, gc * lanes),
         "eps_packed": eps_flat.reshape(n_eps_rows, ge * lanes),
         "emit_block": emit_block_np,
+        "emit_hot": emit_block_np[:hot_rows].copy() if hot_rows else None,
     }
     meta = dict(
         eps_depth=depth,
@@ -299,6 +323,7 @@ def build_arrays(fst: FlatFst, tid2pdf: np.ndarray, group: int = 4,
         eps_removed=olabel2 is not None,
         has_emit_olabel=bool((~is_eps & (fst.arc_olabel > 0)).any()),
         emit_compact=emit_compact,
+        hot_rows=hot_rows,
     )
     return arrays, meta
 

@@ -1,6 +1,5 @@
-"""Offline graph transforms that trade arcs for decode-loop rounds (the
-port's copy of the decode-graph pipeline of catears_tpu/graph/transform.py;
-its state renumberings are not carried over).
+"""Offline graph transforms that trade arcs for decode-loop rounds, and
+the state renumberings (the port's copy of catears_tpu/graph/transform.py).
 
 `close_epsilons` adds the min-plus transitive closure of the epsilon
 subgraph as direct arcs (keeping the originals), so the device epsilon
@@ -30,6 +29,11 @@ saturate them changes.  If any epsilon path carries two or more output
 labels (not produced by mkgraph), or the epsilon subgraph has non-trivial
 zero-weight cycles deeper than `max_rounds`, the transforms bail and
 return the input unchanged.
+
+The renumberings (`bfs_order`, `frequency_order`, `hot_order`, applied by
+`renumber_states`) relabel states for the locality of the emit-table
+gathers; they change no transcript.  `hot_order` pairs with
+`DeviceFst.build(hot_rows=...)`, the hot/cold emit split.
 """
 
 from __future__ import annotations
@@ -205,6 +209,86 @@ def remove_epsilons(fst: FlatFst, growth_limit: float = 1.0
     out = FlatFst.from_arrays(fst.start, fst.final, all_src, all_next,
                               all_il, all_o1, all_w.astype(np.float32))
     return out, all_o2[sort_order].astype(np.int32), True
+
+
+def bfs_order(fst: FlatFst) -> np.ndarray:
+    """Breadth-first state order from the start state.
+
+    Returns perm int32 [S] with perm[old_id] = new_id; unreachable states
+    keep their relative order after the reachable ones.  States that share
+    a decode frontier (trie prefixes, HMM chains at one depth) get nearby
+    row ids.
+    """
+    n = fst.num_states
+    order = np.full(n, -1, np.int64)
+    seen = np.zeros(n, bool)
+    frontier = np.array([fst.start], np.int64)
+    seen[fst.start] = True
+    nxt = 0
+    while frontier.size:
+        order[frontier] = np.arange(nxt, nxt + frontier.size)
+        nxt += frontier.size
+        # Every successor of the frontier, deduped, the unseen ones.
+        lo = fst.offsets[frontier]
+        hi = fst.offsets[frontier + 1]
+        idx = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)])
+        succ = np.unique(fst.arc_next[idx].astype(np.int64))
+        succ = succ[~seen[succ]]
+        seen[succ] = True
+        frontier = succ
+    rest = np.flatnonzero(order < 0)
+    order[rest] = np.arange(nxt, nxt + rest.size)
+    return order.astype(np.int32)
+
+
+def frequency_order(counts: np.ndarray, tie_break: np.ndarray = None
+                    ) -> np.ndarray:
+    """Visit-frequency state order: the most visited states get the lowest
+    ids.  counts [S] are per-state visit counts from a calibration decode;
+    equal counts are ordered by tie_break (default: the state id)."""
+    n = counts.shape[0]
+    tb = tie_break if tie_break is not None else np.arange(n)
+    rank = np.lexsort((tb, -counts.astype(np.int64)))
+    perm = np.empty(n, np.int32)
+    perm[rank] = np.arange(n, dtype=np.int32)
+    return perm
+
+
+def hot_order(counts: np.ndarray, hot_rows: int, seed: int = 0
+              ) -> np.ndarray:
+    """Hot/cold layout permutation: the `hot_rows` most visited states get
+    ids [0, hot_rows), shuffled within that region by
+    RandomState(seed), and the rest keep their relative order after them.
+    Pair with DeviceFst.build(hot_rows=...), which copies those rows into
+    the small emit_hot table."""
+    n = counts.shape[0]
+    h = min(hot_rows, n)
+    top = np.argsort(-counts.astype(np.int64), kind="stable")[:h]
+    shuffled = top[np.random.RandomState(seed).permutation(h)]
+    perm = np.empty(n, np.int32)
+    perm[shuffled] = np.arange(h, dtype=np.int32)
+    is_hot = np.zeros(n, bool)
+    is_hot[top] = True
+    rest = np.flatnonzero(~is_hot)
+    perm[rest] = (h + np.arange(rest.size)).astype(np.int32)
+    return perm
+
+
+def renumber_states(fst: FlatFst, perm: np.ndarray) -> FlatFst:
+    """Apply a state permutation (perm[old] = new): an exact relabeling.
+    Output labels are untouched, so transcripts are identical."""
+    n = fst.num_states
+    state_of_arc = np.repeat(np.arange(n, dtype=np.int64),
+                             np.diff(fst.offsets))
+    final = np.empty_like(fst.final)
+    final[perm] = fst.final
+    return FlatFst.from_arrays(
+        start=int(perm[fst.start]), final=final,
+        state_of_arc=perm[state_of_arc].astype(np.int64),
+        arc_next=perm[fst.arc_next],
+        arc_ilabel=fst.arc_ilabel,
+        arc_olabel=fst.arc_olabel,
+        arc_weight=fst.arc_weight)
 
 
 def prepare_decode_graph(fst: FlatFst) -> Tuple[

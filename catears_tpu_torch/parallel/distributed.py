@@ -6,6 +6,7 @@ building its mesh with `parallel.mesh.make_mesh()`; each process decodes
 its own contiguous slice of the global utterance batch
 (`local_batch_slice`), and the only cross-process traffic is the metric
 reduction of `global_sum`: the beam search is independent per utterance.
+Each process calls `shutdown()` before it exits.
 
 The process group uses gloo, not NCCL: its one collective is a host scalar
 (as JAX's `process_allgather` is host-side too), and gloo serves processes
@@ -38,6 +39,18 @@ def initialize(coordinator_address: Optional[str] = None,
         "gloo", init_method=init_method,
         world_size=-1 if num_processes is None else num_processes,
         rank=-1 if process_id is None else process_id)
+
+
+def shutdown() -> None:
+    """Leave the process group: a barrier, so that no rank tears the group
+    down while another still uses it, then destroy_process_group.  A
+    process that exits with its gloo group alive can abort at exit
+    ("terminate called without an active exception" from the group's
+    threads) when its peer exits at the same moment.  No-op without a
+    group."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def _world() -> Tuple[int, int]:

@@ -148,9 +148,12 @@ def shard_am_params(am: AcousticModel, mesh: Mesh):
 
 
 def _on_device(tables, names, device: torch.device):
-    """A DeviceFst / DeviceLm with its tables on `device`."""
+    """A DeviceFst / DeviceLm with its tables on `device` (an absent
+    table, a DeviceFst's emit_hot without the hot/cold split, stays
+    None)."""
     return dataclasses.replace(tables, **{
-        name: getattr(tables, name).to(device) for name in names})
+        name: getattr(tables, name).to(device) for name in names
+        if getattr(tables, name) is not None})
 
 
 def _gather(blocks: List[torch.Tensor], home: torch.device) -> torch.Tensor:

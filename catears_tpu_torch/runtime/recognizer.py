@@ -8,9 +8,9 @@ catears_tpu/runtime/recognizer.py; the reference's ce_stt lifecycle).
                             unigram vector), optional online CMVN stats
                             (`cmvn_stats`) and the decoder geometry
                             (`beam_size`, `expand_size`, `eps_expand_size`,
-                            `lm_expand_size`, `max_eps_iters`, `beam`,
-                            `arc_group`, `csr_group`), or takes
-                            `beam_config=`
+                            `lm_expand_size`, `select_compact`,
+                            `max_eps_iters`, `beam`, `arc_group`,
+                            `csr_group`), or takes `beam_config=`
   create_utterance(format)  one live stream: bytes -> samples -> fbank ->
                             (CMVN) -> AM -> decoder, a partial hypothesis
                             refreshed every 20 decoded frames
@@ -20,8 +20,7 @@ catears_tpu/runtime/recognizer.py; the reference's ce_stt lifecycle).
 `device` places the acoustic model, the fbank and the decode graph: the
 card unless the CPU is asked for.  The graph decodes in whichever mode
 graph.transform.prepare_decode_graph gives it (eps-free, closed or raw),
-as in JAX.  `select_compact` fails with NotImplementedError_ (that knob is
-not ported).
+as in JAX.
 """
 
 from __future__ import annotations
@@ -46,8 +45,7 @@ from catears_tpu_torch.runtime.streaming import (BatchStreamingSession,
                                                  StreamingSession)
 from catears_tpu_torch.utils import log
 from catears_tpu_torch.utils.device import Device, resolve_device
-from catears_tpu_torch.utils.errors import (CorruptionError,
-                                            NotImplementedError_)
+from catears_tpu_torch.utils.errors import CorruptionError
 
 AM_SCALE = 0.1  # acoustic scale, as in the JAX runtime
 PARTIAL_HYP_INTERVAL = 20  # frames between partial hypotheses
@@ -60,9 +58,6 @@ class Recognizer:
         self.device = resolve_device(device)
         conf = Configuration.read(config_path)
         self.conf = conf
-        if conf.get_int("select_compact", 0):
-            raise NotImplementedError_(
-                "select_compact is not ported to the PyTorch backend")
         self.fst = FlatFst.read(conf.get_path("fst"))
         self.am = AcousticModel.read(conf, device=self.device)
         self.symbol_table = SymbolTable.read(conf.get_path("symbol_table"))
@@ -76,7 +71,8 @@ class Recognizer:
             # prints); unset keys keep the defaults.
             geo = {}
             for key in ("beam_size", "expand_size", "eps_expand_size",
-                        "lm_expand_size", "max_eps_iters"):
+                        "lm_expand_size", "select_compact",
+                        "max_eps_iters"):
                 if conf.has(key):
                     geo[key] = conf.get_int(key)
             if conf.has("beam"):

@@ -71,6 +71,7 @@ def main(argv=None) -> int:
         print(f"# ranks={world} utterances={utts:.0f} audio_s={total_s:.2f} "
               f"slowest_rank_wall_s={slowest:.2f} (set-up included)",
               file=sys.stderr, flush=True)
+    distributed.shutdown()
     return 0
 
 

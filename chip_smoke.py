@@ -57,6 +57,21 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               for raw-dynamic: 1 round truncates the closure)
   decoder-closed-lm, decoder-raw-lm
               closed and raw with the G', all on CUT_FRAMES frames
+  variant-*   the exact decode variants on the trie (LM off, the smoke's
+              beam geometry), each through BatchDecoder on the same 2 x 500
+              planted frames: the default, select_compact at K and at the
+              default decode's hiwater[3], the hot_order graph (counts from
+              bench._calibrate_counts on the card) with hot_rows 175,000 and
+              1024 cold lanes, and the bfs and freq renumberings.  Each:
+              the default's words, costs bit-equal (within 1e-3 on a
+              renumbered graph), no device read in the frame loop (ms per
+              frame, hiwater, build seconds), overflow without the retry
+              reported (then the retry decodes), cuda == cpu on the first
+              VARIANT_CPU_FRAMES (50) frames.  variant-cold-overflow: a
+              cold cap of 8 raises (hiwater[4] > 8), and its one retry
+              gives the default's words or raises again (reported);
+              variant-select-overflow: select_compact=1 at beam 1e9
+              raises (hiwater[3] > K)
   e2e         cli.main(["--batch=8", conf, scp]) on cuda: exit 0, one line
               per utterance, no capacity overflow, the fused kernel
               launched once per linear layer per batch, and the first
@@ -151,15 +166,18 @@ raw phases compare CUT_FRAMES (200, LM on 50) frames on the CPU, LM on
 decode only those on the card, and take their planted WER on 2 x 500
 frames (LM on 2 x 200); every e2e phase runs its CPU side on the first
 CPU_UTTS (1) utterance, the longest, and e2e-lm runs the first
-E2E_LM_UTTS (4); stream-trie compares CPU_STREAMS (1) stream with the
-CPU; the LM-on live streams take the first STREAM_LM_S (3) seconds of each
-wave, its solo Utterance SOLO_LM_S (3); the bench's modes other than the
-headline run 2 s of audio, 2 timed runs.  The last slice's phases: the
-parallel and distributed phases decode the first 20% of each wave (60-200
-frames), bench-scaling runs 1 s per utterance (BENCH_SECONDS=1; 2 s took
-108 s), once per mesh size, and the synth phase's
-full-width part trains SYNTH_FULL_STEPS (200) steps on SYNTH_FULL_UTTS (8)
-utterances of 8 s.
+E2E_LM_UTTS (2); stream-trie compares CPU_STREAMS (1) stream with the
+CPU; the LM-on live streams take the first STREAM_LM_S (2) seconds of each
+wave, its solo Utterance SOLO_LM_S (2); the bench's modes other than the
+headline run 2 s of audio, 2 timed runs.  The parallel and distributed
+phases decode the first 20% of each wave (60-200 frames), bench-scaling
+runs 0.5 s per utterance (BENCH_SECONDS=0.5; 1 s took 52 s), once per
+mesh size, and the synth phase's full-width part trains
+SYNTH_FULL_STEPS (200) steps on SYNTH_FULL_UTTS (8) utterances of 8 s.
+The variant phases decode VARIANT_PLANTED (2 x 500) planted frames.
+The last cuts (e2e-lm 4 -> 2 utterances, the LM-on streams 3 -> 2 s,
+bench-scaling 1 -> 0.5 s) came when the variant phases (56 s) brought the
+whole run to 844 s on an NVIDIA H100 80GB HBM3 at 700 W.
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  The one kernel,
@@ -170,8 +188,8 @@ counted from 0 just before its run; error, times and bound from this run,
 summed over the AM's three shapes (the e2e batch of 8).  Its int32 entry
 point (`matmul_s8`, which the main path does not launch) is nested in the
 entry with its own launches, error, times, bound and torch._int_mm's
-time.  The epsilon closure is
-plain PyTorch, like the rest of the decoder: no kernel of its own.
+time.  The epsilon closure and the decode variants are plain PyTorch,
+like the rest of the decoder: no kernel of their own.
 Bounds: the larger of the bytes the
 function must move (each input read once, the output written once) over
 3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM, dense).
@@ -225,7 +243,7 @@ TICK = 3200  # samples per live tick: 20 frames of 10 ms
 # host's; the CPU sides and the LM-on decodes are the slow parts):
 CPU_STREAMS = 1  # of the 8 live streams, also decoded on the CPU
 CPU_UTTS = 1  # of the e2e utterances, also decoded on the CPU
-E2E_LM_UTTS = 4  # utterances of the LM-on e2e run
+E2E_LM_UTTS = 2  # utterances of the LM-on e2e run
 # Frames of the 2 AM utterances decoded on the CPU (and, LM on, on the card)
 # by the closed and raw phases, LM off / LM on:
 CUT_FRAMES = {False: 200, True: 50}
@@ -234,8 +252,8 @@ DECODER_FRAMES = {False: 500, True: 200}
 # Planted frames per utterance: (utterances, frames), LM off / LM on.
 PLANTED = {False: (4, 1000), True: (2, 300)}
 CLOSURE_PLANTED = {False: (2, 500), True: (2, 200)}
-STREAM_LM_S = 3.0  # seconds of each wave the LM-on live streams take
-SOLO_LM_S = 3.0  # seconds of the 10 s wave the LM-on solo Utterance takes
+STREAM_LM_S = 2.0  # seconds of each wave the LM-on live streams take
+SOLO_LM_S = 2.0  # seconds of the 10 s wave the LM-on solo Utterance takes
 # (batch, M, K, N) of the bench's distinct linears at 16 x 10 s (998 frames
 # + 5 + 5 context rows, narrowed by 2 per splice): the first, the four
 # hidden ones, the output.
@@ -252,12 +270,20 @@ BENCH_STREAMS = "16"
 # s at 2 s), and the synth phase at full width trains SYNTH_FULL_STEPS
 # steps on SYNTH_FULL_UTTS utterances of SYNTH_FULL_S seconds.
 PARALLEL_FRACTION = 0.2
-SCALING_SECONDS = "1"  # bench-scaling's BENCH_SECONDS (its default: 2)
+SCALING_SECONDS = "0.5"  # bench-scaling's BENCH_SECONDS (its default: 2)
 PARALLEL_MESHES = ((2, 1), (4, 2))  # (devices, model_parallel)
 DIST_TIMEOUT = 600  # seconds per rank
 NATIVE_REPS = 5  # host timings: best of
 SYNTH_STEPS = 800  # tests/test_synth.py's
 SYNTH_FULL_UTTS, SYNTH_FULL_S, SYNTH_FULL_STEPS = 8, 8.0, 200
+# The decode-variants phase: planted trie paths, (utterances, frames) on the
+# card, their first VARIANT_CPU_FRAMES frames also on the CPU; the hot
+# graph's hot rows and cold lanes are the bench's defaults; the loud
+# overflow checks decode OVERFLOW_FRAMES frames.
+VARIANT_PLANTED = (2, 500)
+VARIANT_CPU_FRAMES = 50
+VARIANT_HOT_ROWS, VARIANT_COLD = 175_000, 1024
+OVERFLOW_FRAMES = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM, dense
@@ -882,6 +908,182 @@ def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
         fail(f"{name} on cuda and cpu disagree")
     if require_wer and wer > 0.25:
         fail(f"{name}: planted-path WER {wer:.3f} is too high")
+
+
+def variant_tables(fst, tid2pdf, rec, dev, hot_rows=0):
+    """(decode graph, DeviceFst on the CPU, the same on `dev`, build
+    seconds) of `fst` in eps-free mode at the smoke config's groups."""
+    from catears_tpu_torch.graph.device import DeviceFst, build_arrays
+    from catears_tpu_torch.graph.transform import prepare_decode_graph
+
+    t0 = time.perf_counter()
+    dec_fst, olab2, mode = prepare_decode_graph(fst)
+    if mode != "eps_free":
+        fail(f"variants: the graph's mode is {mode}, not eps_free")
+    arrays, meta = build_arrays(dec_fst, tid2pdf, group=rec.arc_group,
+                                csr_group=rec.csr_group, eps_depth_cap=1,
+                                olabel2=olab2, hot_rows=hot_rows)
+    on_cpu, on_cuda = (DeviceFst.from_numpy(arrays, meta, device=d)
+                       for d in (torch.device("cpu"), dev))
+    sync(dev)
+    return dec_fst, on_cpu, on_cuda, time.perf_counter() - t0
+
+
+def expect_overflow(dec, logp, slot, cap, name):
+    """The hiwater of a decode that must raise BeamCapacityError with
+    hiwater[slot] > cap (no retry)."""
+    from catears_tpu_torch.utils.errors import BeamCapacityError
+
+    try:
+        dec.decode(logp, retry_on_overflow=False, final_fallback=True)
+    except BeamCapacityError as err:
+        if err.hiwater[slot] <= cap:
+            fail(f"{name}: hiwater[{slot}] {err.hiwater[slot]} <= {cap}")
+        return list(err.hiwater)
+    fail(f"{name}: no BeamCapacityError")
+
+
+def cold_overflow(dec_fst, dfst, cfg, default, tg, over):
+    """A cold cap of 8 on the hot graph must raise (hiwater[4] > 8); its
+    one regrow-and-retry must give the default decode's words or raise
+    again, never other words.  The retry grows the cold lanes from the
+    truncated decode's mark, a lower bound of the demand (cold tokens that
+    read a wrong row steer the beam elsewhere), so one retry may not be
+    enough: JAX's policy, which the port keeps."""
+    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.utils.errors import BeamCapacityError
+
+    dec8 = BatchDecoder(dec_fst, tg.tid2pdf, dfst=dfst,
+                        config=dataclasses.replace(cfg, cold_expand_size=8))
+    hw8 = expect_overflow(dec8, over, 4, 8, "cold cap 8")
+    want = [h.words for h in BatchDecoder(
+        default[0], tg.tid2pdf, dfst=default[2], config=dataclasses.replace(
+            cfg, cold_expand_size=0)).decode(over, final_fallback=True)]
+    try:
+        got = [h.words for h in dec8.decode(over, final_fallback=True)]
+        retry = "recovered"
+    except BeamCapacityError as err:
+        got, retry = None, f"raised_again_hiwater={list(err.hiwater)}"
+    phase("variant-cold-overflow", cold_expand_size=8, frames=over.shape[1],
+          hiwater=hw8, retry=retry, retry_words_equal=got == want)
+    if got is not None and got != want:
+        fail("cold cap 8: the retry's words differ from the default's")
+
+
+def variants_phase(rec, tg, card, cuda=torch.device("cuda:0")):
+    """The exact decode variants on the smoke's trie model, LM off: the
+    same planted log-probs through BatchDecoder with each (select_compact
+    at K and at the default decode's hiwater[3]; the hot_order graph with
+    the hot/cold split; the bfs and freq renumberings).  Each decodes the
+    default's words, its costs equal (within 1e-3 on a renumbered graph),
+    with no device read in the frame loop, and cuda == cpu on the first
+    VARIANT_CPU_FRAMES frames.  A variant that overflows without the retry
+    is reported and decoded again with it.  Then the loud overflows:
+    select_compact=1 at beam 1e9 raises, and so does a cold cap of 8
+    (`cold_overflow`)."""
+    from catears_tpu_torch import bench
+    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.graph.transform import (bfs_order,
+                                                   frequency_order,
+                                                   hot_order,
+                                                   renumber_states)
+    from catears_tpu_torch.utils.errors import BeamCapacityError
+
+    cfg = rec.beam_config
+    n, frames = VARIANT_PLANTED
+    planted = plant_logp(np.random.RandomState(3), tg, n, frames)[0]
+    planted_dev = torch.from_numpy(planted).to(cuda)
+    cut = planted[:, :VARIANT_CPU_FRAMES]
+    over = planted_dev[:, :OVERFLOW_FRAMES]
+    t0 = time.perf_counter()
+    counts = bench._calibrate_counts(
+        tg.fst, tg.tid2pdf,
+        plant_logp(np.random.RandomState(4), tg, 4, 300)[0], cuda)
+    calibration_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bfs = bfs_order(tg.fst)
+    graphs = {"hot": renumber_states(tg.fst,
+                                     hot_order(counts, VARIANT_HOT_ROWS)),
+              "bfs": renumber_states(tg.fst, bfs),
+              "freq": renumber_states(tg.fst,
+                                      frequency_order(counts, tie_break=bfs))}
+    phase("variants-setup", planted_utts=n, frames=frames,
+          calibrated_states=int((counts > 0).sum()),
+          calibration_s=f"{calibration_s:.2f}",
+          renumber_s=f"{time.perf_counter() - t0:.2f}")
+    default = variant_tables(tg.fst, tg.tid2pdf, rec, cuda)
+    specs = [("default", None, {}),
+             ("select-compact-K", None, {"select_compact": cfg.beam_size}),
+             ("select-compact-hiwater", None, "hiwater"),
+             ("hot", "hot", {"cold_expand_size": VARIANT_COLD}),
+             ("bfs", "bfs", {}), ("freq", "freq", {})]
+    ref = None
+    for name, key, changes in specs:
+        tables = default if key is None else variant_tables(
+            graphs.pop(key), tg.tid2pdf, rec, cuda,
+            hot_rows=VARIANT_HOT_ROWS if key == "hot" else 0)
+        dec_fst, on_cpu, on_cuda, build_s = tables
+        if changes == "hiwater":
+            changes = {"select_compact": ref[2][3]}
+        vcfg = dataclasses.replace(cfg, **changes)
+        dec = BatchDecoder(dec_fst, tg.tid2pdf, config=vcfg, dfst=on_cuda)
+        loop = FrameLoop()
+        overflowed = None
+        try:
+            with loop:
+                try:
+                    hyps = dec.decode(planted_dev, retry_on_overflow=False,
+                                      final_fallback=True)
+                except BeamCapacityError as err:
+                    overflowed = list(err.hiwater)
+        except RuntimeError as e:  # set_sync_debug_mode("error") raised
+            fail(f"variant-{name}: a device read in the frame loop: {e}")
+        ms_per_frame, hiwater = loop.ms_per_frame(), loop.marks()
+        if overflowed:  # the regrow-and-retry
+            hyps = dec.decode(planted_dev, final_fallback=True)
+        words = [h.words for h in hyps]
+        costs = np.array([h.weight for h in hyps], np.float64)
+        if ref is None:
+            ref = (words, costs, hiwater)
+        cost_diff = float(np.abs(costs - ref[1]).max())
+        cost_ok = cost_diff <= 1e-3 if key else bool((costs == ref[1]).all())
+        hyp_gpu = dec.decode(planted_dev[:, :VARIANT_CPU_FRAMES],
+                             final_fallback=True)
+        t0 = time.perf_counter()
+        hyp_cpu = BatchDecoder(dec_fst, tg.tid2pdf, config=vcfg,
+                               dfst=on_cpu).decode(cut, final_fallback=True)
+        cpu_s = time.perf_counter() - t0
+        cpu_same = ([(h.words, np.float64(h.weight)) for h in hyp_gpu]
+                    == [(h.words, np.float64(h.weight)) for h in hyp_cpu])
+        phase(f"variant-{name}", build_s=f"{build_s:.2f}",
+              ms_per_frame=ms_per_frame, hiwater=hiwater,
+              select_compact=vcfg.select_compact,
+              cold_expand_size=vcfg.cold_expand_size,
+              hot_rows=on_cuda.hot_rows,
+              emit_lanes=on_cuda.emit_block.shape[1],
+              overflowed_without_retry=overflowed,
+              words=[len(w) for w in words], same_words=words == ref[0],
+              max_cost_diff=f"{cost_diff:.3e}", cuda_equals_cpu=cpu_same,
+              cpu_frames=VARIANT_CPU_FRAMES, cpu_s=f"{cpu_s:.2f}",
+              card=f"'{card}'")
+        if words != ref[0] or not all(words):
+            fail(f"variant-{name}: words differ from the default decode's")
+        if not cost_ok:
+            fail(f"variant-{name}: costs {costs} against {ref[1]}")
+        if not cpu_same:
+            fail(f"variant-{name}: cuda and cpu disagree")
+        if key == "hot":
+            cold_overflow(dec_fst, on_cuda, vcfg, default, tg, over)
+        del tables, on_cpu, on_cuda, dec
+        if cuda.type == "cuda":
+            torch.cuda.empty_cache()
+    hw1 = expect_overflow(
+        BatchDecoder(default[0], tg.tid2pdf, dfst=default[2],
+                     config=dataclasses.replace(cfg, select_compact=1,
+                                                beam=1e9)),
+        over, 3, cfg.beam_size, "select_compact=1")
+    phase("variant-select-overflow", select_compact=1, beam="1e9",
+          hiwater=hw1)
 
 
 def write_raw_conf(work, conf, fst):
@@ -1533,6 +1735,7 @@ frames = distributed.global_sum(float(ref["lengths"][lo:hi].sum()))
 assert frames == float(ref["lengths"].sum()), frames
 print(f"rank {rank} ok slice={lo}:{hi} device={dev} step_s={wall:.3f} "
       f"total_frames={frames:.0f}", flush=True)
+distributed.shutdown()
 """
 
 
@@ -1940,6 +2143,9 @@ def main():
             if delta is None:
                 raw_dec = decs["raw"][0]
             del decs, dec, dec_c
+
+        # -- the exact decode variants (select_compact, hot/cold, orders) -
+        variants_phase(rec, tg, card)
 
         # -- e2e: the CLI's batch path on cuda, LM off, on, raw graph ------
         n_linears = linears(rec.am)

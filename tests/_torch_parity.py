@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 
 DFST_META = ("eps_depth", "group", "csr_group", "eps_group", "eps_meta_ok",
              "max_emit_fanout", "eps_removed", "has_emit_olabel",
-             "emit_compact")
+             "emit_compact", "hot_rows")
 DLM_META = ("max_backoff", "hash_seed1", "hash_seed2", "hash_mask")
 
 
@@ -39,7 +39,11 @@ def to_np(x) -> np.ndarray:
 
 
 def assert_same(jax_value, torch_value, what: str = "") -> None:
-    """Exact equality: same dtype, shape and bytes (floats bit for bit)."""
+    """Exact equality: same dtype, shape and bytes (floats bit for bit);
+    None (an absent table) equals only None."""
+    if jax_value is None or torch_value is None:
+        assert jax_value is None and torch_value is None, f"{what}: None"
+        return
     a, b = to_np(jax_value), to_np(torch_value)
     assert a.dtype == b.dtype, f"{what}: dtype {a.dtype} vs {b.dtype}"
     assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
@@ -61,7 +65,8 @@ def dfst_from_jax(jd, device=CPU):
     """The port's DeviceFst holding a JAX DeviceFst's tables."""
     from catears_tpu_torch.graph.device import TABLES, DeviceFst
 
-    arrays = {name: np.asarray(getattr(jd, name)) for name in TABLES}
+    arrays = {name: None if getattr(jd, name) is None
+              else np.asarray(getattr(jd, name)) for name in TABLES}
     arrays["start"] = np.asarray(jd.start)
     meta = {name: getattr(jd, name) for name in DFST_META}
     return DeviceFst.from_numpy(arrays, meta, device=device)

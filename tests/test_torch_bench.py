@@ -7,8 +7,13 @@ BENCH_HIDDEN 64), on the CPU (BENCH_DEVICE=cpu; JAX on the CPU too):
   DeviceFst and DeviceLm tables equal bench.py's bit for bit;
 - the AM forward of the headline equals bench.py's jitted one within the
   AM tests' tolerances (float 1e-4; int8 1% of the range);
-- every mode's JSON line carries bench.py's keys and metric name;
-- every knob without a counterpart raises, and so do a run without a
+- so does the setup under each knob of the decode variants
+  (BENCH_REORDER=bfs|freq|hot with BENCH_HOT_ROWS and BENCH_COLD, and
+  BENCH_SELECT_COMPACT): the renumbered graph, the calibration's visit
+  counts, the DeviceFst tables (emit_hot included) and the BeamConfig;
+- every mode's JSON line carries bench.py's keys and metric name, the
+  headline's also under the variant knobs;
+- a knob value without a counterpart raises, and so do a run without a
   card and a `scaling` run whose batch does not split over its 8 devices
   (the toy batch of 2), as one `catears: ...` line;
 - `scaling` at BENCH_BATCH 8 on 8 logical CPU devices prints bench.py's
@@ -18,6 +23,7 @@ WER, capacity high-water marks and hyp0_words equal bench.py's run, LM off
 and on.
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -67,11 +73,11 @@ def toy_env(monkeypatch):
     return monkeypatch
 
 
-def _setups(env, **knobs):
+def _setups(env, seconds=1.0, **knobs):
     for key, value in knobs.items():
         env.setenv(key, value)
-    jax_setup = _jax_bench().build_bench_setup(2, 1.0)
-    return jax_setup, tbench.build_bench_setup(2, 1.0)
+    jax_setup = _jax_bench().build_bench_setup(2, seconds)
+    return jax_setup, tbench.build_bench_setup(2, seconds)
 
 
 def _assert_am_equal(jam, tam):
@@ -139,6 +145,64 @@ def test_setup_equals_bench_py(toy_env, knobs):
         assert getattr(tcfg, field) == getattr(jcfg, field), field
 
 
+# 1.02 s = 100 frames: bench.py's calibration decode scans 20-frame
+# validity masks, so its frames (up to 300) must fill whole chunks.
+VARIANT_SECONDS = 1.02
+VARIANT_KNOBS = {
+    "bfs": {"BENCH_REORDER": "bfs"},
+    "freq": {"BENCH_REORDER": "freq"},
+    "hot-500": {"BENCH_REORDER": "hot", "BENCH_HOT_ROWS": "500"},
+    # The default 175,000 hot rows exceed the toy trie's states: all hot.
+    "hot-default": {"BENCH_REORDER": "hot"},
+    "hot-500-cold-64": {"BENCH_REORDER": "hot", "BENCH_HOT_ROWS": "500",
+                        "BENCH_COLD": "64"},
+    "select-compact": {"BENCH_SELECT_COMPACT": "512"},
+    "cold-without-hot": {"BENCH_COLD": "64"},
+    "loop-hot": {"BENCH_REORDER": "hot", "BENCH_GRAPH": "loop",
+                 "BENCH_PDFS": "64", "BENCH_WORDS": "40"},
+}
+
+
+@pytest.mark.parametrize("case", list(VARIANT_KNOBS))
+def test_variant_knob_setup_equals_bench_py(toy_env, case):
+    """The decode-variant knobs, applied in bench.py's order: the same
+    renumbered graph, tables and BeamConfig (the loop graph ignores
+    BENCH_REORDER, as bench.py does)."""
+    toy_env.delenv("BENCH_PDFS", raising=False)
+    knobs = VARIANT_KNOBS[case]
+    (_, jfst, jd, _, jcfg, _, jplanted, jwords), \
+        (_, tfst, td, _, tcfg, _, tplanted, twords) = _setups(
+            toy_env, VARIANT_SECONDS, **knobs)
+    assert_same(jplanted, tplanted, "planted")
+    assert twords == jwords
+    for name in ("start", "final", "offsets", "arc_next", "arc_ilabel",
+                 "arc_olabel", "arc_weight"):
+        assert_same(getattr(jfst, name), getattr(tfst, name), name)
+    _assert_tables_equal(jd, td, TABLES, DFST_META)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    hot = knobs.get("BENCH_REORDER") == "hot" and "BENCH_GRAPH" not in knobs
+    assert (td.hot_rows > 0) == hot
+    assert tcfg.cold_expand_size == int(knobs.get("BENCH_COLD",
+                                                  1024 if hot else 0))
+    assert tcfg.select_compact == int(knobs.get("BENCH_SELECT_COMPACT", 0))
+
+
+def test_calibrate_counts_equals_bench_py(toy_env):
+    """The calibration decode's per-state visit counts."""
+    from catears_tpu.tools.biggraph import make_trie_graph, plant_logp
+    from catears_tpu_torch.tools.biggraph import \
+        make_trie_graph as port_trie_graph
+
+    rng = np.random.RandomState(0)
+    jg = make_trie_graph(rng, num_words=300)
+    planted, _ = plant_logp(rng, jg, 2, 60)
+    want = _jax_bench()._calibrate_counts(jg.fst, jg.tid2pdf, planted)
+    tg = port_trie_graph(np.random.RandomState(0), num_words=300)
+    got = tbench._calibrate_counts(tg.fst, tg.tid2pdf, planted, CPU)
+    assert_same(want, got, "counts")
+    assert (got > 0).sum() > 100
+
+
 @pytest.mark.parametrize("quant", ["0", "1"], ids=["float", "int8"])
 def test_am_forward_matches_bench_py(toy_env, quant):
     """The headline's AM forward (fbank, edge-replicated context, the AM
@@ -202,6 +266,21 @@ def test_headline_json(toy_env, capsys):
     assert record["wer"] <= 0.25 and record["lm_on_wer"] <= 0.25
 
 
+def test_headline_json_with_variant_knobs(toy_env, capsys):
+    """The headline on a hot_order graph with the hot/cold split and a
+    compacted selection, LM off: the JSON keys and the planted WER."""
+    for key, value in {**TOY_BEAM, "BENCH_REORDER": "hot",
+                       "BENCH_HOT_ROWS": "500", "BENCH_COLD": "512",
+                       "BENCH_SELECT_COMPACT": "4096",
+                       "BENCH_SKIP_LM": "1"}.items():
+        toy_env.setenv(key, value)
+    assert tbench.run() == 0
+    record = _json_line(capsys)
+    assert set(record) == MODE_KEYS | {"wer"}
+    assert record["metric"] == "audio_seconds_per_sec_per_chip"
+    assert record["wer"] <= 0.25
+
+
 @pytest.mark.parametrize("mode,knobs,metric,keys", [
     ("product", {}, "product_batch_audio_seconds_per_sec",
      MODE_KEYS | {"wer"}),
@@ -234,13 +313,12 @@ def test_mode_json(toy_env, capsys, mode, knobs, metric, keys):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("BENCH_REORDER", "bfs"), ("BENCH_REORDER", "hot"),
-    ("BENCH_SELECT_COMPACT", "512"), ("BENCH_COLD", "1024"),
-    ("BENCH_HOT_ROWS", "1000"), ("BENCH_MODE", "scaling"),
+    ("BENCH_REORDER", "random"), ("BENCH_MODE", "scaling"),
     ("BENCH_DEVICE", "tpu")])
 def test_refused_knobs_raise(toy_env, capsys, knob, value):
-    """A knob without a counterpart raises; so does `scaling` on the toy
-    batch of 2, which 8 devices cannot split."""
+    """A knob value without a counterpart raises (bench.py knows no
+    BENCH_REORDER=random); so does `scaling` on the toy batch of 2, which
+    8 devices cannot split."""
     toy_env.setenv(knob, value)
     with pytest.raises(CatEarsError) as err:
         tbench.run()

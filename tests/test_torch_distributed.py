@@ -3,11 +3,13 @@ counterparts of tests/test_distributed.py).
 
 Spawns two real OS processes that join one gloo process group over
 localhost on the CPU (by address, and by torchrun's environment):
-initialize(), local_batch_slice() and global_sum() across the two, then each decodes its local slice of a ragged batch
-through a ShardedPipeline over 2 logical CPU devices, which must equal the
-single-process decode of that slice (beam states and trace words equal,
-costs within 1e-3, log-probs within 2e-4: tests/test_parallel.py's bars).
-Each process has a timeout.  Plus the single-process no-op case, and
+initialize(), local_batch_slice() and global_sum() across the two, then
+each decodes its local slice of a ragged batch through a ShardedPipeline
+over 2 logical CPU devices, which must equal the single-process decode of
+that slice (beam states and trace words equal, costs within 1e-3,
+log-probs within 2e-4: tests/test_parallel.py's bars), and leaves the group
+with shutdown() (without it a rank can abort at exit).  Each process has a
+timeout.  Plus the single-process no-op case, and
 tools.dist_decode under torchrun against the tool alone.
 """
 
@@ -112,6 +114,8 @@ assert torch.equal(traces.words, traces_ref.words)
 frames = distributed.global_sum(float(lengths[lo:hi].sum()))
 assert frames == float(lengths.sum()), (frames, lengths.sum())
 print(f"worker {pid} ok ({hi - lo} utterances, {frames:.0f} frames)")
+distributed.shutdown()
+assert not dist.is_initialized()
 """
 
 
@@ -155,7 +159,8 @@ def test_two_process_init_slice_sum_and_decode(tmp_path, how):
 
 
 def test_single_process_noop():
-    """num_processes <= 1 must not start a process group."""
+    """num_processes <= 1 must not start a process group (and shutdown()
+    has none to leave)."""
     import torch.distributed as dist
 
     from catears_tpu_torch.parallel import distributed
@@ -165,6 +170,8 @@ def test_single_process_noop():
     lo, hi = distributed.local_batch_slice(7)
     assert (lo, hi) == (0, 7)
     assert distributed.global_sum(2.5) == 2.5
+    distributed.shutdown()
+    assert not dist.is_initialized()
 
 
 def test_dist_decode_tool_two_ranks_equal_one(tmp_path, data_dir, capsys):

@@ -4,8 +4,8 @@ Transcripts must be identical, for the float and the int8 (`quantized =
 true`) acoustic model, LM off and with delta-LM rescoring.  Also: the port
 imports neither jax nor the JAX package, its entry points run on the card
 unless asked for the CPU, graphs that keep their epsilon arcs (prepare_
-decode_graph's 'raw' mode) decode as in JAX, and the knob it does not
-carry (`select_compact`) fails with a one-line `catears:` error.
+decode_graph's 'raw' mode) decode as in JAX, and so does a config that
+sets `select_compact`.
 """
 
 import ast
@@ -258,9 +258,10 @@ def _one_line_error(rc, out, err, needle):
 
 def test_unported_inputs_fail_cleanly(model, data_dir):
     """Inputs the port once refused now decode: a .wav, an scp without
-    --batch (the streaming Utterance path) and a `cmvn_stats` config with
-    --batch.  The knob it does not port, `select_compact`, still fails with
-    a one-line `catears:` error."""
+    --batch (the streaming Utterance path), a `cmvn_stats` config with
+    --batch, and a `select_compact` config (once a one-line error), whose
+    transcripts equal JAX's with --batch and the plain config's on the
+    .wav."""
     d, conf, scp = model
     conf = _with_keys(d, conf, "narrow.conf", ["beam_size = 256",
                                                "expand_size = 2048",
@@ -268,6 +269,7 @@ def test_unported_inputs_fail_cleanly(model, data_dir):
     wav = os.path.join(data_dir, "en-us-hello.wav")
     rc, out, _ = _run(torch_main, ["--device=cpu", conf, wav])
     assert rc == 0 and len(out.splitlines()) == 1
+    plain_wav = out
     rc, out, _ = _run(torch_main, ["--device=cpu", conf, scp])
     assert rc == 0 and [x.split()[0] for x in out.splitlines()] == ["u0",
                                                                    "u1"]
@@ -275,9 +277,12 @@ def test_unported_inputs_fail_cleanly(model, data_dir):
         "cmvn_stats = " + os.path.join(data_dir, "cmvn_stats.bin")])
     rc, out, _ = _run(torch_main, ["--batch", "--device=cpu", cmvn, scp])
     assert rc == 0 and len(out.splitlines()) == 2
-    compact = _with_keys(d, conf, "compact.conf", ["select_compact = 4096"])
-    _one_line_error(*_run(torch_main, ["--device=cpu", compact, wav]),
-                    "select_compact")
+    compact = _with_keys(d, conf, "compact.conf", ["select_compact = 256"])
+    rc_j, ref, _ = _run(jax_main, ["--batch=2", compact, scp])
+    rc, out, _ = _run(torch_main, ["--batch=2", "--device=cpu", compact, scp])
+    assert rc_j == rc == 0 and out == ref and len(out.splitlines()) == 2
+    rc, out, _ = _run(torch_main, ["--device=cpu", compact, wav])
+    assert rc == 0 and out == plain_wav
 
 
 def test_default_device_needs_cuda(model):

@@ -301,3 +301,48 @@ def test_write_const_fst_equals_jax(seed):
     back = topenfst.read_const_fst(bufs[1])
     for name, value in fields.items():
         np.testing.assert_array_equal(getattr(back, name), value)
+
+
+def _script_extract_id2pdf():
+    spec = importlib.util.spec_from_file_location(
+        "extract_id2pdf", os.path.join(REPO, "scripts", "extract_id2pdf.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# TestExtractId2Pdf's model text, and its <Tuples> form (forward and
+# self-loop pdfs of a chain model).
+TUPLES_MDL = jt.TestExtractId2Pdf.MDL.replace(
+    "<Triples> 4\n1 0 0\n1 1 1\n2 0 2\n2 1 3\n</Triples>",
+    "<Tuples> 4\n1 0 0 4\n1 1 1 1\n2 0 2 5\n2 1 3 3\n</Tuples>")
+
+
+@pytest.mark.parametrize("text", [jt.TestExtractId2Pdf.MDL, TUPLES_MDL],
+                         ids=["triples", "tuples"])
+def test_extract_id2pdf_equals_the_script(tmp_path, capsys, text):
+    """tools.extract_id2pdf (the recipe's first step, in the package)
+    parses as scripts/extract_id2pdf.py does and prints its bytes, through
+    main() and as a module."""
+    from catears_tpu_torch.tools import extract_id2pdf as tool
+
+    script = _script_extract_id2pdf()
+    want = script.parse_transition_model(text)
+    assert tool.parse_transition_model(text) == want
+    if "<Triples>" in text:
+        assert want == (4, [0, 0, 0, 1, 1, 2, 2, 3, 3])
+    else:
+        assert want == (6, [0, 4, 0, 1, 1, 5, 2, 3, 3])
+    mdl = tmp_path / "final.txt.mdl"
+    mdl.write_text(text)
+    printed = []
+    for main in (script.main, tool.main):
+        assert main([str(mdl)]) == 0
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "catears_tpu_torch.tools.extract_id2pdf",
+         str(mdl)], capture_output=True, text=True, cwd=REPO, timeout=120,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0 and proc.stdout == printed[0]
+    assert tool.main([]) == 1
