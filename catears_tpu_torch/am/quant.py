@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from catears_tpu_torch.am.nnet import Nnet, NnetDef, apply_layer
+from catears_tpu_torch.kernels import check_launch, kernel_library
 
 
 class QuantizedTensor(NamedTuple):
@@ -144,18 +145,7 @@ _KERNEL_ARGTYPES = {
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from catears_tpu_torch.kernels import load_kernels
-
-    lib = load_kernels()["matmul_s8"]
-    if not hasattr(lib, "argtypes_set"):
-        for name, argtypes in _KERNEL_ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.catears_error_string.argtypes = [ctypes.c_int]
-        lib.catears_error_string.restype = ctypes.c_char_p
-        lib.argtypes_set = True
-    return lib
+    return kernel_library("matmul_s8", _KERNEL_ARGTYPES)
 
 
 def _launch_operands(a3: torch.Tensor, b: torch.Tensor,
@@ -187,12 +177,6 @@ def _launch_operands(a3: torch.Tensor, b: torch.Tensor,
     return a2, bt, kp
 
 
-def _check_launch(lib: ctypes.CDLL, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"matmul_s8 kernel launch failed: "
-                           f"{lib.catears_error_string(rc).decode()}")
-
-
 def matmul_s8(a: torch.Tensor, b: torch.Tensor,
               bt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, M, K] or [M, K] int8 @ [K, N] int8 -> int32 (exact).
@@ -219,7 +203,7 @@ def matmul_s8(a: torch.Tensor, b: torch.Tensor,
             rc = lib.catears_matmul_s8(
                 a2.data_ptr(), bt.data_ptr(), out.data_ptr(), batch * m, n,
                 kp, tile_width(n), torch.cuda.current_stream().cuda_stream)
-        _check_launch(lib, rc)
+        check_launch(lib, rc, "matmul_s8")
         matmul_s8.launches += 1
     return out[0] if squeeze else out
 
@@ -310,7 +294,7 @@ def qmatmul(aq: QuantizedTensor, bq: QuantizedTensor,
                 sa.data_ptr(), zpa.data_ptr(), sb.data_ptr(), zpb.data_ptr(),
                 float(k), m, 1 if scales > 1 else 0,
                 torch.cuda.current_stream().cuda_stream)
-        _check_launch(lib, rc)
+        check_launch(lib, rc, "matmul_s8")
         qmatmul.launches += 1
     return out[0] if squeeze else out
 

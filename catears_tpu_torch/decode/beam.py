@@ -58,6 +58,7 @@ Notes on matching the reference bit for bit:
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -67,6 +68,7 @@ import torch
 from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
                                             compact_mask,
                                             lm_propagate_capped)
+from catears_tpu_torch.kernels import check_launch, kernel_library
 
 INF = float("inf")
 SENTINEL_STATE = 2**30  # sorts after every real state
@@ -938,7 +940,59 @@ def decode_chunk(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
 def backtrace_device(traces: FrameTrace,
                      best_slots: torch.Tensor) -> torch.Tensor:
     """[T, B, ...] traces + [B] slots -> [B, T, W] words (frame-indexed,
-    newest-first within a frame; see hyp.assemble_words)."""
+    newest-first within a frame; see hyp.assemble_words).
+
+    CPU tensors take the plain version (backtrace_device_ref); CUDA tensors
+    launch the hand-written kernel (csrc/backtrace.cu: one thread per
+    utterance chases its backpointers over all T frames in one launch) or
+    raise.  The kernel's output is contiguous; the plain version's is a
+    transposed view with the same values.  `backtrace_device.launches`
+    counts its launches.
+    """
+    prev, words = traces
+    if words.device.type == "cpu":
+        return backtrace_device_ref(traces, best_slots)
+    if words.device.type != "cuda":
+        raise ValueError(f"backtrace_device: unsupported device "
+                         f"{words.device}")
+    t, b, k, w = words.shape
+    if (prev.dtype != I32 or words.dtype != I32 or k < 1
+            or tuple(prev.shape) != (t, b, k)
+            or tuple(best_slots.shape) != (b,)
+            or best_slots.dtype not in (torch.int32, torch.int64)
+            or prev.device != words.device
+            or best_slots.device != words.device):
+        raise ValueError(f"backtrace_device: needs int32 prev_slot [T, B, K] "
+                         f"and words [T, B, K >= 1, W] and integer "
+                         f"best_slots [B] on one device; got "
+                         f"{tuple(prev.shape)} {prev.dtype}, "
+                         f"{tuple(words.shape)} {words.dtype}, "
+                         f"{tuple(best_slots.shape)} {best_slots.dtype}")
+    if not (prev.is_contiguous() and words.is_contiguous()):
+        raise ValueError("backtrace_device: the traces must be contiguous")
+    out = torch.empty((b, t, w), dtype=I32, device=words.device)
+    if not out.numel():
+        return out
+    best = best_slots.to(I32).contiguous()
+    lib = kernel_library("backtrace", _BACKTRACE_ARGTYPES)
+    with torch.cuda.device(words.device):
+        rc = lib.catears_backtrace(prev.data_ptr(), words.data_ptr(),
+                                   best.data_ptr(), out.data_ptr(), t, b, k,
+                                   w, torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, rc, "backtrace_device")
+    backtrace_device.launches += 1
+    return out
+
+
+backtrace_device.launches = 0
+_BACKTRACE_ARGTYPES = {"catears_backtrace": [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+
+
+def backtrace_device_ref(traces: FrameTrace,
+                         best_slots: torch.Tensor) -> torch.Tensor:
+    """Plain version of backtrace_device: JAX's reverse scan step as a
+    Python loop over the T frames."""
     prev, words = traces
     t, b, _, w = words.shape
     slot = torch.clamp(best_slots.to(torch.int64), min=0)

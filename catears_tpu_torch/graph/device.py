@@ -34,18 +34,23 @@ classic row.
 `DeviceLm.build` lays a delta-LM G' out as the JAX DeviceLm's tables (dense
 state-0 arcs, two-choice bucketed arc hash, per-state backoff arcs), byte
 for byte; `lm_propagate` walks (state, label) lanes through them, and
-`lm_propagate_capped` walks only the word-emitting lanes, compacted.
+`lm_propagate_capped` walks only the word-emitting lanes, compacted: on
+the card in one launch of csrc/lm_walk.cu, on the CPU by their plain
+versions (`*_ref`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst
+from catears_tpu_torch.kernels import check_launch, kernel_library
 from catears_tpu_torch.utils.device import Device, resolve_device
 from catears_tpu_torch.utils.errors import CorruptionError
 
@@ -53,6 +58,8 @@ from catears_tpu_torch.utils.errors import CorruptionError
 TABLES = ("final", "state_packed", "over_packed", "eps_packed", "emit_block",
           "emit_hot")
 LM_TABLES = ("hash_tab", "state_tab", "small_lm", "uni_next", "uni_weight")
+_LM_DTYPES = (torch.int32, torch.int32, torch.float32, torch.int32,
+              torch.float32)
 _U32 = 0xFFFFFFFF
 
 
@@ -555,17 +562,36 @@ def lm_propagate_capped(dlm: DeviceLm, states: torch.Tensor,
     first cap keep their state with weight 0 (wrong results, as in JAX), so
     the caller must flag the overflow.  cap <= 0 (or >= E) walks every lane
     and still reports `needed`.
+
+    CPU tensors take the plain version (lm_propagate_capped_ref); CUDA
+    tensors launch the hand-written kernel (csrc/lm_walk.cu: the
+    compaction, each lane's walk to its own end and the write-back in one
+    launch) or raise.  `lm_propagate_capped.launches` counts its launches.
     """
+    if states.device.type == "cpu":
+        return lm_propagate_capped_ref(dlm, states, labels, cap)
+    return _lm_walk(dlm, states, labels, cap, lm_propagate_capped)
+
+
+lm_propagate_capped.launches = 0
+
+
+def lm_propagate_capped_ref(dlm: DeviceLm, states: torch.Tensor,
+                            labels: torch.Tensor, cap: int,
+                            work: Optional[Dict[str, int]] = None):
+    """Plain version of lm_propagate_capped: compact_mask, the static
+    masked walk (lm_propagate_ref) and a scatter back, as JAX does.  With
+    `work`, lm_propagate_ref counts the walk's table reads into it."""
     active = labels > 0
     needed = torch.sum(active, dim=-1, dtype=torch.int32)
     e = states.shape[-1]
     if cap <= 0 or cap >= e:
-        ns, w = lm_propagate(dlm, states, labels)
+        ns, w = lm_propagate_ref(dlm, states, labels, work)
         return ns, w, needed
     (sub_states, sub_labels), sub_ok, _total, lane = compact_mask(
         active, [states, labels], cap)
-    ns, w = lm_propagate(dlm, torch.where(sub_ok, sub_states, 0),
-                         torch.where(sub_ok, sub_labels, 0))
+    ns, w = lm_propagate_ref(dlm, torch.where(sub_ok, sub_states, 0),
+                             torch.where(sub_ok, sub_labels, 0), work)
     # Scatter back; invalid slots go to a spare lane that is cut off, so
     # lane 0 keeps its own result.
     lane = torch.where(sub_ok, lane, e)
@@ -590,7 +616,81 @@ def lm_propagate(dlm: Optional[DeviceLm], states: torch.Tensor,
     any shape.
 
     states, labels: int32.  Returns (next_states, delta_weights): label-0
-    lanes and full backoff misses keep their state with weight 0.
+    lanes and full backoff misses keep their state with weight 0.  CPU
+    tensors take the plain version (lm_propagate_ref); CUDA tensors launch
+    csrc/lm_walk.cu uncapped or raise.  `lm_propagate.launches` counts its
+    launches.
+    """
+    if dlm is None:
+        return states, torch.zeros_like(states, dtype=torch.float32)
+    if states.device.type == "cpu":
+        return lm_propagate_ref(dlm, states, labels)
+    ns, w, _needed = _lm_walk(dlm, states, labels, 0, lm_propagate)
+    return ns, w
+
+
+lm_propagate.launches = 0
+
+
+_LM_WALK_ARGTYPES = {"catears_lm_walk": [ctypes.c_void_p] * 11
+                     + [ctypes.c_int] * 6 + [ctypes.c_uint32] * 3
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+
+
+def _lm_walk(dlm: DeviceLm, states: torch.Tensor, labels: torch.Tensor,
+             cap: int, wrapper):
+    """One launch of csrc/lm_walk.cu over [..., E] lanes on the card:
+    (next_states, delta_weights, needed [...]), counted on
+    `wrapper.launches`.  Raises on what the kernel does not take."""
+    what = wrapper.__name__
+    if states.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {states.device}")
+    if (states.dtype != torch.int32 or labels.dtype != torch.int32
+            or states.shape != labels.shape or states.dim() < 1
+            or labels.device != states.device):
+        raise ValueError(f"{what}: states and labels must be int32 tensors "
+                         f"of one shape on one device")
+    if not (states.is_contiguous() and labels.is_contiguous()):
+        raise ValueError(f"{what}: states and labels must be contiguous")
+    tables = [getattr(dlm, name) for name in LM_TABLES]
+    for name, t, dtype in zip(LM_TABLES, tables, _LM_DTYPES):
+        if (t.device != states.device or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: DeviceLm.{name} must be a contiguous "
+                             f"{dtype} tensor on {states.device}")
+    e = states.shape[-1]
+    rows = math.prod(states.shape[:-1])
+    walkers = e if cap <= 0 or cap >= e else cap
+    out_s = torch.empty_like(states)
+    out_w = torch.empty(states.shape, dtype=torch.float32,
+                        device=states.device)
+    needed = torch.empty(states.shape[:-1], dtype=torch.int32,
+                         device=states.device)
+    if rows:
+        lanes = torch.empty((rows, walkers), dtype=torch.int32,
+                            device=states.device)
+        lib = kernel_library("lm_walk", _LM_WALK_ARGTYPES)
+        with torch.cuda.device(states.device):
+            rc = lib.catears_lm_walk(
+                states.data_ptr(), labels.data_ptr(),
+                *(t.data_ptr() for t in tables), out_s.data_ptr(),
+                out_w.data_ptr(), needed.data_ptr(), lanes.data_ptr(), rows,
+                e, walkers, dlm.small_lm.shape[0], dlm.uni_next.shape[0],
+                dlm.state_tab.shape[0], dlm.hash_seed1, dlm.hash_seed2,
+                dlm.hash_mask, dlm.max_backoff, lm_iterations(dlm),
+                torch.cuda.current_stream().cuda_stream)
+        check_launch(lib, rc, what)
+        wrapper.launches += 1
+    return out_s, out_w, needed
+
+
+def lm_propagate_ref(dlm: DeviceLm, states: torch.Tensor,
+                     labels: torch.Tensor,
+                     work: Optional[Dict[str, int]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of lm_propagate.  With `work` (a bound's input, read
+    from the device), it adds the walk's lanes ("walked") and table reads:
+    hash-row probes ("probes") and backoff-row reads ("misses").
 
     The JAX walk is a while_loop until no lane is active; here the loop
     runs a static lm_iterations(dlm) = 2 * (max_backoff + 1) times, with no
@@ -604,8 +704,6 @@ def lm_propagate(dlm: Optional[DeviceLm], states: torch.Tensor,
         bo_ok and miss are all false), so the iterations past its end, or
         past every lane's end, change nothing.
     """
-    if dlm is None:
-        return states, torch.zeros_like(states, dtype=torch.float32)
     l_c = torch.clamp(labels, 0, dlm.uni_next.shape[0] - 1).long()
     uni_nxt = dlm.uni_next[l_c]
     uni_w = dlm.uni_weight[l_c]
@@ -624,6 +722,8 @@ def lm_propagate(dlm: Optional[DeviceLm], states: torch.Tensor,
                        device=states.device)
     seed2 = torch.full((), dlm.hash_seed2, dtype=torch.int64,
                        device=states.device)
+    if work is not None:
+        work["walked"] = work.get("walked", 0) + int(active0.sum())
     for _ in range(lm_iterations(dlm)):
         # One probe round: the bucket row gather + 4-slot compare (the
         # second-choice bucket in phase 2); state 0 reads the dense table.
@@ -646,6 +746,9 @@ def lm_propagate(dlm: Optional[DeviceLm], states: torch.Tensor,
         found_now = active & hit
         retry = active & need2
         miss = active & ~hit & ~need2
+        if work is not None:
+            for key, lanes in (("probes", active & ~at0), ("misses", miss)):
+                work[key] = work.get(key, 0) + int(lanes.sum())
         # Misses follow the state's backoff arc, if it has one.
         st = dlm.state_tab[torch.clamp(cur, 0, n_state - 1).long()]
         bo_next = st[..., 0]

@@ -2,7 +2,9 @@
 
 Each source `csrc/<name>.cu` is compiled by `nvcc` for sm_90a (Hopper) into
 a shared library with a plain C interface, `_build/lib<name>-<hash>.so`
-next to this file (listed in .gitignore), and loaded with ctypes.  The hash
+next to this file (listed in .gitignore), and loaded with ctypes: every C
+entry point returns 0 or a cudaError_t, and every library has
+`catears_error_string(code)`.  The hash
 covers the sources and the flags, so an edited source is rebuilt.  All
 sources are compiled at once (one nvcc process each) on first use; nothing
 is built or loaded when this module is imported: the CPU tests import every
@@ -84,3 +86,26 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
             _libs = {os.path.splitext(os.path.basename(src))[0]:
                      ctypes.CDLL(_lib_path(src)) for src in sources}
         return _libs
+
+
+def kernel_library(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
+    """The library of `csrc/<name>.cu` (built and loaded by load_kernels on
+    first use) with its C functions' argument types set: ctypes.c_void_p
+    for every pointer and the stream, or ctypes passes a 32-bit int."""
+    lib = load_kernels()[name]
+    if not getattr(lib, "catears_bound", False):
+        for fn, types in argtypes.items():
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.catears_error_string.argtypes = [ctypes.c_int]
+        lib.catears_error_string.restype = ctypes.c_char_p
+        lib.catears_bound = True
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize does not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.catears_error_string(rc).decode()}")

@@ -39,6 +39,14 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               lm_propagate on 65,536 mixed (state, label) queries: equal
               states and bit-equal weights on cuda and cpu; build and walk
               times
+  lm-kernel   csrc/lm_walk.cu (lm_propagate_capped on cuda) == its plain
+              version on the card, on the lanes the decoder's walk is given
+              at the last of 100 planted frames of 16 utterances: all 16
+              rows at the bench's cap (384), the first 8 (the smoke's
+              batch), and uncapped; equal states, bit-equal weights, equal
+              needed; device ms (CUDA graph replay), the call's ms, the
+              plain version's ms, the bound from these lanes' bytes and its
+              share
   decoder     BatchDecoder.decode of the same log-probs on cuda and on the
               CPU: identical words, bit-equal costs; plus the WER of
               planted trie paths decoded on cuda
@@ -77,6 +85,12 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               launched once per linear layer per batch, and the first
               CPU_UTTS transcripts equal to the same command with
               --device=cpu on those utterances
+  backtrace-kernel
+              csrc/backtrace.cu (backtrace_device on cuda) == its plain
+              version on the card, bit for bit, on the traces and best
+              slots of the e2e run (998 frames x 8 utterances x beam 2048);
+              device ms, the call's ms, the plain version's ms, the bound
+              from the chains' bytes and its share
   e2e-lm      the same with the delta-LM config, on the first
               E2E_LM_UTTS utterances
   e2e-raw     the same with a config whose graph is the trie plus one
@@ -179,20 +193,36 @@ The last cuts (e2e-lm 4 -> 2 utterances, the LM-on streams 3 -> 2 s,
 bench-scaling 1 -> 0.5 s) came when the variant phases (56 s) brought the
 whole run to 844 s on an NVIDIA H100 80GB HBM3 at 700 W.
 
+Every decode phase (decoder*, e2e*, stream-decoder*, stream-trie*, the
+bench and its modes) prints the launches of the two device-loop kernels
+in its run, counted from 0 just before it, and fails when an LM-on run
+made no lm_walk launch (or an LM-off run one), or a bulk decode
+(BatchDecoder, the CLI's --batch, the bench's headline and product) no
+backtrace launch; the bench's headline runs in a subprocess that prints
+its counts last on stderr.
+
 Before the last line come {"kernels": [...]} and the card's name and power
-limit; the last line is {"ok": true, "device": {...}}.  The one kernel,
-matmul_s8.cu, is listed once, by the entry point the main path launches it
-through (`qmatmul`, the fused epilogue): launches summed over the e2e
-(LM off, on and raw), stream, stream-trie and bench-am-int8 runs, each
-counted from 0 just before its run; error, times and bound from this run,
-summed over the AM's three shapes (the e2e batch of 8).  Its int32 entry
-point (`matmul_s8`, which the main path does not launch) is nested in the
-entry with its own launches, error, times, bound and torch._int_mm's
-time.  The epsilon closure and the decode variants are plain PyTorch,
-like the rest of the decoder: no kernel of their own.
+limit; the last line is {"ok": true, "device": {...}}.  Each kernel is
+listed once, by the entry point the main path launches it through, with
+its launches summed over the main path's runs (the e2e runs, LM off, on
+and raw; stream, stream-trie and stream-trie-lm; the bench's headline and
+bench-am-int8), each counted from 0 just before its run:
+  matmul_s8.cu  `qmatmul`, the fused epilogue: error, times and bound
+              summed over the AM's three shapes (the e2e batch of 8).  Its
+              int32 entry point (`matmul_s8`, which the main path does not
+              launch) is nested in the entry with its own launches, error,
+              times, bound and torch._int_mm's time;
+  lm_walk.cu  `lm_propagate_capped`: times and bound at the bench's shape
+              (lm-kernel's first line);
+  backtrace.cu  `backtrace_device`: backtrace-kernel's times and bound.
+No single PyTorch call computes the walk or the backtrace: their
+library_ms is null.  The epsilon closure and the decode variants are
+plain PyTorch, like the rest of the decoder: no kernel of their own.
 Bounds: the larger of the bytes the
 function must move (each input read once, the output written once) over
-3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM, dense).
+3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM, dense); the
+two device loops move bytes only (their integer hashing is negligible
+beside either peak), counted from this run's data.
 Everything it writes goes to a scratch directory under
 catears_tpu_torch/_build/, removed at the end.
 """
@@ -213,6 +243,9 @@ import numpy as np
 import torch
 
 from catears_tpu_torch.am import quant
+from catears_tpu_torch.decode import beam as tbeam
+from catears_tpu_torch.decode import decoder as tdecoder
+from catears_tpu_torch.graph import device as tdevice
 from catears_tpu_torch.kernels import BUILD_DIR, BUILD_LOG, load_kernels
 from catears_tpu_torch.tools.biggraph import (make_trie_graph, plant_logp,
                                               write_trie_model)
@@ -284,6 +317,10 @@ VARIANT_PLANTED = (2, 500)
 VARIANT_CPU_FRAMES = 50
 VARIANT_HOT_ROWS, VARIANT_COLD = 175_000, 1024
 OVERFLOW_FRAMES = 20
+# The lm-kernel phase: the walk's inputs at the last of LM_KERNEL_FRAMES
+# planted frames of LM_KERNEL_UTTS utterances (the bench's batch), decoded
+# on the card with the bench's walk cap; the smoke's batch is their first 8.
+LM_KERNEL_UTTS, LM_KERNEL_FRAMES, SMOKE_BATCH = 16, 100, 8
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM, dense
@@ -449,6 +486,53 @@ def add_timing(totals, ms, plain_ms, bound_ms, bound_by, library_ms=None):
 def new_totals():
     return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
             "max_abs_err": 0, "by": {"bytes": 0.0, "operations": 0.0}}
+
+
+def zero_counts():
+    """Every kernel entry point's launch count to 0, just before a run."""
+    quant.matmul_s8.launches = quant.qmatmul.launches = 0
+    tdevice.lm_propagate_capped.launches = 0
+    tbeam.backtrace_device.launches = 0
+
+
+def counts():
+    """Launches since zero_counts(), by the entry point the main path
+    launches each kernel through."""
+    return {"matmul_s8": quant.matmul_s8.launches,
+            "qmatmul": quant.qmatmul.launches,
+            "lm_walk": tdevice.lm_propagate_capped.launches,
+            "backtrace": tbeam.backtrace_device.launches}
+
+
+def loop_launches(name, launched, lm, bulk):
+    """The phase line's fields for the two device-loop kernels; fails when
+    an LM-on run walked without lm_walk, an LM-off run launched it, or a
+    bulk decode (BatchDecoder, the CLI's --batch) backtraced without the
+    backtrace kernel."""
+    if bool(launched["lm_walk"]) != lm:
+        fail(f"{name}: {launched['lm_walk']} lm_walk launches with the LM "
+             f"{'on' if lm else 'off'}")
+    if bulk and not launched["backtrace"]:
+        fail(f"{name}: a bulk decode made no backtrace launch")
+    return {"lm_walk_launches": launched["lm_walk"],
+            "backtrace_launches": launched["backtrace"]}
+
+
+@contextlib.contextmanager
+def spied(module, name, keep):
+    """While entered, module.name(*args) also stores its last args in
+    `keep` (the tensors a kernel's wrapper is given on the main path)."""
+    fn = getattr(module, name)
+
+    def spy(*args):
+        keep[:] = args
+        return fn(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, fn)
 
 
 def randint8(g, shape, cuda):
@@ -673,8 +757,6 @@ def calibrated_phase(conf, waves, batch_waves, card):
 
 def lm_phase(delta, card):
     """DeviceLm tables and the walk, cuda vs cpu, at the bench's G'."""
-    from catears_tpu_torch.graph import device as tdevice
-
     cuda = torch.device("cuda:0")
     t0 = time.perf_counter()
     dlm_cpu = tdevice.DeviceLm.build(delta, device=torch.device("cpu"))
@@ -716,6 +798,107 @@ def lm_phase(delta, card):
         fail(f"only {moved} of {n} LM queries moved")
 
 
+def same_bytes(ref, got):
+    return all(r.dtype == g.dtype and r.shape == g.shape
+               and r.cpu().numpy().tobytes() == g.cpu().numpy().tobytes()
+               for r, g in zip(ref, got))
+
+
+def lm_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
+    """csrc/lm_walk.cu (lm_propagate_capped on cuda) against its plain
+    version on the card, on the lanes the decoder's walk is given: the last
+    of LM_KERNEL_FRAMES planted frames of LM_KERNEL_UTTS utterances, at the
+    bench's cap (all rows: the bench's batch; the first SMOKE_BATCH: the
+    smoke's) and uncapped.  Equal states, bit-equal weights, equal needed;
+    device ms (CUDA graph replay), the call's ms with the host's, the plain
+    version's ms, the bound from the bytes these lanes need (16 B a lane
+    streamed; per walked lane 12 B of unigram tables, 64 B a hash probe, 8
+    B a backoff-row read) and its share.  Returns the totals of the bench's
+    shape for the kernels line."""
+    planted = plant_logp(np.random.RandomState(4), tg, LM_KERNEL_UTTS,
+                         LM_KERNEL_FRAMES)[0]
+    with spied(tbeam, "lm_propagate_capped", []) as walk:
+        dec.decode(torch.from_numpy(planted).to(cuda), final_fallback=True)
+    dlm, states, labels, cap = walk
+    totals = new_totals()
+    for rows, c in ((LM_KERNEL_UTTS, cap), (SMOKE_BATCH, cap),
+                    (LM_KERNEL_UTTS, 0)):
+        st, lab = states[:rows].contiguous(), labels[:rows].contiguous()
+        got = tdevice.lm_propagate_capped(dlm, st, lab, c)
+        work = {}
+        ref = tdevice.lm_propagate_capped_ref(dlm, st, lab, c, work)
+        torch.cuda.synchronize()
+        equal = same_bytes(ref, got)
+        err = float((got[1] - ref[1]).abs().max())
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        t_k = device_ms(lambda: tdevice.lm_propagate_capped(dlm, st, lab, c))
+        t_call = time_ms(lambda: tdevice.lm_propagate_capped(dlm, st, lab, c))
+        t_p = time_ms(lambda: tdevice.lm_propagate_capped_ref(dlm, st, lab,
+                                                              c), iters=5)
+        e = st.shape[-1]
+        n_bytes = (16 * rows * e + 4 * rows + 12 * work["walked"]
+                   + 64 * work["probes"] + 8 * work["misses"])
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        phase("lm-kernel", rows=rows, lanes=e, cap=c,
+              needed=got[2].tolist(), walked=work["walked"],
+              probes=work["probes"], backoff_reads=work["misses"],
+              equal=equal, max_abs_err=err, ms=f"{t_k:.4f}",
+              call_ms=f"{t_call:.4f}", plain_ms=f"{t_p:.4f}",
+              bound_ms=f"{b_ms:.5f}", bound_by="bytes",
+              share_of_bound=f"{b_ms / t_k:.4f}",
+              latency_chain=f"<= {tdevice.lm_iterations(dlm)} gathers",
+              card=f"'{card}'")
+        if not equal:
+            fail(f"lm-kernel: the kernel differs from lm_propagate_capped_ref "
+                 f"at {rows} x {e}, cap {c}")
+        if not work["walked"]:
+            fail("lm-kernel: the captured lanes carry no word")
+        if rows == LM_KERNEL_UTTS and c == cap:
+            add_timing(totals, t_k, t_p, b_ms, "bytes")
+    return totals
+
+
+def backtrace_kernel_phase(traces, best, card):
+    """csrc/backtrace.cu (backtrace_device on cuda) against its plain
+    version on the card, on the traces and best slots the e2e run's
+    BatchDecoder backtraced: bit-equal words; device ms (CUDA graph
+    replay), the call's ms, the plain version's ms, and the bound from the
+    bytes the chase needs (a backpointer and a word row a frame while the
+    chain lasts, the [B, T, W] output); returns its totals."""
+    got = tbeam.backtrace_device(traces, best)
+    ref = tbeam.backtrace_device_ref(traces, best)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref)
+    err = int((got - ref).abs().max())
+    t_k = device_ms(lambda: tbeam.backtrace_device(traces, best), iters=5)
+    t_call = time_ms(lambda: tbeam.backtrace_device(traces, best), iters=5)
+    t_p = time_ms(lambda: tbeam.backtrace_device_ref(traces, best), iters=3)
+    t, b, k, w = traces.words.shape
+    prev = traces.prev_slot.cpu().numpy()
+    steps = 0  # frames each chain is live for, summed
+    for u, slot in enumerate(np.maximum(best.cpu().numpy(), 0)):
+        for f in range(t - 1, -1, -1):
+            steps += 1
+            slot = prev[f, u, slot]
+            if slot < 0:
+                break
+    n_bytes = steps * 4 * (1 + w) + 4 * b * t * w + 4 * b
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    phase("backtrace-kernel", frames=t, utts=b, beam=k, words_per_frame=w,
+          chain_steps=steps, equal=equal, max_abs_err=err, ms=f"{t_k:.4f}",
+          call_ms=f"{t_call:.4f}", plain_ms=f"{t_p:.4f}",
+          bound_ms=f"{b_ms:.6f}", bound_by="bytes",
+          share_of_bound=f"{b_ms / t_k:.6f}",
+          latency_chain=f"{t} dependent loads", card=f"'{card}'")
+    if not equal:
+        fail("backtrace-kernel: the kernel differs from "
+             "backtrace_device_ref")
+    totals = new_totals()
+    totals["max_abs_err"] = err
+    add_timing(totals, t_k, t_p, b_ms, "bytes")
+    return totals
+
+
 def planted_wer(dec, tg, lm, planted_frames):
     """(WER, reference words, decode seconds, utterances, frames) of
     planted trie paths decoded on the card, as the JAX bench scores them:
@@ -744,7 +927,9 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
     t0 = time.perf_counter()
     # final_fallback: random-weight acoustics rarely end in a final state;
     # backtrace the cheapest token so the paths compared are real.
+    zero_counts()
     hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
+    launched = loop_launches(name, counts(), lm, bulk=True)
     hyp_cpu = dec_cpu.decode(logp.cpu(), lengths, final_fallback=True)
     same_words = [h.words for h in hyp_gpu] == [h.words for h in hyp_cpu]
     same_cost = ([np.float64(h.weight) for h in hyp_gpu]
@@ -752,7 +937,7 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
     phase(name, utts=len(lengths), frames=lengths,
           same_words=same_words, bit_equal_costs=same_cost,
           words=[len(h.words) for h in hyp_gpu],
-          costs=[h.weight for h in hyp_gpu],
+          costs=[h.weight for h in hyp_gpu], **launched,
           seconds=f"{time.perf_counter() - t0:.2f}")
     if not (same_words and same_cost):
         fail(f"{name} on cuda and cpu disagree")
@@ -873,6 +1058,7 @@ def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
     cut = [min(n, cut_frames) for n in lengths]
     loop = FrameLoop()
     retries = log.metrics().get("overflow_retries", 0)
+    zero_counts()
     try:
         with loop:
             hyp_gpu = dec.decode(logp[:, :frames],
@@ -886,6 +1072,7 @@ def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
                 dec, tg, lm, CLOSURE_PLANTED)
     except RuntimeError as e:  # set_sync_debug_mode("error") raised
         fail(f"{name}: a device read in the decode's frame loop: {e}")
+    launched = loop_launches(name, counts(), lm, bulk=True)
     t0 = time.perf_counter()
     hyp_cpu = dec_cpu.decode(logp[:, :cut_frames].cpu(), cut,
                              final_fallback=True)
@@ -903,7 +1090,7 @@ def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
           planted_utts=n, planted_frames=planted_frames,
           planted_wer=f"{wer:.4f}", planted_ref_words=n_ref,
           planted_ms_per_frame=f"{planted_s * 1e3 / planted_frames:.3f}",
-          cpu_s=f"{cpu_s:.2f}", card=f"'{card}'")
+          **launched, cpu_s=f"{cpu_s:.2f}", card=f"'{card}'")
     if not (same_words and same_cost):
         fail(f"{name} on cuda and cpu disagree")
     if require_wer and wer > 0.25:
@@ -1132,14 +1319,16 @@ def run_cli(argv):
     return rc, out.getvalue().splitlines(), err.getvalue().strip()
 
 
-def e2e_phase(name, conf, scp, cpu_scp, linears, card, watch=False):
+def e2e_phase(name, conf, scp, cpu_scp, linears, card, watch=False,
+              lm=False, backtrace=None):
     """cli.main(["--batch=8", conf, scp]) on cuda, then the same with
     --device=cpu on `cpu_scp`, the first CPU_UTTS utterances (the longest
     among them, so the AM's bucket and each utterance's result are the
-    batch's); returns the launches the card run made through each entry
-    point of the kernel, counted from 0 just before it.  With `watch`, the
-    card run's frame loop must make no device read, and its ms per frame
-    and high-water marks are printed."""
+    batch's); returns the launches the card run made through each kernel's
+    entry point, counted from 0 just before it (the LM walk's only with
+    `lm`).  With `watch`, the card run's frame loop must make no device
+    read, and its ms per frame and high-water marks are printed.  A list
+    `backtrace` receives the card run's last backtrace_device arguments."""
     from catears_tpu_torch.io.wav import read_scp
     from catears_tpu_torch.runtime.batch import load_waves
 
@@ -1148,34 +1337,34 @@ def e2e_phase(name, conf, scp, cpu_scp, linears, card, watch=False):
         [p for _, p in read_scp(scp)])) / 16000.0
     retries = log.metrics().get("overflow_retries", 0)
     torch.cuda.synchronize()
-    quant.matmul_s8.launches = quant.qmatmul.launches = 0
+    zero_counts()
     loop = FrameLoop() if watch else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with loop:
+    with loop, spied(tdecoder, "backtrace_device",
+                     [] if backtrace is None else backtrace):
         rc, lines, err = run_cli(["--batch=8", conf, scp])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     extra = {} if not watch or not loop.frames else dict(
         ms_per_frame=loop.ms_per_frame(), hiwater=loop.marks())
-    launches = {"matmul_s8": quant.matmul_s8.launches,
-                "qmatmul": quant.qmatmul.launches}
+    launches = counts()
     overflowed = log.metrics().get("overflow_retries", 0) != retries
     t0 = time.perf_counter()
     cpu_rc, cpu_lines, cpu_err = run_cli(["--batch=8", "--device=cpu", conf,
                                           cpu_scp])
     cpu_dt = time.perf_counter() - t0
     same = lines[:len(cpu_lines)] == cpu_lines
+    if rc != 0:
+        fail(f"{name}: cli exited {rc}: {err}")
     phase(name, rc=rc, lines=len(lines), utts=n_utts,
           words=[len(line.split()) - 1 for line in lines],
           cpu_utts=len(cpu_lines), same_as_cpu=same,
           fused_launches=launches["qmatmul"],
           int32_launches=launches["matmul_s8"], linears=linears,
-          overflow=overflowed,
+          **loop_launches(name, launches, lm, bulk=True), overflow=overflowed,
           wall_s=f"{dt:.2f}", audio_s=f"{audio_s:.2f}",
           audio_s_per_s=f"{audio_s / dt:.2f}", cpu_wall_s=f"{cpu_dt:.2f}",
           **extra, card=f"'{card}'")
-    if rc != 0:
-        fail(f"{name}: cli exited {rc}: {err}")
     if len(lines) != n_utts or any(
             not line.startswith(f"utt{i}") for i, line in enumerate(lines)):
         fail(f"{name}: expected one line per utterance, got {lines!r}")
@@ -1300,6 +1489,7 @@ def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
 
     loop = FrameLoop() if decoder is not None else contextlib.nullcontext()
     torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     try:
         with loop:
@@ -1307,6 +1497,8 @@ def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
     except RuntimeError as e:  # set_sync_debug_mode("error") raised
         fail(f"{name}: a device read in the Decoder's frame loop: {e}")
     dt = time.perf_counter() - t0
+    launched = loop_launches(name, counts(), rec.delta_lm is not None,
+                             bulk=False)
     batch = (batch_decoder or get_batch_decoder(rec)).decode(
         torch.from_numpy(planted).to(cuda), final_fallback=True)
     same = words == [h.words for h in batch]
@@ -1321,7 +1513,7 @@ def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
           words=[len(w) for w in words], wer=f"{errors / n_ref:.4f}",
           ref_words=n_ref, decode_s=f"{dt:.2f}",
           ms_per_frame=f"{dt * 1e3 / (2 * frames):.3f}", **extra,
-          card=f"'{card}'")
+          **launched, card=f"'{card}'")
     if not same:
         fail(f"{name}: the Decoder's words differ from BatchDecoder's")
     if errors / n_ref > 0.25:
@@ -1403,10 +1595,9 @@ def stream_trie_phase(name, rec, conf, waves, n_linears, card,
     try:
         run_streams(rec, [w[:2 * TICK] for w in waves], True)  # warm-up
         torch.cuda.synchronize()
-        quant.matmul_s8.launches = quant.qmatmul.launches = 0
+        zero_counts()
         words, ticks, partials, steps, wall = run_streams(rec, waves, True)
-        launches = {"matmul_s8": quant.matmul_s8.launches,
-                    "qmatmul": quant.qmatmul.launches}
+        launches = counts()
         t0 = time.perf_counter()
         cpu_words = run_streams(Recognizer(conf, device=torch.device("cpu")),
                                 waves[:CPU_STREAMS], False)[0]
@@ -1420,6 +1611,8 @@ def stream_trie_phase(name, rec, conf, waves, n_linears, card,
           words=[len(w) for w in words], cpu_streams=CPU_STREAMS,
           same_as_cpu=words[:CPU_STREAMS] == cpu_words,
           fused_launches=launches["qmatmul"], linears=n_linears,
+          **loop_launches(name, launches, rec.delta_lm is not None,
+                          bulk=False),
           tick_ms_p50=percentile_ms(ticks, 50),
           tick_ms_p99=percentile_ms(ticks, 99),
           partials_ms_p50=percentile_ms(partials, 50),
@@ -1477,13 +1670,28 @@ def argmin_phase():
         fail(f"first_argmin on cuda picked {got}, not {want}")
 
 
+# `python -m catears_tpu_torch.bench`, then the launches of the device-loop
+# kernels it made (warm-up and timed runs, LM off and on) on stderr.
+BENCH_COUNTED = """
+import runpy, sys
+from catears_tpu_torch.decode.beam import backtrace_device
+from catears_tpu_torch.graph.device import lm_propagate_capped
+try:
+    runpy.run_module("catears_tpu_torch.bench", run_name="__main__")
+finally:
+    print(f"# [launches] lm_walk={lm_propagate_capped.launches} "
+          f"backtrace={backtrace_device.launches}", file=sys.stderr)
+"""
+
+
 def bench_phase(card):
     """`python -m catears_tpu_torch.bench` in a subprocess at its defaults
     (the 50k-word trie, TDNN-1024 x 5, beam 2048, 16 x 10 s), BENCH_RUNS=1:
-    exit 0, bench.py's JSON keys, a planted WER LM off and on, and no
-    capacity overflow (the bench asserts it after its warm-up run)."""
+    exit 0, bench.py's JSON keys, a planted WER LM off and on, no capacity
+    overflow (the bench asserts it after its warm-up run), and launches of
+    lm_walk (LM on) and backtrace; returns them."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "catears_tpu_torch.bench"],
+    proc = subprocess.run([sys.executable, "-c", BENCH_COUNTED],
                           capture_output=True, text=True, cwd=REPO,
                           timeout=900, env=bench_env(BENCH_RUNS="1"))
     wall = time.perf_counter() - t0
@@ -1495,12 +1703,18 @@ def bench_phase(card):
     record = json.loads(proc.stdout.strip().splitlines()[-1])
     summaries = [x for x in proc.stderr.splitlines()
                  if x.startswith(("# [lm-off] graph=", "# [lm-on] graph="))]
+    line = [x for x in proc.stderr.splitlines()
+            if x.startswith("# [launches] ")][-1]
+    launched = {"matmul_s8": 0, "qmatmul": 0,  # the bench's AM is float
+                **{k: int(v) for k, v in (x.split("=")
+                                          for x in line.split()[2:])}}
     phase("bench", rc=proc.returncode, xrt=record.get("value"),
           wer=record.get("wer"), lm_on_xrt=record.get("lm_on_xrt"),
           lm_on_wer=record.get("lm_on_wer"),
           ratio=record.get("lm_on_ratio_off_over_on"),
           lm_off_s=run_times(proc.stderr, "lm-off"),
           lm_on_s=run_times(proc.stderr, "lm-on"), wall_s=f"{wall:.2f}",
+          **loop_launches("bench", launched, True, bulk=True),
           card=f"'{card}'")
     if set(record) != BENCH_JSON_KEYS:
         fail(f"bench printed keys {sorted(record)}, not "
@@ -1513,6 +1727,7 @@ def bench_phase(card):
     if record["wer"] > 0.25 or record["lm_on_wer"] > 0.25:
         fail(f"bench planted WER {record['wer']} / {record['lm_on_wer']} "
              f"is too high")
+    return launched
 
 
 def bench_mode_phase(name, metric, card, **knobs):
@@ -1528,7 +1743,7 @@ def bench_mode_phase(name, metric, card, **knobs):
                                    "BENCH_RUNS": BENCH_MODE_RUNS, **knobs}))
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
-    quant.matmul_s8.launches = quant.qmatmul.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -1539,8 +1754,7 @@ def bench_mode_phase(name, metric, card, **knobs):
         os.environ.clear()
         os.environ.update(saved)
     torch.cuda.synchronize()
-    launches = {"matmul_s8": quant.matmul_s8.launches,
-                "qmatmul": quant.qmatmul.launches}
+    launches = counts()
     wall = time.perf_counter() - t0
     for line in err.getvalue().splitlines():
         if line.startswith("# ") and ("latency" in line or "times=" in line
@@ -1549,6 +1763,8 @@ def bench_mode_phase(name, metric, card, **knobs):
     record = json.loads(out.getvalue().strip().splitlines()[-1])
     phase(name, rc=rc, metric=record["metric"], xrt=record["value"],
           wer=record.get("wer"), fused_launches=launches["qmatmul"],
+          **loop_launches(name, launches, False,
+                          bulk=knobs.get("BENCH_MODE") == "product"),
           wall_s=f"{wall:.2f}", card=f"'{card}'")
     if rc != 0 or record["metric"] != metric or not record["value"] > 0 \
             or not {"metric", "value", "unit", "vs_baseline"} <= set(record):
@@ -2124,6 +2340,7 @@ def main():
                                   device=torch.device("cpu"),
                                   delta_lm=rec_lm.delta_lm)
         phase("lm-decoders", seconds=f"{time.perf_counter() - t0:.2f}")
+        totals["lm_walk"] = lm_kernel_phase(dec_lm, tg, card)
         decoder_phase("decoder-lm", dec_lm, dec_lm_cpu, logp, lengths, tg,
                       card)
         del dec_lm_cpu
@@ -2155,14 +2372,19 @@ def main():
             with open(scp) as src, open(path, "w") as dst:
                 dst.writelines(src.readlines()[:n])
         raw_conf = write_raw_conf(work, conf, rec.fst)
-        runs = [e2e_phase("e2e", conf, scp, cpu_scp, n_linears, card),
-                e2e_phase("e2e-lm", lm_conf, lm_scp, cpu_scp, n_linears,
-                          card),
-                e2e_phase("e2e-raw", raw_conf, scp, cpu_scp, n_linears, card,
-                          watch=True)]
+        traced = []
+        runs = [e2e_phase("e2e", conf, scp, cpu_scp, n_linears, card,
+                          backtrace=traced)]
+        totals["backtrace"] = backtrace_kernel_phase(*traced, card)
+        del traced
+        runs += [e2e_phase("e2e-lm", lm_conf, lm_scp, cpu_scp, n_linears,
+                           card, lm=True),
+                 e2e_phase("e2e-raw", raw_conf, scp, cpu_scp, n_linears,
+                           card, watch=True)]
 
         # -- the live-stream path: toy model, Decoder, 8 trie streams ------
-        runs.append({"matmul_s8": 0, "qmatmul": stream_phase(work, card)})
+        runs.append({"matmul_s8": 0, "qmatmul": stream_phase(work, card),
+                     "lm_walk": 0, "backtrace": 0})
         stream_decoder_phase("stream-decoder", rec, tg, card, 500)
         stream_decoder_phase("stream-decoder-lm", rec_lm, tg, card, 150)
         stream_decoder_phase(
@@ -2185,7 +2407,7 @@ def main():
         del rec, rec_lm
         torch.cuda.empty_cache()
         argmin_phase()
-        bench_phase(card)
+        runs.append(bench_phase(card))
         runs.append(bench_modes(card))
 
         # -- the last slice: multi-GPU, native host library, synth -------
@@ -2214,7 +2436,17 @@ def main():
                 "entry_point": "qmatmul", **entry("qmatmul", totals["qmatmul"]),
                 "int32_entry_point": {"name": "matmul_s8",
                                       **entry("matmul_s8",
-                                              totals["matmul_s8"])}}]
+                                              totals["matmul_s8"])}},
+               {"name": "lm_walk", "route": "cuda",
+                "source": "catears_tpu_torch/csrc/lm_walk.cu",
+                "replaces": "catears_tpu/graph/device.py:610",
+                "entry_point": "lm_propagate_capped",
+                **entry("lm_walk", totals["lm_walk"])},
+               {"name": "backtrace", "route": "cuda",
+                "source": "catears_tpu_torch/csrc/backtrace.cu",
+                "replaces": "catears_tpu/decode/beam.py:1064",
+                "entry_point": "backtrace_device",
+                **entry("backtrace", totals["backtrace"])}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

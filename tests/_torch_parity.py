@@ -258,3 +258,148 @@ def wav_payload(path: str, truncate: int = 0):
         fmt = read_pcm_header(fd)
         payload = fd.read()
     return fmt, payload[:truncate] if truncate else payload
+
+
+# -- the delta-LM walk's corner cases (shared by the CPU parity tests and
+# the card's kernel tests, which need no JAX) -------------------------------
+
+CHAIN_QUERY = 3  # a unigram every chain state's first bucket overflows on
+CHAIN_MISS = 41  # a label no state has an arc for
+CHAIN_UNIGRAMS = 40  # state 0 has labels 1..40
+
+
+def chain_delta(fst, depth: int = 10, seed: int = 11):
+    """(G', queries): a delta-LM G' built by `fst` (the JAX package's
+    graph.fst or the port's) whose walks reach every branch of the loop, and
+    (state, label) queries that take each branch.
+
+    States 1..depth form a backoff chain 1 -> 2 -> ... -> depth -> 0 with
+    weights 0.25 s; state depth + 1 backs off straight to 0.  Each chain
+    state has its own label 50 + s and five labels that share
+    CHAIN_QUERY's first-choice bucket, so that bucket overflows: one of the
+    five sits in its second-choice bucket, and CHAIN_QUERY probes both
+    buckets of every chain state before it backs off.  State 0 has
+    unigram arcs for labels 1..CHAIN_UNIGRAMS.  The queries: CHAIN_QUERY
+    from state 1 (the whole chain, past any max_backoff below depth), own
+    labels at every depth, the colliding labels, CHAIN_MISS (a full backoff
+    miss), labels past the unigram and small_lm tables, and state 0.
+    The colliding labels are the first five from `skip` on whose hash
+    build settles on its first seed, which they were chosen for.
+    """
+    from catears_tpu_torch.graph import fst as tfst
+    from catears_tpu_torch.graph.device import lm_arrays
+
+    for skip in range(0, 200, 5):
+        delta, queries = _chain_delta(tfst, depth, seed, skip)
+        meta = lm_arrays(delta)[1]
+        if (meta["hash_seed1"], meta["hash_mask"]) == _CHAIN_HASH:
+            return _chain_delta(fst, depth, seed, skip)
+    raise AssertionError("no colliding labels settle the hash build")
+
+
+_CHAIN_HASH = (0x1234, 255)  # the hash build's first attempt at < 512 keys
+
+
+def _chain_delta(fst, depth: int, seed: int, skip: int):
+    import types
+
+    from catears_tpu_torch.graph.device import _lm_hash_np
+
+    seed1, mask = _CHAIN_HASH
+    rng = np.random.RandomState(seed)
+    cand = np.arange(100, 2**16, dtype=np.int32)
+    src, dst, lab, wts = [], [], [], []
+    colliding = {}
+    for s in range(1, depth + 2):
+        src.append(s)
+        dst.append(s + 1 if s < depth else 0)
+        lab.append(0)
+        wts.append(0.25 * s)
+        src.append(s)
+        dst.append(rng.randint(1, depth + 2))
+        lab.append(50 + s)
+        wts.append(rng.rand())
+        if s > depth:
+            continue
+        h = _lm_hash_np(np.full(cand.size, s, np.int32), cand, seed1, mask)
+        hq = _lm_hash_np(np.array([s], np.int32),
+                         np.array([CHAIN_QUERY], np.int32), seed1, mask)[0]
+        colliding[s] = [int(lb) for lb in cand[h == hq][skip:skip + 5]]
+        for lb in colliding[s]:
+            src.append(s)
+            dst.append(0)
+            lab.append(lb)
+            wts.append(rng.rand())
+    for u in range(1, CHAIN_UNIGRAMS + 1):
+        src.append(0)
+        dst.append(rng.randint(1, depth + 2))
+        lab.append(u)
+        wts.append(3.0 * rng.rand())
+    order = np.lexsort((lab, src))
+    lm = fst.LmFst.from_arrays(
+        start=0, final=np.zeros(depth + 2, np.float32),
+        state_of_arc=np.asarray(src, np.int64)[order],
+        arc_next=np.asarray(dst)[order],
+        arc_ilabel=np.asarray(lab, np.int32)[order],
+        arc_olabel=np.asarray(lab, np.int32)[order],
+        arc_weight=np.asarray(wts, np.float32)[order])
+    small = (rng.rand(60) * 2).astype(np.float32)
+    delta = fst.DeltaLmFst(small, lm, types.SimpleNamespace(bos_id=1,
+                                                            eos_id=2))
+    past = max(lab) + 7  # past both the unigram and the small_lm tables
+    queries = [(0, u) for u in range(1, CHAIN_UNIGRAMS + 1)]
+    queries += [(0, CHAIN_MISS), (0, past), (depth + 1, 5),
+                (depth + 1, CHAIN_MISS), (depth + 1, 50 + depth + 1),
+                (depth + 1, past)]
+    for s in range(1, depth + 1):
+        queries += [(s, CHAIN_QUERY), (s, CHAIN_MISS), (s, past)]
+        queries += [(s, 50 + t) for t in range(s, depth + 1)]
+        queries += [(s, lb) for lb in colliding[s]]
+    return delta, queries
+
+
+def walk_lanes(queries, rows: int, e: int, seed: int,
+               density=(0.45, 0.05, 0.0, 0.7)):
+    """[rows, e] int32 (states, labels): row r holds about density[r] * e
+    active lanes drawn from `queries` (with repeats) at random positions;
+    the other lanes are inactive (label 0 or negative) on random states."""
+    rng = np.random.RandomState(seed)
+    q = np.asarray(queries, np.int32)
+    states = rng.randint(-1, 50, size=(rows, e)).astype(np.int32)
+    labels = np.where(rng.rand(rows, e) < 0.5, 0,
+                      -rng.randint(1, 5, size=(rows, e))).astype(np.int32)
+    for r in range(rows):
+        on = rng.rand(e) < density[r % len(density)]
+        pick = q[rng.randint(0, len(q), size=int(on.sum()))]
+        states[r, on], labels[r, on] = pick[:, 0], pick[:, 1]
+    return states, labels
+
+
+def big_lm_queries(num_states: int, num_words: int, n: int, seed: int):
+    """(states, labels) int32 [n]: tests/test_graph.py's mix on a
+    make_big_lm G' (unigram state 0, bigram histories, trigram states,
+    post-BOS; frequent labels and misses)."""
+    rng = np.random.RandomState(seed)
+    states = np.concatenate([
+        np.zeros(n // 8, np.int64), rng.randint(1, num_words + 1, n // 2),
+        rng.randint(num_words + 3, num_states, n - n // 8 - n // 2 - n // 8),
+        np.full(n // 8, num_words + 1)]).astype(np.int32)
+    labels = np.where(rng.rand(n) < 0.7,
+                      1 + (rng.pareto(1.0, n) * 40).astype(np.int64),
+                      rng.randint(0, num_words + 3, size=n))
+    return states, np.minimum(labels, num_words + 2).astype(np.int32)
+
+
+def backtrace_case(seed: int, t: int, b: int, k: int, w: int):
+    """(prev_slot [T, B, K], words [T, B, K, W], best_slots [B]) int32:
+    random backpointers with early -1 roots (about 1 in 40), words with
+    zeros, and negative best slots on some utterances."""
+    rng = np.random.RandomState(seed)
+    prev = rng.randint(0, k, (t, b, k)).astype(np.int32)
+    prev[rng.rand(t, b, k) < 0.025] = -1
+    prev[0] = -1  # the decode root
+    words = np.where(rng.rand(t, b, k, w) < 0.6, 0,
+                     rng.randint(1, 50_000, (t, b, k, w))).astype(np.int32)
+    best = rng.randint(0, k, b).astype(np.int32)
+    best[rng.rand(b) < 0.25] = -1
+    return prev, words, best

@@ -11,18 +11,26 @@ static (`rng`) and guarded (`grng`) activation scales, at every tile width
 and on misaligned views; operands it does not take raise.  The quantized AM
 on cuda, dynamic or calibrated, must be within 1% of the output range of
 the same AM on the CPU; the delta-LM tables and walk on cuda must equal the
-CPU's (states, bit-equal weights); the decoder on cuda, LM off and on, on
+CPU's (states, bit-equal weights); the two device-loop kernels
+(csrc/lm_walk.cu behind lm_propagate_capped / lm_propagate, csrc/backtrace.cu
+behind backtrace_device) must equal their plain versions bit for bit on
+tests/test_torch_lm_walk.py's cases, on a non-default stream, and refuse
+non-contiguous or mistyped inputs; the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
 costs.  The sharded pipeline over logical shards of the card must equal the
 same mesh on the CPU, and tools.synth's loss and gradients the CPU's.
 """
 
+import dataclasses
+import functools
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import (backtrace_case, big_lm_queries, chain_delta,
+                           walk_lanes)
 from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
@@ -347,6 +355,131 @@ def test_decoder_closed_and_raw_cuda_vs_cpu(cuda, monkeypatch, mode, iters,
     assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
     assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
     assert any(h.words for h in hyps[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(lm):
+    """(DeviceLm on the CPU, lanes (states, labels) [4, 1024]) of
+    tests/test_torch_lm_walk.py's cases: the corner-case G' at max_backoff
+    1 or 8 ("chain-1", "chain-8"), or a make_big_lm G' ("big")."""
+    from catears_tpu_torch.graph import fst as tfst
+    from catears_tpu_torch.tools.biggraph import make_big_lm
+
+    if lm == "big":
+        big = make_big_lm(np.random.RandomState(7), num_words=2000)
+        delta, max_backoff, seed = big.delta_lm(), 8, 5
+        queries = np.stack(big_lm_queries(big.num_states, 2000, 600, seed=3),
+                           1)
+    else:
+        (delta, queries), max_backoff = chain_delta(tfst), int(lm[-1])
+        seed = max_backoff
+    return (tdevice.DeviceLm.build(delta, max_backoff=max_backoff,
+                                   device=torch.device("cpu")),
+            walk_lanes(queries, 4, 1024, seed=seed))
+
+
+def _lm_on(dlm, dev):
+    return dataclasses.replace(dlm, **{name: getattr(dlm, name).to(dev)
+                                       for name in tdevice.LM_TABLES})
+
+
+def _same_bytes(ref, got, what):
+    for r, g in zip(ref, got):
+        assert r.dtype == g.dtype and r.shape == g.shape, what
+        assert r.cpu().numpy().tobytes() == g.cpu().numpy().tobytes(), what
+
+
+@pytest.mark.parametrize("shape", ["E", "BxE"])
+@pytest.mark.parametrize("cap", [0, 1, 37, 384, 1024])
+@pytest.mark.parametrize("lm", ["chain-1", "chain-8", "big"])
+def test_lm_walk_kernel_bit_equal(cuda, lm, cap, shape):
+    """csrc/lm_walk.cu (lm_propagate_capped on cuda, launched on a
+    non-default stream) == lm_propagate_capped_ref on the card and on the
+    CPU: equal states, bit-equal weights, equal needed."""
+    dlm_cpu, (states, labels) = _walk_case(lm)
+    if shape == "E":
+        states, labels = states[0], labels[0]
+    s, lab = torch.from_numpy(states), torch.from_numpy(labels)
+    dlm = _lm_on(dlm_cpu, cuda)
+    side = torch.cuda.Stream()
+    before = tdevice.lm_propagate_capped.launches
+    with torch.cuda.stream(side):
+        s_gpu, lab_gpu = s.to(cuda), lab.to(cuda)
+        got = tdevice.lm_propagate_capped(dlm, s_gpu, lab_gpu, cap)
+    side.synchronize()
+    assert tdevice.lm_propagate_capped.launches == before + 1
+    _same_bytes(tdevice.lm_propagate_capped_ref(dlm, s_gpu, lab_gpu, cap),
+                got, "the plain version on the card")
+    _same_bytes(tdevice.lm_propagate_capped(dlm_cpu, s, lab, cap), got,
+                "the plain version on the CPU")
+    assert int(got[2].max()) > cap or cap in (0, 1024) or shape == "E"
+
+
+@pytest.mark.parametrize("lm", ["chain-1", "chain-8", "big"])
+def test_lm_propagate_kernel_bit_equal(cuda, lm):
+    """lm_propagate on cuda (the kernel uncapped) == lm_propagate_ref."""
+    dlm_cpu, (states, labels) = _walk_case(lm)
+    s, lab = torch.from_numpy(states), torch.from_numpy(labels)
+    dlm = _lm_on(dlm_cpu, cuda)
+    before = tdevice.lm_propagate.launches
+    got = tdevice.lm_propagate(dlm, s.to(cuda), lab.to(cuda))
+    torch.cuda.synchronize()
+    assert tdevice.lm_propagate.launches == before + 1
+    _same_bytes(tdevice.lm_propagate_ref(dlm_cpu, s, lab), got, lm)
+
+
+@pytest.mark.parametrize("seed,t,b,k,w", [
+    (0, 1, 1, 1, 1), (1, 9, 3, 5, 2), (2, 40, 8, 16, 1), (4, 300, 16, 7, 2),
+    (5, 998, 8, 2048, 2)])
+def test_backtrace_kernel_bit_equal(cuda, seed, t, b, k, w):
+    """csrc/backtrace.cu (backtrace_device on cuda, on a non-default
+    stream) == backtrace_device_ref on the card and on the CPU, with int32
+    and int64 best slots; the last case is the smoke's 998-frame traces."""
+    from catears_tpu_torch.decode.beam import (FrameTrace, backtrace_device,
+                                               backtrace_device_ref)
+
+    prev, words, best = backtrace_case(seed, t, b, k, w)
+    trace_cpu = FrameTrace(torch.from_numpy(prev), torch.from_numpy(words))
+    want = backtrace_device_ref(trace_cpu, torch.from_numpy(best))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        trace = FrameTrace(*(x.to(cuda) for x in trace_cpu))
+        for slots in (torch.from_numpy(best), torch.from_numpy(best).long()):
+            before = backtrace_device.launches
+            got = backtrace_device(trace, slots.to(cuda))
+            assert backtrace_device.launches == before + 1
+            assert got.is_contiguous() and got.shape == (b, t, w)
+            ref = backtrace_device_ref(trace, slots.to(cuda))
+            side.synchronize()
+            assert torch.equal(got, ref) and torch.equal(got.cpu(), want)
+
+
+def test_lm_walk_and_backtrace_refuse_what_the_kernels_do_not_take(cuda):
+    from catears_tpu_torch.decode.beam import FrameTrace, backtrace_device
+
+    dlm_cpu, (states, labels) = _walk_case("chain-8")
+    dlm = _lm_on(dlm_cpu, cuda)
+    s = torch.from_numpy(states).to(cuda)
+    lab = torch.from_numpy(labels).to(cuda)
+    for bad in ((s[:, ::2], lab[:, ::2]), (s.long(), lab.long()),
+                (s, lab.float())):
+        with pytest.raises(ValueError):
+            tdevice.lm_propagate_capped(dlm, *bad, 37)
+        with pytest.raises(ValueError):
+            tdevice.lm_propagate(dlm, *bad)
+    with pytest.raises(ValueError, match="DeviceLm"):  # tables on the CPU
+        tdevice.lm_propagate_capped(dlm_cpu, s, lab, 37)
+    prev = s[:3].reshape(3, 2, 512)
+    words = torch.zeros((3, 2, 512, 2), dtype=torch.int32, device=cuda)
+    best = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for bad in (FrameTrace(prev.long(), words),
+                FrameTrace(prev, words.float()),
+                FrameTrace(prev.transpose(1, 2).contiguous().transpose(1, 2),
+                           words)):
+        with pytest.raises(ValueError):
+            backtrace_device(bad, best)
+    with pytest.raises(ValueError):
+        backtrace_device(FrameTrace(prev, words), best.float())
 
 
 # (rows, K, N) of the TDNN-1024's three linears in one streaming chunk: the
