@@ -23,7 +23,12 @@ others are compacted into cold_expand_size lanes that read emit_block,
 slots 3 and 4.
 
 The three graph modes of graph.transform.prepare_decode_graph:
-* eps-removed: `_eps_free_step`, one selection per frame;
+* eps-removed: `_eps_free_step`, one selection per frame: on a card the
+  expansion with its acoustic term is one launch of csrc/frame_expand.cu
+  (`expand_emitting`, the hot/cold split included) and the selection with
+  its beam threshold one of csrc/frame_select.cu (`select_beam`, with or
+  without select_compact); on the CPU their plain versions
+  `expand_emitting_ref` / `select_beam_ref`;
 * a static epsilon depth (closed graphs, depth 1; raw graphs of depth <=
   max_eps_iters): `_emitting_step` + `_eps_closure_fused`, one merge
   selection per round with the trace composed in place;
@@ -191,7 +196,10 @@ def _sort_key_f32(c: torch.Tensor) -> torch.Tensor:
 
 
 def _ordered_i64(c: torch.Tensor) -> torch.Tensor:
-    """Order-preserving float32 -> [0, 2^32) int64 key."""
+    """Order-preserving float32 -> [0, 2^32) int64 key; every NaN sorts
+    after +inf, as lax.sort's canonical NaN does (a NaN with its sign bit
+    set would otherwise sort before -inf)."""
+    c = torch.where(torch.isnan(c), torch.full_like(c, float("nan")), c)
     bits = _sort_key_f32(c).view(I32)
     ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
     return ordered.to(torch.int64) + 2**31
@@ -246,13 +254,19 @@ def _select_best(cfg: BeamConfig, states, lms, costs, payloads,
     survivor demand, and with cfg.select_compact set and narrower than the
     candidates it runs `_select_compacted`; otherwise the classic sorts.
     """
-    n = states.shape[1]
-    c2 = max(cfg.select_compact, cfg.beam_size) if cfg.select_compact else 0
-    if compact and 0 < c2 < n:
+    c2 = _compact_width(cfg, states.shape[1])
+    if compact and c2:
         return _select_compacted(cfg, c2, states, lms, costs, payloads)
     out, demand = _select_sorts(cfg, states, lms, costs, payloads,
                                 report_demand=compact)
     return out, None, demand
+
+
+def _compact_width(cfg: BeamConfig, n: int) -> int:
+    """The select_compact lanes of a selection over n candidates, or 0
+    when it runs the classic sorts."""
+    c2 = max(cfg.select_compact, cfg.beam_size) if cfg.select_compact else 0
+    return c2 if 0 < c2 < n else 0
 
 
 def _select_compacted(cfg: BeamConfig, c2: int, states, lms, costs,
@@ -393,6 +407,11 @@ def _expand_eps_carried(dfst: DeviceFst, beam: BeamState, capacity: int,
                        beam.costs, beam.lm, beam.bp, need_lm, True, need_eps)
 
 
+def _splits_hot_cold(cfg: BeamConfig, dfst: DeviceFst) -> bool:
+    """Whether the emitting expansion runs the hot/cold split."""
+    return bool(dfst.hot_rows) and cfg.cold_expand_size > 0
+
+
 def _hot_cold_rows(cfg: BeamConfig, dfst: DeviceFst, state_c: torch.Tensor,
                    valid_tok: torch.Tensor):
     """The classic emit rows [B, K, lanes] of the hot/cold split: tokens on
@@ -456,7 +475,7 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         over_lo = eb[..., 8]
         eps_meta_self = torch.zeros_like(state_c)  # compact => eps_removed
     else:
-        if dfst.hot_rows and cfg.cold_expand_size > 0:
+        if _splits_hot_cold(cfg, dfst):
             eb, cold_over, cold_needed = _hot_cold_rows(cfg, dfst, state_c,
                                                         valid_tok)
         else:
@@ -571,12 +590,14 @@ def _emit_telemetry(beam: BeamState, c: Cands):
 
 
 def _lm(cfg: BeamConfig, dlm: DeviceLm, lm: torch.Tensor,
-        olabel: torch.Tensor, valid: torch.Tensor):
+        olabel: torch.Tensor, valid: Optional[torch.Tensor] = None):
     """Capped delta-LM walk + (overflow [B], needed [B]) for the beam
     telemetry.  Invalid expansion lanes carry garbage table reads for
-    olabel: they are masked so they neither walk nor count."""
-    ns, w, needed = lm_propagate_capped(dlm, lm, torch.where(valid, olabel, 0),
-                                        cfg.lm_expand_size)
+    olabel: they are masked so they neither walk nor count (`valid` None:
+    the caller's labels are 0 on those lanes already)."""
+    if valid is not None:
+        olabel = torch.where(valid, olabel, 0)
+    ns, w, needed = lm_propagate_capped(dlm, lm, olabel, cfg.lm_expand_size)
     if cfg.lm_expand_size > 0:
         over = needed > cfg.lm_expand_size
     else:
@@ -584,55 +605,314 @@ def _lm(cfg: BeamConfig, dlm: DeviceLm, lm: torch.Tensor,
     return ns, w, over, needed
 
 
+class EmitCands(NamedTuple):
+    """The emitting candidates of an eps-removed frame, [B, E] each, in
+    the plain expansion's lane order (K self-loops, K*G first-G block
+    lanes, then the CSR overflow slots), acoustic term included.  Dead
+    lanes hold state SENTINEL_STATE, cost +inf and 0 in the other
+    columns."""
+
+    state: torch.Tensor  # i32
+    cost: torch.Tensor  # f32 token + arc weight - am_scale * logp[pdf]
+    tok: torch.Tensor  # i32 source beam slot
+    olabel: torch.Tensor  # i32 the arc's output label
+    olab2: torch.Tensor  # i32 its composed second output label
+    lm: Optional[torch.Tensor]  # i32 the source token's LM state
+    overflow: torch.Tensor  # bool [B] the CSR pass truncated
+    needed: torch.Tensor  # i32 [B] CSR arc slots wanted (hiwater slot 0)
+    # The hot/cold split's cold-token truncation flag and demand [B]
+    # (hiwater slot 4); None without the split.
+    cold_over: Optional[torch.Tensor] = None
+    cold_needed: Optional[torch.Tensor] = None
+
+
+def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
+                    logp: torch.Tensor, need_lm: bool) -> EmitCands:
+    """The eps-free frame's expansion: every live token's self-loop, its
+    first-G block arcs and its CSR overflow arcs, with
+    cost = fma(-am_scale, logp[b, pdf], token cost + arc weight).
+
+    CPU tensors take the plain version (expand_emitting_ref); CUDA tensors
+    launch the hand-written kernel (csrc/frame_expand.cu: one thread per
+    candidate lane, slot owners by a binary search over the tokens' span
+    prefix sums, the hot/cold split's rows from a count of the cold tokens
+    before each slot) or raise.  `expand_emitting.launches` counts the
+    launches.
+    """
+    states = beam.states
+    dev = states.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"expand_emitting: unsupported device {dev}")
+    b, k = states.shape
+    g, gc = dfst.group, dfst.csr_group
+    row_w = dfst.emit_block.shape[1]
+    compact = bool(dfst.emit_compact)
+    if not dfst.eps_removed:
+        raise ValueError("expand_emitting: takes an eps-removed graph")
+    # The split reads classic rows; a compact row ignores it, as _expand.
+    split = _splits_hot_cold(cfg, dfst) and not compact
+    if row_w != (9 if compact else g * DeviceFst.ARC_LANES + 8) or (
+            compact and g != 2):
+        raise ValueError(f"expand_emitting: an emit_block row of {row_w} "
+                         f"lanes is neither the compact G=2 row nor the "
+                         f"classic G*5 + 8 row (G = {g})")
+    tensors = {"states": (states, I32), "costs": (beam.costs, torch.float32),
+               "logp": (logp, torch.float32),
+               "emit_block": (dfst.emit_block, I32),
+               "over_packed": (dfst.over_packed, I32)}
+    if need_lm:
+        tensors["lm"] = (beam.lm, I32)
+    if split:
+        tensors["emit_hot"] = (dfst.emit_hot, I32)
+    for name, (t, dtype) in tensors.items():
+        if t is None or t.device != dev or t.dtype != dtype:
+            raise ValueError(f"expand_emitting: {name} must be a {dtype} "
+                             f"tensor on {dev}")
+    if split and (dfst.emit_hot.dim() != 2 or dfst.emit_hot.shape[1] != row_w
+                  or dfst.emit_hot.shape[0] < 1):
+        raise ValueError(f"expand_emitting: emit_hot must hold rows of "
+                         f"{row_w} lanes")
+    if (k != cfg.beam_size or tuple(beam.costs.shape) != (b, k)
+            or (need_lm and tuple(beam.lm.shape) != (b, k))
+            or logp.dim() != 2 or logp.shape[0] != b):
+        raise ValueError(f"expand_emitting: needs beam [B, {cfg.beam_size}] "
+                         f"and logp [B, P]; got {tuple(states.shape)}, "
+                         f"{tuple(logp.shape)}")
+    if dev.type == "cpu":
+        return expand_emitting_ref(cfg, dfst, beam, logp, need_lm)
+    if not (dfst.emit_block.is_contiguous()
+            and dfst.over_packed.is_contiguous()
+            and (not split or dfst.emit_hot.is_contiguous())):
+        raise ValueError("expand_emitting: the graph's tables must be "
+                         "contiguous")
+    # The beam is contiguous on the decode path; logp may be a frame of a
+    # [T, B, P] view (row stride T * P), which the kernel reads in place.
+    states, costs = states.contiguous(), beam.costs.contiguous()
+    lms = beam.lm.contiguous() if need_lm else None
+    if logp.stride(1) != 1:
+        logp = logp.contiguous()
+    csr = dfst.max_emit_fanout > g
+    n_slots = -(-cfg.expand_size // gc) if csr else 0
+    if csr and dfst.over_packed.shape[0] < 1:
+        raise ValueError("expand_emitting: no over_packed rows")
+    e = k + k * g + n_slots * gc
+
+    def out(dtype, shape=(b, e)):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    c = EmitCands(out(I32), out(torch.float32), out(I32), out(I32),
+                  out(I32), out(I32) if need_lm else None,
+                  out(torch.bool, (b,)), out(I32, (b,)),
+                  out(torch.bool, (b,)) if split else None,
+                  out(I32, (b,)) if split else None)
+    if b:
+        lib = kernel_library("frame_expand", _EXPAND_ARGTYPES)
+        with torch.cuda.device(dev):
+            rc = lib.catears_frame_expand(
+                states.data_ptr(), costs.data_ptr(),
+                lms.data_ptr() if need_lm else None,
+                dfst.emit_block.data_ptr(), dfst.over_packed.data_ptr(),
+                logp.data_ptr(), *(x.data_ptr() if x is not None else None
+                                   for x in c[:8]),
+                dfst.emit_hot.data_ptr() if split else None,
+                *(x.data_ptr() if x is not None else None for x in c[8:]),
+                dfst.hot_rows if split else 0,
+                min(cfg.cold_expand_size, k) if split else 0,
+                b, k, e, g, row_w, int(compact), dfst.num_states, gc,
+                dfst.over_packed.shape[0], n_slots, int(csr), logp.shape[1],
+                logp.stride(0), float(np.float32(cfg.am_scale)),
+                torch.cuda.current_stream().cuda_stream)
+        check_launch(lib, rc, "expand_emitting")
+        _EXPAND_COUNTER.launches += 1
+    return c
+
+
+# The launches are counted on the function object itself, held here so
+# that a caller who swaps the module's name for a wrapper of it does not
+# take the count.
+expand_emitting.launches = 0
+_EXPAND_COUNTER = expand_emitting
+_EXPAND_ARGTYPES = {"catears_frame_expand": [ctypes.c_void_p] * 17
+                    + [ctypes.c_int] * 15 + [ctypes.c_float,
+                                             ctypes.c_void_p]}
+
+
+def expand_emitting_ref(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
+                        logp: torch.Tensor, need_lm: bool) -> EmitCands:
+    """Plain version of expand_emitting: _expand (the hot/cold split
+    included), _acoustic and _fms, with the dead lanes masked."""
+    c = _expand(cfg, dfst, beam, cfg.expand_size, True, need_lm=need_lm,
+                need_bp=False, need_eps=True)
+    cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
+    v = c.valid
+
+    def live(x):
+        return torch.where(v, x, 0)
+
+    return EmitCands(torch.where(v, c.next_state, SENTINEL_STATE),
+                     torch.where(v, cost, INF), live(c.tok), live(c.olabel),
+                     live(c.eps), live(c.lm) if need_lm else None,
+                     c.overflow, c.needed, c.cold_over, c.cold_needed)
+
+
+class Selected(NamedTuple):
+    """The eps-free frame's new beam [B, K] and trace: slots in cost
+    order; a slot not kept holds state -1, cost +inf, prev_slot 0 and
+    words 0 (its lm is the winner's while the winner's cost is finite);
+    with select_compact at c2 == K the slots are in (state, lm) order."""
+
+    states: torch.Tensor
+    lms: torch.Tensor
+    costs: torch.Tensor
+    prev_slot: torch.Tensor
+    words: torch.Tensor  # [B, K, 2] newest-first: (olab2, olabel)
+    overflow: Optional[torch.Tensor]  # bool [B]: select_compact truncated
+    demand: torch.Tensor  # i32 [B] (hiwater slot 3)
+
+
+def select_beam(cfg: BeamConfig, state: torch.Tensor,
+                lm: Optional[torch.Tensor], cost: torch.Tensor,
+                w1: Optional[torch.Tensor], w2: Optional[torch.Tensor],
+                tok: torch.Tensor, olab2: torch.Tensor,
+                olabel: torch.Tensor) -> Selected:
+    """The eps-free frame's selection over [B, E] candidates: cost + w1 +
+    w2 (each optional, added in that order), exact dedup by (state, lm)
+    (lm None: LM off), exact top-K by cost (with cfg.select_compact, of
+    the beam-threshold survivors compacted first), the beam threshold.
+
+    CPU tensors take the plain version (select_beam_ref); CUDA tensors
+    launch the hand-written kernel (csrc/frame_select.cu: group winners by
+    a 64-bit atomicMin in a hash table, radix selects of the c2-th and the
+    K-th key, a shared-memory sort) or raise.  `select_beam.launches`
+    counts the launches.
+    """
+    if state.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"select_beam: unsupported device {state.device}")
+    if state.dim() != 2:
+        raise ValueError(f"select_beam: needs [B, E] candidates; got "
+                         f"{tuple(state.shape)}")
+    b, e = state.shape
+    k = cfg.beam_size
+    columns = {"state": (state, I32), "lm": (lm, I32),
+               "cost": (cost, torch.float32), "w1": (w1, torch.float32),
+               "w2": (w2, torch.float32), "tok": (tok, I32),
+               "olab2": (olab2, I32), "olabel": (olabel, I32)}
+    for name, (t, dtype) in columns.items():
+        if t is not None and (t.device != state.device or t.dtype != dtype
+                              or tuple(t.shape) != (b, e)):
+            raise ValueError(f"select_beam: {name} must be a {dtype} "
+                             f"[B, E] tensor on {state.device}")
+    if state.device.type == "cpu":
+        return select_beam_ref(cfg, state, lm, cost, w1, w2, tok, olab2,
+                               olabel)
+    if not all(t.is_contiguous() for t, _ in columns.values()
+               if t is not None):
+        raise ValueError("select_beam: the candidates must be contiguous")
+    if not 1 <= k <= _SELECT_MAX_K or e >= 2**30:
+        raise ValueError(f"select_beam: the kernel takes a beam of "
+                         f"1..{_SELECT_MAX_K} slots over < 2^30 lanes; got "
+                         f"{k}, {e}")
+    dev = state.device
+    c2 = _compact_width(cfg, e)
+    out = Selected(torch.empty((b, k), dtype=I32, device=dev),
+                   torch.empty((b, k), dtype=I32, device=dev),
+                   torch.empty((b, k), dtype=torch.float32, device=dev),
+                   torch.empty((b, k), dtype=I32, device=dev),
+                   torch.empty((b, k, 2), dtype=I32, device=dev),
+                   torch.empty(b, dtype=torch.bool, device=dev) if c2
+                   else None,
+                   torch.empty(b, dtype=I32, device=dev))
+    if b:
+        log2cap = max(1, (e + e // 3).bit_length())
+        table = torch.empty((b, 2, 1 << log2cap), dtype=torch.int64,
+                            device=dev)
+        groups = torch.empty((b, e), dtype=I32, device=dev)
+        cands = torch.empty((b, e, 4), dtype=I32, device=dev)
+        lib = kernel_library("frame_select", _SELECT_ARGTYPES)
+        with torch.cuda.device(dev):
+            rc = lib.catears_frame_select(
+                *(t.data_ptr() if t is not None else None
+                  for t, _ in columns.values()),
+                *(x.data_ptr() for x in out[:5]), out.demand.data_ptr(),
+                out.overflow.data_ptr() if c2 else None,
+                table.data_ptr(), groups.data_ptr(), cands.data_ptr(), b, e,
+                k, c2, log2cap, float(np.float32(cfg.beam)),
+                torch.cuda.current_stream().cuda_stream)
+        check_launch(lib, rc, "select_beam")
+        _SELECT_COUNTER.launches += 1
+    return out
+
+
+select_beam.launches = 0
+_SELECT_COUNTER = select_beam  # as _EXPAND_COUNTER
+_SELECT_MAX_K = 8192  # the kernel's shared-memory sort holds K keys
+_SELECT_ARGTYPES = {"catears_frame_select": [ctypes.c_void_p] * 18
+                    + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                            ctypes.c_void_p]}
+
+
+def select_beam_ref(cfg: BeamConfig, state: torch.Tensor,
+                    lm: Optional[torch.Tensor], cost: torch.Tensor,
+                    w1: Optional[torch.Tensor], w2: Optional[torch.Tensor],
+                    tok: torch.Tensor, olab2: torch.Tensor,
+                    olabel: torch.Tensor) -> Selected:
+    """Plain version of select_beam: _select_best (the classic sorts, or
+    select_compact's compaction) and the beam threshold.
+
+    JAX's keep is `costs <= min + beam` alone, so a row with no finite
+    slot (min = +inf) keeps the payloads of whatever entries fill its
+    slots; _frame_step throws that frame away (its beam died).  Here such
+    slots hold prev_slot 0 and words 0, as the kernel writes them."""
+    for w in (w1, w2):
+        if w is not None:
+            cost = cost + w
+    (states, lms, costs, prev, w0, w1_), overflow, demand = _select_best(
+        cfg, state, lm, cost, [tok, olab2, olabel], compact=True)
+    # min, not costs[:, 0]: a compacted selection returns the beam in
+    # dedup (state) order.
+    cutoff = torch.amin(costs, dim=1, keepdim=True) + cfg.beam
+    keep = (costs <= cutoff) & torch.isfinite(costs)
+    return Selected(
+        torch.where(keep, states, -1), lms, torch.where(keep, costs, INF),
+        torch.where(keep, prev, 0),
+        torch.stack([torch.where(keep, w0, 0), torch.where(keep, w1_, 0)],
+                    dim=2), overflow, demand)
+
+
 def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
                    beam: BeamState, logp: torch.Tensor):
     """One-selection frame for eps-removed graphs: expand emitting arcs
-    (each carrying up to two output labels), add the acoustic term and,
-    with an LM, the two delta-LM walks, then one exact dedup + top-K + beam
-    threshold.
+    (each carrying up to two output labels) with the acoustic term
+    (expand_emitting), with an LM the two delta-LM walks, then one exact
+    dedup + top-K + beam threshold (select_beam): on a card two hand
+    kernels, with or without the hot/cold split and select_compact.
 
     Returns (beam', prev_slot [B, K], words [B, K, 2] newest-first).
     """
-    k = cfg.beam_size
-    c = _expand(cfg, dfst, beam, cfg.expand_size, True,
-                need_lm=dlm is not None, need_bp=False, need_eps=True)
-    olab2 = c.eps  # lane 4 = composed second olabel in eps_removed mode
-    cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
+    c = expand_emitting(cfg, dfst, beam, logp, dlm is not None)
     overflow, hiwater = _emit_telemetry(beam, c)
-    lm_state = None
+    lm_state = w1 = w2 = None
     if dlm is not None:
         # Two LM transitions in sequence, each weight added on its own as
         # JAX adds it: the emitting olabel (statically absent when no
         # emitting arc carries one), then the composed olabel2.
         if dfst.has_emit_olabel:
-            lm1, w1, over1, need1 = _lm(cfg, dlm, c.lm, c.olabel, c.valid)
-            cost = cost + w1
+            lm1, w1, over1, need1 = _lm(cfg, dlm, c.lm, c.olabel)
         else:
             lm1 = c.lm
             over1 = torch.zeros_like(overflow)
             need1 = torch.zeros_like(c.needed)
-        lm_state, w2, over2, need2 = _lm(cfg, dlm, lm1, olab2, c.valid)
-        cost = cost + w2
+        lm_state, w2, over2, need2 = _lm(cfg, dlm, lm1, c.olab2)
         overflow = overflow | over1 | over2
         hiwater = _max_at(hiwater, 2, torch.maximum(need1, need2))
-    cand_state = torch.where(c.valid, c.next_state, SENTINEL_STATE)
-    cand_cost = torch.where(c.valid, cost, INF)
-    (states, lms, costs, tok, w0, w1), sel_over, sel_needed = _select_best(
-        cfg, cand_state, lm_state, cand_cost, [c.tok, olab2, c.olabel],
-        compact=True)
-    # min, not costs[:, 0]: a compacted selection returns the beam in
-    # dedup (state) order.
-    cutoff = torch.amin(costs, dim=1, keepdim=True) + cfg.beam
-    keep = costs <= cutoff
-    states = torch.where(keep, states, -1)
-    costs = torch.where(keep, costs, INF)
+    s = select_beam(cfg, c.state, lm_state, c.cost, w1, w2, c.tok, c.olab2,
+                    c.olabel)
+    k = cfg.beam_size
     new_beam = BeamState(
-        states, lms, costs,
-        _arange(k, states.device).expand_as(states).contiguous(),
-        _or(overflow, sel_over), _max_at(hiwater, 3, sel_needed))
-    words = torch.stack([torch.where(keep, w0, 0), torch.where(keep, w1, 0)],
-                        dim=2)  # newest-first: (eps olab, emit olab)
-    return new_beam, torch.where(keep, tok, 0), words
+        s.states, s.lms, s.costs,
+        _arange(k, s.states.device).expand_as(s.states).contiguous(),
+        _or(overflow, s.overflow), _max_at(hiwater, 3, s.demand))
+    return new_beam, s.prev_slot, s.words
 
 
 def _emitting_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],

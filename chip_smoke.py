@@ -194,12 +194,23 @@ bench-scaling 1 -> 0.5 s) came when the variant phases (56 s) brought the
 whole run to 844 s on an NVIDIA H100 80GB HBM3 at 700 W.
 
 Every decode phase (decoder*, e2e*, stream-decoder*, stream-trie*, the
-bench and its modes) prints the launches of the two device-loop kernels
+bench and its modes) prints the launches of the decoder's four kernels
 in its run, counted from 0 just before it, and fails when an LM-on run
-made no lm_walk launch (or an LM-off run one), or a bulk decode
+made no lm_walk launch (or an LM-off run one), a bulk decode
 (BatchDecoder, the CLI's --batch, the bench's headline and product) no
-backtrace launch; the bench's headline runs in a subprocess that prints
-its counts last on stderr.
+backtrace launch, an eps-free decode no launch of frame_expand or of
+frame_select (the variant phases too: the hot/cold split and
+select_compact run in the kernels, which each variant also holds to their
+plain versions on its last frame's arguments), or a decode of a closed or
+raw graph (plain PyTorch frame steps) one of them.  The bench's
+headline runs in a subprocess that prints its counts last on stderr.
+`decoder` and `decoder-lm` also hold the card's high-water marks to the
+CPU's.  `expand-kernel` and `select-kernel` (LM off after `decoder`, LM
+on after `lm-kernel`) hold csrc/frame_expand.cu and csrc/frame_select.cu
+to their plain versions bit for bit on the arguments of the last of 100
+planted frames of 16 utterances (the bench's 16 x 38,912 lanes, beam
+2048), with device, call and plain ms, the bytes bound, its share and
+the SMs the grid covers.
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  Each kernel is
@@ -214,10 +225,14 @@ bench-am-int8), each counted from 0 just before its run:
               times, bound and torch._int_mm's time;
   lm_walk.cu  `lm_propagate_capped`: times and bound at the bench's shape
               (lm-kernel's first line);
-  backtrace.cu  `backtrace_device`: backtrace-kernel's times and bound.
-No single PyTorch call computes the walk or the backtrace: their
-library_ms is null.  The epsilon closure and the decode variants are
-plain PyTorch, like the rest of the decoder: no kernel of their own.
+  backtrace.cu  `backtrace_device`: backtrace-kernel's times and bound;
+  frame_expand.cu  `expand_emitting`: expand-kernel's (LM off) times and
+              bound;
+  frame_select.cu  `select_beam`: select-kernel's (LM off) times and
+              bound.
+No single PyTorch call computes the walk, the backtrace, the expansion or
+the selection: their library_ms is null.  The epsilon closure of closed
+and raw graphs is plain PyTorch.
 Bounds: the larger of the bytes the
 function must move (each input read once, the output written once) over
 3.35 TB/s and its int8 operations over 1,979 TOP/s (H100 SXM, dense); the
@@ -493,6 +508,7 @@ def zero_counts():
     quant.matmul_s8.launches = quant.qmatmul.launches = 0
     tdevice.lm_propagate_capped.launches = 0
     tbeam.backtrace_device.launches = 0
+    tbeam.expand_emitting.launches = tbeam.select_beam.launches = 0
 
 
 def counts():
@@ -501,21 +517,30 @@ def counts():
     return {"matmul_s8": quant.matmul_s8.launches,
             "qmatmul": quant.qmatmul.launches,
             "lm_walk": tdevice.lm_propagate_capped.launches,
-            "backtrace": tbeam.backtrace_device.launches}
+            "backtrace": tbeam.backtrace_device.launches,
+            "frame_expand": tbeam.expand_emitting.launches,
+            "frame_select": tbeam.select_beam.launches}
 
 
-def loop_launches(name, launched, lm, bulk):
-    """The phase line's fields for the two device-loop kernels; fails when
-    an LM-on run walked without lm_walk, an LM-off run launched it, or a
-    bulk decode (BatchDecoder, the CLI's --batch) backtraced without the
-    backtrace kernel."""
+def loop_launches(name, launched, lm, bulk, eps_free=True):
+    """The phase line's fields for the decoder's four kernels; fails when
+    an LM-on run walked without lm_walk, an LM-off run launched it, a bulk
+    decode (BatchDecoder, the CLI's --batch) backtraced without the
+    backtrace kernel, an eps-free decode made no launch of either frame
+    kernel, or a decode of a graph that keeps its epsilon arcs (whose
+    emitting step and closure are plain PyTorch) launched one."""
     if bool(launched["lm_walk"]) != lm:
         fail(f"{name}: {launched['lm_walk']} lm_walk launches with the LM "
              f"{'on' if lm else 'off'}")
     if bulk and not launched["backtrace"]:
         fail(f"{name}: a bulk decode made no backtrace launch")
+    frame = (launched["frame_expand"], launched["frame_select"])
+    if (all(frame) if eps_free else any(frame)) != eps_free:
+        fail(f"{name}: {frame} frame_expand / frame_select launches in "
+             f"{'an eps-free' if eps_free else 'a closure'} decode")
     return {"lm_walk_launches": launched["lm_walk"],
-            "backtrace_launches": launched["backtrace"]}
+            "backtrace_launches": launched["backtrace"],
+            "expand_launches": frame[0], "select_launches": frame[1]}
 
 
 @contextlib.contextmanager
@@ -858,6 +883,120 @@ def lm_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
     return totals
 
 
+def kernel_equals_plain(fn, ref_fn, args):
+    """(kernel's outputs, plain version's, every output bit-equal) of a
+    frame kernel's wrapper on `args`."""
+    got, ref = fn(*args), ref_fn(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    equal = all(r is not None and g is not None and same_bytes([r], [g])
+                for r, g in zip(ref, got) if r is not None or g is not None)
+    return got, ref, equal
+
+
+def expand_bytes(args, got):
+    """The bytes expand_emitting must move on `args` (got: its outputs),
+    each input read once: the beam's states (and each live token's cost
+    and lm), each distinct live state's emit row (the batch shares the
+    graph's rows), the over_packed rows the CSR slots use (per state its
+    first ones, as many as its busiest token used), logp at each distinct
+    (row, pdf) a valid lane reads; and every output written once.  Returns
+    (bytes, the counts)."""
+    cfg, dfst, beam, logp, need_lm = args
+    b, k = beam.states.shape
+    e = got.state.shape[1]
+    dev = beam.states.device
+    lm_b = 4 if need_lm else 0
+    live = beam.states >= 0
+    st = beam.states.clamp(0, dfst.num_states - 1).long()
+    states = int(torch.unique(st[live]).numel())
+    gc = dfst.csr_group
+    csr0 = k + k * dfst.group
+    used = torch.zeros((b, k), dtype=torch.int64, device=dev).scatter_add_(
+        1, got.tok[:, csr0::gc].long(),
+        (got.state[:, csr0::gc] < tbeam.SENTINEL_STATE).long())
+    per_state = torch.zeros(dfst.num_states, dtype=torch.int64,
+                            device=dev).scatter_reduce_(
+        0, st.flatten(), used.flatten(), "amax")
+    csr_rows = int(per_state.sum())
+    c = tbeam._expand(cfg, dfst, beam, cfg.expand_size, True, need_lm=False,
+                      need_bp=False)
+    p = logp.shape[1]
+    reads = c.valid & (c.pdf >= 0) & (c.pdf < p)
+    row_pdf = torch.arange(b, device=dev)[:, None] * p + c.pdf.long()
+    logp_reads = int(torch.unique(row_pdf[reads]).numel())
+    n_bytes = (4 * b * k + int(live.sum()) * (4 + lm_b)
+               + states * 4 * dfst.emit_block.shape[1]
+               + csr_rows * gc * 4 * dfst.ARC_LANES + 4 * logp_reads
+               + b * e * (20 + lm_b) + 5 * b)
+    return n_bytes, dict(live_tokens=int(live.sum()), distinct_states=states,
+                         csr_rows=csr_rows, logp_reads=logp_reads)
+
+
+def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
+    """csrc/frame_expand.cu (expand_emitting on cuda) and
+    csrc/frame_select.cu (select_beam) against their plain versions on the
+    card, on the arguments the decoder gives them at the last of
+    LM_KERNEL_FRAMES planted frames of LM_KERNEL_UTTS utterances (the
+    bench's batch and lanes; LM off or on with the decoder): every output
+    bit-equal; device ms (CUDA graph replay), the call's ms with the
+    host's, the plain version's ms, the bound from the bytes these inputs
+    need (each read once, each output written once: expand_bytes for the
+    expansion) and its share, and the SMs the grid covers.  Returns both
+    kernels' totals."""
+    lm = dec.dlm is not None
+    planted = plant_logp(np.random.RandomState(4), tg, LM_KERNEL_UTTS,
+                         LM_KERNEL_FRAMES)[0]
+    with spied(tbeam, "expand_emitting", []) as ex, \
+            spied(tbeam, "select_beam", []) as sel:
+        dec.decode(torch.from_numpy(planted).to(cuda), final_fallback=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, fn, ref_fn, args, cost in (
+            ("expand-kernel", tbeam.expand_emitting,
+             tbeam.expand_emitting_ref, ex, "cost"),
+            ("select-kernel", tbeam.select_beam, tbeam.select_beam_ref,
+             sel, "costs")):
+        got, ref, equal = kernel_equals_plain(fn, ref_fn, args)
+        r_cost, g_cost = getattr(ref, cost), getattr(got, cost)
+        err = float(torch.where(torch.isfinite(r_cost),
+                                (g_cost - r_cost).abs(), 0.0).max())
+        t_k = device_ms(lambda: fn(*args))
+        t_call = time_ms(lambda: fn(*args))
+        t_p = time_ms(lambda: ref_fn(*args), iters=5)
+        if name == "expand-kernel":
+            b, k = args[2].states.shape
+            e = got.state.shape[1]
+            n_bytes, counted = expand_bytes(args, got)
+            counted["valid_lanes"] = int(
+                (got.state < tbeam.SENTINEL_STATE).sum())
+            blocks = -(-e // 4096) * b  # frame_expand.cu kLanesPerBlock
+        else:
+            cfg, state, lms, _c, w1, w2 = args[:6]
+            b, e = state.shape
+            k = cfg.beam_size
+            read = 8 + 4 * sum(x is not None for x in (lms, w1, w2))
+            kept = int(torch.isfinite(got.costs).sum())
+            n_bytes = b * e * read + 12 * kept + b * k * 24 + 4 * b
+            blocks = b  # one block per row
+            counted = dict(kept=kept, demand=got.demand.tolist())
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        phase(name, lm="on" if lm else "off", rows=b, lanes=e, beam=k,
+              **counted, equal=equal, max_abs_err=err, ms=f"{t_k:.4f}",
+              call_ms=f"{t_call:.4f}", plain_ms=f"{t_p:.4f}",
+              bound_ms=f"{b_ms:.5f}", bound_by="bytes",
+              share_of_bound=f"{b_ms / t_k:.4f}", blocks=blocks,
+              sms_used=f"{min(blocks, sms)}/{sms}", card=f"'{card}'")
+        if not equal:
+            fail(f"{name}: the kernel differs from its plain version "
+                 f"(LM {'on' if lm else 'off'})")
+        totals = new_totals()
+        totals["max_abs_err"] = err
+        add_timing(totals, t_k, t_p, b_ms, "bytes")
+        out[name] = totals
+    return out["expand-kernel"], out["select-kernel"]
+
+
 def backtrace_kernel_phase(traces, best, card):
     """csrc/backtrace.cu (backtrace_device on cuda) against its plain
     version on the card, on the traces and best slots the e2e run's
@@ -928,19 +1067,31 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
     # final_fallback: random-weight acoustics rarely end in a final state;
     # backtrace the cheapest token so the paths compared are real.
     zero_counts()
-    hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
+    loops = FrameLoop(), FrameLoop()
+    try:
+        with loops[0]:
+            hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
+    except RuntimeError as e:  # set_sync_debug_mode("error") raised
+        fail(f"{name}: a device read in the decode's frame loop: {e}")
     launched = loop_launches(name, counts(), lm, bulk=True)
-    hyp_cpu = dec_cpu.decode(logp.cpu(), lengths, final_fallback=True)
+    with loops[1]:
+        hyp_cpu = dec_cpu.decode(logp.cpu(), lengths, final_fallback=True)
     same_words = [h.words for h in hyp_gpu] == [h.words for h in hyp_cpu]
     same_cost = ([np.float64(h.weight) for h in hyp_gpu]
                  == [np.float64(h.weight) for h in hyp_cpu])
+    hiwater = [loop.marks() for loop in loops]
     phase(name, utts=len(lengths), frames=lengths,
           same_words=same_words, bit_equal_costs=same_cost,
           words=[len(h.words) for h in hyp_gpu],
-          costs=[h.weight for h in hyp_gpu], **launched,
+          costs=[h.weight for h in hyp_gpu], hiwater=hiwater[0],
+          same_hiwater=hiwater[0] == hiwater[1],
+          ms_per_frame=loops[0].ms_per_frame(), **launched,
           seconds=f"{time.perf_counter() - t0:.2f}")
     if not (same_words and same_cost):
         fail(f"{name} on cuda and cpu disagree")
+    if hiwater[0] != hiwater[1]:
+        fail(f"{name}: high-water marks {hiwater[0]} on cuda, "
+             f"{hiwater[1]} on cpu")
 
     wer, n_ref, dt, n, frames = planted_wer(dec, tg, lm, PLANTED)
     # Planted paths carry words: 3 s of two of them, on cuda and cpu.
@@ -1072,7 +1223,7 @@ def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
                 dec, tg, lm, CLOSURE_PLANTED)
     except RuntimeError as e:  # set_sync_debug_mode("error") raised
         fail(f"{name}: a device read in the decode's frame loop: {e}")
-    launched = loop_launches(name, counts(), lm, bulk=True)
+    launched = loop_launches(name, counts(), lm, bulk=True, eps_free=False)
     t0 = time.perf_counter()
     hyp_cpu = dec_cpu.decode(logp[:, :cut_frames].cpu(), cut,
                              final_fallback=True)
@@ -1183,19 +1334,19 @@ def variants_phase(rec, tg, card, cuda=torch.device("cuda:0")):
     cut = planted[:, :VARIANT_CPU_FRAMES]
     over = planted_dev[:, :OVERFLOW_FRAMES]
     t0 = time.perf_counter()
-    counts = bench._calibrate_counts(
+    visits = bench._calibrate_counts(
         tg.fst, tg.tid2pdf,
         plant_logp(np.random.RandomState(4), tg, 4, 300)[0], cuda)
     calibration_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     bfs = bfs_order(tg.fst)
     graphs = {"hot": renumber_states(tg.fst,
-                                     hot_order(counts, VARIANT_HOT_ROWS)),
+                                     hot_order(visits, VARIANT_HOT_ROWS)),
               "bfs": renumber_states(tg.fst, bfs),
               "freq": renumber_states(tg.fst,
-                                      frequency_order(counts, tie_break=bfs))}
+                                      frequency_order(visits, tie_break=bfs))}
     phase("variants-setup", planted_utts=n, frames=frames,
-          calibrated_states=int((counts > 0).sum()),
+          calibrated_states=int((visits > 0).sum()),
           calibration_s=f"{calibration_s:.2f}",
           renumber_s=f"{time.perf_counter() - t0:.2f}")
     default = variant_tables(tg.fst, tg.tid2pdf, rec, cuda)
@@ -1216,8 +1367,10 @@ def variants_phase(rec, tg, card, cuda=torch.device("cuda:0")):
         dec = BatchDecoder(dec_fst, tg.tid2pdf, config=vcfg, dfst=on_cuda)
         loop = FrameLoop()
         overflowed = None
+        zero_counts()
         try:
-            with loop:
+            with loop, spied(tbeam, "expand_emitting", []) as ex, \
+                    spied(tbeam, "select_beam", []) as sel:
                 try:
                     hyps = dec.decode(planted_dev, retry_on_overflow=False,
                                       final_fallback=True)
@@ -1226,6 +1379,22 @@ def variants_phase(rec, tg, card, cuda=torch.device("cuda:0")):
         except RuntimeError as e:  # set_sync_debug_mode("error") raised
             fail(f"variant-{name}: a device read in the frame loop: {e}")
         ms_per_frame, hiwater = loop.ms_per_frame(), loop.marks()
+        # The knobs run in the kernels: both launch every frame, and each
+        # equals its plain version on the decode's last frame.
+        launched = counts()
+        frame = (launched["frame_expand"], launched["frame_select"])
+        if not all(frame):
+            fail(f"variant-{name}: {frame} frame_expand / frame_select "
+                 f"launches")
+        kernels_equal = [kernel_equals_plain(fn, ref_fn, args)[2]
+                         for fn, ref_fn, args in (
+                             (tbeam.expand_emitting,
+                              tbeam.expand_emitting_ref, ex),
+                             (tbeam.select_beam, tbeam.select_beam_ref,
+                              sel))]
+        if not all(kernels_equal):
+            fail(f"variant-{name}: the frame kernels differ from their "
+                 f"plain versions (expand, select: {kernels_equal})")
         if overflowed:  # the regrow-and-retry
             hyps = dec.decode(planted_dev, final_fallback=True)
         words = [h.words for h in hyps]
@@ -1249,6 +1418,8 @@ def variants_phase(rec, tg, card, cuda=torch.device("cuda:0")):
               hot_rows=on_cuda.hot_rows,
               emit_lanes=on_cuda.emit_block.shape[1],
               overflowed_without_retry=overflowed,
+              expand_launches=frame[0], select_launches=frame[1],
+              kernels_equal_plain=kernels_equal,
               words=[len(w) for w in words], same_words=words == ref[0],
               max_cost_diff=f"{cost_diff:.3e}", cuda_equals_cpu=cpu_same,
               cpu_frames=VARIANT_CPU_FRAMES, cpu_s=f"{cpu_s:.2f}",
@@ -1320,13 +1491,14 @@ def run_cli(argv):
 
 
 def e2e_phase(name, conf, scp, cpu_scp, linears, card, watch=False,
-              lm=False, backtrace=None):
+              lm=False, backtrace=None, eps_free=True):
     """cli.main(["--batch=8", conf, scp]) on cuda, then the same with
     --device=cpu on `cpu_scp`, the first CPU_UTTS utterances (the longest
     among them, so the AM's bucket and each utterance's result are the
     batch's); returns the launches the card run made through each kernel's
     entry point, counted from 0 just before it (the LM walk's only with
-    `lm`).  With `watch`, the card run's frame loop must make no device
+    `lm`, the frame kernels' only with `eps_free`).  With `watch`, the
+    card run's frame loop must make no device
     read, and its ms per frame and high-water marks are printed.  A list
     `backtrace` receives the card run's last backtrace_device arguments."""
     from catears_tpu_torch.io.wav import read_scp
@@ -1361,7 +1533,8 @@ def e2e_phase(name, conf, scp, cpu_scp, linears, card, watch=False,
           cpu_utts=len(cpu_lines), same_as_cpu=same,
           fused_launches=launches["qmatmul"],
           int32_launches=launches["matmul_s8"], linears=linears,
-          **loop_launches(name, launches, lm, bulk=True), overflow=overflowed,
+          **loop_launches(name, launches, lm, bulk=True, eps_free=eps_free),
+          overflow=overflowed,
           wall_s=f"{dt:.2f}", audio_s=f"{audio_s:.2f}",
           audio_s_per_s=f"{audio_s / dt:.2f}", cpu_wall_s=f"{cpu_dt:.2f}",
           **extra, card=f"'{card}'")
@@ -1464,7 +1637,7 @@ def decoder_words(dec, row):
 
 
 def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
-                         batch_decoder=None):
+                         batch_decoder=None, eps_free=True):
     """Planted trie log-probs (2 x `frames`) through the single-utterance
     Decoder on the card (the Recognizer's cached graph, or `decoder`
     re-initialized per utterance): the words BatchDecoder (the
@@ -1498,7 +1671,7 @@ def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
         fail(f"{name}: a device read in the Decoder's frame loop: {e}")
     dt = time.perf_counter() - t0
     launched = loop_launches(name, counts(), rec.delta_lm is not None,
-                             bulk=False)
+                             bulk=False, eps_free=eps_free)
     batch = (batch_decoder or get_batch_decoder(rec)).decode(
         torch.from_numpy(planted).to(cuda), final_fallback=True)
     same = words == [h.words for h in batch]
@@ -1670,17 +1843,20 @@ def argmin_phase():
         fail(f"first_argmin on cuda picked {got}, not {want}")
 
 
-# `python -m catears_tpu_torch.bench`, then the launches of the device-loop
+# `python -m catears_tpu_torch.bench`, then the launches of the decoder's
 # kernels it made (warm-up and timed runs, LM off and on) on stderr.
 BENCH_COUNTED = """
 import runpy, sys
-from catears_tpu_torch.decode.beam import backtrace_device
+from catears_tpu_torch.decode.beam import (backtrace_device, expand_emitting,
+                                           select_beam)
 from catears_tpu_torch.graph.device import lm_propagate_capped
 try:
     runpy.run_module("catears_tpu_torch.bench", run_name="__main__")
 finally:
     print(f"# [launches] lm_walk={lm_propagate_capped.launches} "
-          f"backtrace={backtrace_device.launches}", file=sys.stderr)
+          f"backtrace={backtrace_device.launches} "
+          f"frame_expand={expand_emitting.launches} "
+          f"frame_select={select_beam.launches}", file=sys.stderr)
 """
 
 
@@ -1764,7 +1940,8 @@ def bench_mode_phase(name, metric, card, **knobs):
     phase(name, rc=rc, metric=record["metric"], xrt=record["value"],
           wer=record.get("wer"), fused_launches=launches["qmatmul"],
           **loop_launches(name, launches, False,
-                          bulk=knobs.get("BENCH_MODE") == "product"),
+                          bulk=knobs.get("BENCH_MODE") == "product",
+                          eps_free=knobs.get("BENCH_MODE") != "am"),
           wall_s=f"{wall:.2f}", card=f"'{card}'")
     if rc != 0 or record["metric"] != metric or not record["value"] > 0 \
             or not {"metric", "value", "unit", "vs_baseline"} <= set(record):
@@ -2323,6 +2500,8 @@ def main():
         decoder_phase("decoder", get_batch_decoder(rec), dec_cpu, logp,
                       lengths, tg, card)
         del dec_cpu, rec_cpu
+        totals["frame_expand"], totals["frame_select"] = frame_kernel_phase(
+            get_batch_decoder(rec), tg, card)
 
         t0 = time.perf_counter()
         rec_lm = Recognizer(lm_conf, device=cuda)
@@ -2341,6 +2520,7 @@ def main():
                                   delta_lm=rec_lm.delta_lm)
         phase("lm-decoders", seconds=f"{time.perf_counter() - t0:.2f}")
         totals["lm_walk"] = lm_kernel_phase(dec_lm, tg, card)
+        frame_kernel_phase(dec_lm, tg, card)
         decoder_phase("decoder-lm", dec_lm, dec_lm_cpu, logp, lengths, tg,
                       card)
         del dec_lm_cpu
@@ -2380,11 +2560,12 @@ def main():
         runs += [e2e_phase("e2e-lm", lm_conf, lm_scp, cpu_scp, n_linears,
                            card, lm=True),
                  e2e_phase("e2e-raw", raw_conf, scp, cpu_scp, n_linears,
-                           card, watch=True)]
+                           card, watch=True, eps_free=False)]
 
         # -- the live-stream path: toy model, Decoder, 8 trie streams ------
         runs.append({"matmul_s8": 0, "qmatmul": stream_phase(work, card),
-                     "lm_walk": 0, "backtrace": 0})
+                     "lm_walk": 0, "backtrace": 0, "frame_expand": 0,
+                     "frame_select": 0})
         stream_decoder_phase("stream-decoder", rec, tg, card, 500)
         stream_decoder_phase("stream-decoder-lm", rec_lm, tg, card, 150)
         stream_decoder_phase(
@@ -2393,7 +2574,7 @@ def main():
                             config=rec.beam_config, arc_group=rec.arc_group,
                             close_eps=False, csr_group=rec.csr_group,
                             device=cuda),
-            batch_decoder=raw_dec)
+            batch_decoder=raw_dec, eps_free=False)
         del raw_dec
         waves = load_waves([p for _, p in read_scp(scp)])
         runs.append(stream_trie_phase("stream-trie", rec, conf, waves,
@@ -2446,7 +2627,17 @@ def main():
                 "source": "catears_tpu_torch/csrc/backtrace.cu",
                 "replaces": "catears_tpu/decode/beam.py:1064",
                 "entry_point": "backtrace_device",
-                **entry("backtrace", totals["backtrace"])}]
+                **entry("backtrace", totals["backtrace"])},
+               {"name": "frame_expand", "route": "cuda",
+                "source": "catears_tpu_torch/csrc/frame_expand.cu",
+                "replaces": "catears_tpu/decode/beam.py:452",
+                "entry_point": "expand_emitting",
+                **entry("frame_expand", totals["frame_expand"])},
+               {"name": "frame_select", "route": "cuda",
+                "source": "catears_tpu_torch/csrc/frame_select.cu",
+                "replaces": "catears_tpu/decode/beam.py:257",
+                "entry_point": "select_beam",
+                **entry("frame_select", totals["frame_select"])}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -403,3 +403,105 @@ def backtrace_case(seed: int, t: int, b: int, k: int, w: int):
     best = rng.randint(0, k, b).astype(np.int32)
     best[rng.rand(b) < 0.25] = -1
     return prev, words, best
+
+
+# The eps-free frame kernels' cases (tests/test_torch_frame_kernels.py on
+# the CPU, tests/test_torch_cuda.py on the card).
+SENTINEL_STATE = 2**30  # decode/beam.py's
+
+
+def _bits(u):
+    return np.array([u], np.uint32).view(np.float32)[0]
+
+
+NEG_NAN = _bits(0xFFC00000)  # a NaN with its sign bit set
+
+
+def adversarial_rows(seed, e=96, k=8):
+    """{name: (state, lm, cost, w1, w2, tok, olab2, olabel) of one row}."""
+    rng = np.random.RandomState(seed)
+
+    def row(n_states, costs, lm_hi=3):
+        s = rng.randint(0, n_states, e).astype(np.int32) + 10
+        c = rng.choice(np.asarray(costs, np.float32), e).astype(np.float32)
+        lmv = rng.randint(-2, lm_hi, e).astype(np.int32)
+        w1 = rng.choice(np.float32([0.0, -0.0, 0.5, 1.25]), e)
+        w2 = rng.choice(np.float32([0.0, 0.25, -0.75]), e)
+        pay = [rng.randint(0, 1000, e).astype(np.int32) for _ in range(3)]
+        return [s, lmv, c, w1.astype(np.float32), w2.astype(np.float32),
+                *pay]
+
+    rows = {}
+    # Cross-group and in-group cost ties, +-0.0, a negative state.
+    r = row(30, [1.0, 2.0, 0.0, -0.0, 3.5])
+    r[0][5] = -5
+    rows["ties"] = r
+    # +inf and NaN lanes (both signs), some in groups with finite lanes.
+    r = row(12, [1.0, 2.0, 4.0])
+    r[2][::7] = np.inf
+    r[2][3::11] = np.nan
+    r[2][5::13] = NEG_NAN
+    rows["inf-nan"] = r
+    # A -inf winner: its slot is empty and sorts first.
+    r = row(20, [3.0, 5.0])
+    r[2][17] = -np.inf
+    rows["neg-inf"] = r
+    # Sentinel states (and above) with the cheapest costs: never kept.
+    r = row(20, [2.0, 3.0])
+    r[0][::3] = SENTINEL_STATE
+    r[0][1::9] = 2**31 - 1
+    r[2][::3] = -50.0
+    rows["sentinel"] = r
+    # Finite winners past min + beam (their lm stays in the beam).
+    r = row(40, [0.0])
+    r[0][:] = 10 + np.arange(e) % 12
+    r[1][:] = 3
+    r[2][:] = np.where(r[0] < 13, 0.5, 30.0 + r[0]).astype(np.float32)
+    rows["threshold"] = r
+    # Fewer than K winners, exactly K, more than K.
+    r = row(3, [1.0, 2.0])
+    r[1][:] = 7
+    rows["few"] = r
+    r = row(1, [1.0])
+    r[0][:] = 10 + np.arange(e) % k
+    r[1][:] = 0
+    rows["exactly-k"] = r
+    rows["many"] = row(e, np.linspace(-3, 20, 57))
+    # Every lane dead.
+    r = row(5, [1.0])
+    r[0][:] = SENTINEL_STATE
+    r[2][:] = np.inf
+    rows["dead"] = r
+    return rows
+
+
+def random_beam(td, seed, b, k):
+    """A beam of k slots per row: tokens on high-fanout states and on any
+    state, empty slots (state -1, cost +inf), random LM states."""
+    rng = np.random.RandomState(seed)
+    n_emit = to_np(td.state_packed)[:, 3]
+    wide = np.flatnonzero(n_emit > td.group)
+    states = np.where(rng.rand(b, k) < 0.5, rng.choice(wide, (b, k)),
+                      rng.randint(0, td.num_states, (b, k))).astype(np.int32)
+    states[rng.rand(b, k) < 0.2] = -1
+    costs = np.where(states >= 0, rng.uniform(0, 12, (b, k)),
+                     np.inf).astype(np.float32)
+    lms = rng.randint(0, 50, (b, k)).astype(np.int32)
+    return states, costs, lms
+
+
+def tied_rows(seed, lm_on, e=2000):
+    """Three [E] candidate rows with more winners than a beam of 64 whose
+    costs tie in bulk (the selection's radix digits run past the cost):
+    (state, lm or None, cost, None, w2 or None, tok, olab2, olabel)."""
+    rng = np.random.RandomState(seed)
+    state = rng.randint(0, 300, (3, e)).astype(np.int32)
+    state[1] = rng.randint(0, 5, e)  # few states: the lm digits decide
+    lmv = rng.randint(0, 40 if lm_on else 1, (3, e)).astype(np.int32)
+    cost = rng.choice(np.float32([0.5, 1.0, -0.0, 0.0, 7.0]),
+                      (3, e)).astype(np.float32)
+    cost[2] = rng.uniform(-5, 30, e).astype(np.float32)
+    w2 = rng.choice(np.float32([0.0, 0.125]), (3, e)).astype(np.float32)
+    pay = [rng.randint(0, 10**6, (3, e)).astype(np.int32) for _ in range(3)]
+    return [state, lmv if lm_on else None, cost, None,
+            w2 if lm_on else None, *pay]

@@ -15,7 +15,12 @@ CPU's (states, bit-equal weights); the two device-loop kernels
 (csrc/lm_walk.cu behind lm_propagate_capped / lm_propagate, csrc/backtrace.cu
 behind backtrace_device) must equal their plain versions bit for bit on
 tests/test_torch_lm_walk.py's cases, on a non-default stream, and refuse
-non-contiguous or mistyped inputs; the decoder on cuda, LM off and on, on
+non-contiguous or mistyped inputs; the eps-free frame's two kernels
+(csrc/frame_expand.cu behind decode.beam.expand_emitting, csrc/frame_select.cu
+behind decode.beam.select_beam) must equal their plain versions bit for bit
+on tests/test_torch_frame_kernels.py's cases, both emit row layouts, LM off
+and on, with and without the hot/cold split and select_compact, be what an
+eps-free decode launches, and refuse what they do not take; the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
 costs.  The sharded pipeline over logical shards of the card must equal the
 same mesh on the CPU, and tools.synth's loss and gradients the CPU's.
@@ -29,8 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (backtrace_case, big_lm_queries, chain_delta,
-                           walk_lanes)
+from _torch_parity import (adversarial_rows, backtrace_case, big_lm_queries,
+                           chain_delta, random_beam, tied_rows, walk_lanes)
 from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
@@ -480,6 +485,257 @@ def test_lm_walk_and_backtrace_refuse_what_the_kernels_do_not_take(cuda):
             backtrace_device(bad, best)
     with pytest.raises(ValueError):
         backtrace_device(FrameTrace(prev, words), best.float())
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_trie():
+    """The port's planted trie (tests/test_torch_frame_kernels.py's, built
+    by the port) with its G', eps-removed."""
+    from catears_tpu_torch.graph.transform import prepare_decode_graph
+    from catears_tpu_torch.tools.biggraph import make_big_lm, make_trie_graph
+
+    tg = make_trie_graph(np.random.RandomState(1), num_words=120,
+                         num_phones=25, bigram_states=30, variants=2)
+    g2, olab2, mode = prepare_decode_graph(tg.fst)
+    assert mode == "eps_free"
+    delta = make_big_lm(np.random.RandomState(9),
+                        num_words=tg.num_words).delta_lm()
+    return tg, g2, olab2, delta
+
+
+# (group, csr_group, compact, hot rows as a share of the states)
+FRAME_LAYOUTS = {"compact": (2, 16, None, 0), "classic-g4": (4, 4, None, 0),
+                 "classic-g2": (2, 16, False, 0),
+                 "classic-hot": (2, 16, None, 3)}
+
+
+def _frame_tables(layout, dev):
+    tg, g2, olab2, _ = _frame_trie()
+    g, gc, compact, hot = FRAME_LAYOUTS[layout]
+    return tdevice.DeviceFst.build(g2, tg.tid2pdf, group=g, eps_depth_cap=1,
+                                   csr_group=gc, olabel2=olab2,
+                                   compact=compact, device=dev,
+                                   hot_rows=g2.num_states // hot if hot else 0)
+
+
+@pytest.mark.parametrize("layout", list(FRAME_LAYOUTS))
+@pytest.mark.parametrize("expand_size,need_lm", [(512, True), (48, False)])
+def test_expand_kernel_bit_equal(cuda, layout, expand_size, need_lm):
+    """csrc/frame_expand.cu (expand_emitting on cuda, on a non-default
+    stream) == expand_emitting_ref on the card and on the CPU in every lane
+    (dead lanes are masked alike), with a CSR tail (overflowing at 48
+    slots), the hot/cold split (5 cold lanes at 48 slots, which overflow),
+    pdfs past logp's width, and logp as a frame of a [T, B, P] view."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    cpu = torch.device("cpu")
+    td_cpu, td = _frame_tables(layout, cpu), _frame_tables(layout, cuda)
+    b, k = 3, 32
+    states, costs, lms = random_beam(td_cpu, 5, b, k)
+    p = int(_frame_trie()[0].tid2pdf.max()) + 1 - 4  # the top pdfs are out
+    frames = np.log(np.random.RandomState(6).dirichlet(
+        np.ones(p), (b, 4))).astype(np.float32)
+    cold = (5 if expand_size == 48 else 100) if td.hot_rows else 0
+    cfg = BeamConfig(beam_size=k, expand_size=expand_size, am_scale=0.1,
+                     cold_expand_size=cold)
+
+    def beam_on(dev):
+        return tbeam.BeamState(
+            *(torch.from_numpy(x).to(dev) for x in (states, lms, costs)),
+            torch.arange(k, dtype=torch.int32, device=dev).expand(b, k),
+            torch.zeros(b, dtype=torch.bool, device=dev),
+            torch.zeros((b, 5), dtype=torch.int32, device=dev))
+
+    logp_cpu = torch.from_numpy(frames[:, 2].copy())
+    logp = torch.from_numpy(frames).to(cuda).transpose(0, 1)[2]
+    assert not logp.is_contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = tbeam.expand_emitting.launches
+    with torch.cuda.stream(side):
+        got = tbeam.expand_emitting(cfg, td, beam_on(cuda), logp, need_lm)
+    side.synchronize()
+    assert tbeam.expand_emitting.launches == before + 1
+    want = tbeam.expand_emitting_ref(cfg, td_cpu, beam_on(cpu), logp_cpu,
+                                     need_lm)
+    on_card = tbeam.expand_emitting_ref(cfg, td, beam_on(cuda), logp,
+                                        need_lm)
+    for ref, what in ((want, "cpu"), (on_card, "card")):
+        for name, r, g in zip(tbeam.EmitCands._fields, ref, got):
+            if r is None or g is None:
+                assert r is None and g is None, name
+                continue
+            _same_bytes([r], [g], f"{what}: {name}")
+    assert bool(got.overflow.any()) == (expand_size == 48)
+    assert (got.state[:, k + k * td.group:] < tbeam.SENTINEL_STATE).any()
+    assert (got.cold_over is not None) == bool(cold)
+    if cold:
+        assert bool(got.cold_over.any()) == (cold == 5)
+
+
+def _select_cases():
+    adv = adversarial_rows(1)
+    return {"adversarial": (8, [np.stack(c) for c in zip(*adv.values())]),
+            "tied": (64, None)}
+
+
+@pytest.mark.parametrize("case", ["adversarial", "tied"])
+@pytest.mark.parametrize("lm_on,weights", [(False, "none"), (True, "both"),
+                                           (True, "w2")])
+@pytest.mark.parametrize("compact", ["off", "k", "wide"])
+def test_select_kernel_bit_equal(cuda, case, lm_on, weights, compact):
+    """csrc/frame_select.cu (select_beam on cuda, on a non-default stream)
+    == select_beam_ref on the card and on the CPU in full: the adversarial
+    rows (ties, +-0.0, +-inf, NaN of both signs, sentinel states, the
+    threshold, fewer / exactly / more than K winners, a dead row) and rows
+    whose ties carry the radix select into the state and lm digits;
+    select_compact off, at K (the beam in (state, lm) order) and wider than
+    K, with rows that overflow it."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    k, cols = _select_cases()[case]
+    if cols is None:
+        cols = tied_rows(3, lm_on)
+        if weights == "both":
+            cols[3] = np.zeros_like(cols[2]) + np.float32(0.5)
+    else:
+        cols = list(cols)
+        if not lm_on:
+            cols[1] = None
+        if weights != "both":
+            cols[3] = None
+        if weights == "none":
+            cols[4] = None
+    c2 = {"off": 0, "k": k, "wide": 2 * k - 3}[compact]
+    cfg = BeamConfig(beam_size=k, beam=16.0, select_compact=c2)
+    cpu_cols = [None if c is None else torch.from_numpy(np.ascontiguousarray(
+        c)) for c in cols]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = tbeam.select_beam.launches
+    with torch.cuda.stream(side):
+        card_cols = [None if c is None else c.to(cuda) for c in cpu_cols]
+        got = tbeam.select_beam(cfg, *card_cols)
+    side.synchronize()
+    assert tbeam.select_beam.launches == before + 1
+    for ref, what in ((tbeam.select_beam_ref(cfg, *cpu_cols), "cpu"),
+                      (tbeam.select_beam_ref(cfg, *card_cols), "card")):
+        for name in ("states", "lms", "costs", "prev_slot", "words",
+                     "demand"):
+            _same_bytes([getattr(ref, name)], [getattr(got, name)],
+                        f"{what}: {name}")
+        if c2:
+            _same_bytes([ref.overflow], [got.overflow], f"{what}: overflow")
+    assert (got.overflow is None) == (not c2)
+    if c2:
+        assert bool(got.overflow.any())
+
+
+@pytest.mark.parametrize("arc_group,lm", [(2, False), (2, True), (4, True)])
+def test_decoder_launches_the_frame_kernels(cuda, arc_group, lm):
+    """An eps-free BatchDecoder on cuda launches both frame kernels every
+    frame and gives the CPU's words, costs and high-water marks."""
+    from catears_tpu_torch.decode import beam as tbeam
+    from catears_tpu_torch.tools.biggraph import plant_logp
+
+    tg, _, _, delta = _frame_trie()
+    logp, _ = plant_logp(np.random.RandomState(2), tg, 3, 40)
+    cfg = BeamConfig(beam_size=128, expand_size=2048, eps_expand_size=1024,
+                     max_eps_iters=4, beam=12.0, lm_expand_size=64)
+    decs = [BatchDecoder(tg.fst, tg.tid2pdf, config=cfg, arc_group=arc_group,
+                         csr_group=16, device=dev,
+                         delta_lm=delta if lm else None)
+            for dev in (torch.device("cpu"), cuda)]
+    before = (tbeam.expand_emitting.launches, tbeam.select_beam.launches)
+    hyps = [d.decode(logp, [40, 31, 12]) for d in decs]
+    launched = (tbeam.expand_emitting.launches - before[0],
+                tbeam.select_beam.launches - before[1])
+    assert launched[0] >= 40 and launched[1] >= 40, launched
+    assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
+    assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+    assert any(h.words for h in hyps[1])
+    # The frame loop itself: beams (hiwater included) and traces.
+    _, g2, olab2, _ = _frame_trie()
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        dfst = tdevice.DeviceFst.build(g2, tg.tid2pdf, group=arc_group,
+                                       eps_depth_cap=1, csr_group=16,
+                                       olabel2=olab2, device=dev)
+        dlm = tdevice.DeviceLm.build(delta, device=dev) if lm else None
+        beam, _ = tbeam.init_beam_batch(cfg, 3, dfst, dlm)
+        lp = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(logp, (1, 0, 2)))).to(dev)
+        runs.append(tbeam.decode_chunk(cfg, dfst, beam, lp, torch.ones(
+            (40, 3), dtype=torch.bool, device=dev), dlm))
+    for name in tbeam.BeamState._fields:
+        _same_bytes([getattr(runs[0][0], name)], [getattr(runs[1][0], name)],
+                    name)
+    _same_bytes(runs[0][1], runs[1][1], "trace")
+
+
+@pytest.mark.parametrize("lm", [False, True])
+def test_decode_knobs_launch_the_frame_kernels(cuda, lm):
+    """decode_chunk on cuda with the hot/cold split and select_compact
+    (at K LM off, wider LM on) launches both frame kernels every frame and
+    gives the CPU's beams, high-water marks and traces bit for bit (LM
+    off, select_compact overflows)."""
+    from catears_tpu_torch.decode import beam as tbeam
+    from catears_tpu_torch.tools.biggraph import plant_logp
+
+    tg, g2, olab2, delta = _frame_trie()
+    logp, _ = plant_logp(np.random.RandomState(2), tg, 3, 30)
+    cfg = BeamConfig(beam_size=128, expand_size=2048, beam=12.0,
+                     lm_expand_size=64, cold_expand_size=100,
+                     select_compact=300 if lm else 128)
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        dfst = tdevice.DeviceFst.build(g2, tg.tid2pdf, group=2,
+                                       eps_depth_cap=1, csr_group=16,
+                                       olabel2=olab2, device=dev,
+                                       hot_rows=g2.num_states // 4)
+        dlm = tdevice.DeviceLm.build(delta, device=dev) if lm else None
+        beam, _ = tbeam.init_beam_batch(cfg, 3, dfst, dlm)
+        lp = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(logp, (1, 0, 2)))).to(dev)
+        before = (tbeam.expand_emitting.launches, tbeam.select_beam.launches)
+        runs.append(tbeam.decode_chunk(cfg, dfst, beam, lp, torch.ones(
+            (30, 3), dtype=torch.bool, device=dev), dlm))
+    launched = (tbeam.expand_emitting.launches - before[0],
+                tbeam.select_beam.launches - before[1])
+    assert launched == (30, 30), launched
+    for name in tbeam.BeamState._fields:
+        _same_bytes([getattr(runs[0][0], name)], [getattr(runs[1][0], name)],
+                    name)
+    _same_bytes(runs[0][1], runs[1][1], "trace")
+    hiwater = runs[1][0].hiwater.cpu().numpy()
+    assert (hiwater[:, 4] > 0).all()  # cold tokens were counted
+
+
+def test_frame_kernels_refuse_what_they_do_not_take(cuda):
+    from catears_tpu_torch.decode import beam as tbeam
+
+    cfg = BeamConfig(beam_size=8, beam=16.0)
+    e = torch.zeros((2, 40), dtype=torch.int32, device=cuda)
+    c = torch.zeros((2, 40), device=cuda)
+    wide = torch.zeros((2, 80), dtype=torch.int32, device=cuda)
+    for bad in ((e, c[:, ::1].double()), (wide[:, ::2], c), (e, c.cpu())):
+        with pytest.raises(ValueError):
+            tbeam.select_beam(cfg, bad[0], None, bad[1], None, None, e, e, e)
+    with pytest.raises(ValueError, match="1..8192"):
+        tbeam.select_beam(BeamConfig(beam_size=8193), e, None, c, None, None,
+                          e, e, e)
+    td = _frame_tables("compact", cuda)
+    beam = tbeam.BeamState(e[:, :8], e[:, :8], c[:, :8], e[:, :8],
+                           torch.zeros(2, dtype=torch.bool, device=cuda),
+                           torch.zeros((2, 5), dtype=torch.int32,
+                                       device=cuda))
+    for bad in (beam._replace(costs=c[:, :8].double()),
+                beam._replace(states=e[:, :8].cpu())):
+        with pytest.raises(ValueError):
+            tbeam.expand_emitting(cfg, td, bad, c[:, :10], False)
+    with pytest.raises(ValueError, match="graph's tables"):
+        tbeam.expand_emitting(cfg, dataclasses.replace(
+            td, over_packed=td.over_packed.t()), beam, c[:, :10], False)
 
 
 # (rows, K, N) of the TDNN-1024's three linears in one streaming chunk: the

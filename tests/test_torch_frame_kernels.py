@@ -1,0 +1,707 @@
+"""The algorithms of the eps-free frame's two kernels, held to JAX on the CPU.
+
+csrc/frame_expand.cu (decode/beam.py::expand_emitting on the card) and
+csrc/frame_select.cu (decode/beam.py::select_beam) run only on a CUDA card.
+Here a numpy model of each kernel, written as the kernel runs it, is
+compared bit for bit with the JAX package's functions and with the port's
+plain versions:
+
+* the expansion: one thread per candidate lane in the plain lane order
+  (K self-loops, K*G block lanes, the CSR slots); a CSR slot's owner by a
+  binary search over the tokens' inclusive span-row sums; both emit row
+  layouts; the hot/cold split's rows from a count of the cold tokens
+  before each slot; cost = fma(-am_scale, logp[pdf], token cost + arc weight) with
+  one rounding each; held to JAX's `_expand` + `_acoustic_lookup` and
+  `_eps_free_step`'s acoustic line under jax.jit, on the valid lanes (the
+  two JAX ownership branches differ on the dead ones);
+* the selection: group winners by a min over (order-preserving cost bits,
+  lane), the K-th key by a radix select of 8 bits a pass, the selected
+  keys in (cost, state, lm) order, the threshold; with select_compact the
+  beam-threshold survivors, the c2-th of them in (state, lm) order by a
+  radix select first; held to JAX's `_select_best` (`_select_sorts` or
+  `_select_compacted`) + `_eps_free_step`'s threshold on adversarial
+  rows.
+
+The card's tests (tests/test_torch_cuda.py) hold each kernel to the same
+plain versions bit for bit.
+"""
+
+import dataclasses
+from fractions import Fraction
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (adversarial_rows, assert_same, dfst_from_jax,
+                           dlm_from_jax, random_beam, tied_rows, to_np)
+from catears_tpu.decode import beam as jbeam
+from catears_tpu.graph.device import DeviceFst as JaxDeviceFst
+from catears_tpu.graph.device import DeviceLm as JaxDeviceLm
+from catears_tpu.graph.transform import prepare_decode_graph
+from catears_tpu.tools.biggraph import make_big_lm, make_trie_graph, plant_logp
+from catears_tpu_torch.decode import beam as tbeam
+
+SENTINEL = tbeam.SENTINEL_STATE
+ORD_POS_INF = 0xFF800000  # the order-preserving bits of +inf
+ORD_NEG_INF = 0x007FFFFF  # and of -inf
+SIGN = 0x80000000
+
+
+# -- the numpy model of csrc/frame_expand.cu -------------------------------
+
+def fma32(a, x, c):
+    """float32(c - float32(a) * x) rounded once, from exact rationals."""
+    a, x, c = np.float32(a), np.float32(x), np.float32(c)
+    if not (np.isfinite(x) and np.isfinite(c)):
+        return np.float32(np.float64(c) - np.float64(a) * np.float64(x))
+    exact = Fraction(float(c)) - Fraction(float(a)) * Fraction(float(x))
+    f = np.float32(float(exact))
+    best = None
+    for cand in (np.nextafter(f, np.float32(-np.inf)), f,
+                 np.nextafter(f, np.float32(np.inf))):
+        if not np.isfinite(cand):
+            continue
+        d = abs(Fraction(float(cand)) - exact)
+        even = (int(np.array(cand).view(np.uint32)) & 1) == 0
+        if best is None or d < best[0] or (d == best[0] and even):
+            best = (d, cand)
+    return np.float32(best[1])
+
+
+def expand_model(states, costs, lms, emit, over, logp, k, g, gc, compact,
+                 n_slots, csr, am_scale, emit_hot=None, cold_cap=0):
+    """The kernel's lanes, row by row: (state, cost, tok, olabel, olab2,
+    lm or None, overflow, needed, cold_over or None, cold_needed or None)
+    as numpy arrays; emit_hot given: the hot/cold split with cold_cap
+    cold lanes."""
+    b = states.shape[0]
+    e = k + k * g + n_slots * gc
+    num_states, p = emit.shape[0], logp.shape[1]
+    o_state = np.full((b, e), SENTINEL, np.int32)
+    o_cost = np.full((b, e), np.inf, np.float32)
+    o_tok, o_ol, o_ol2, o_lm = (np.zeros((b, e), np.int32) for _ in range(4))
+    overflow = np.zeros(b, bool)
+    needed = np.zeros(b, np.int32)
+    split = emit_hot is not None
+    hot_rows = emit_hot.shape[0] if split else 0
+    cold_over = np.zeros(b, bool)
+    cold_needed = np.zeros(b, np.int32)
+
+    def srl(x, n):
+        return int(np.uint32(np.int32(x).view(np.uint32)) >> np.uint32(n))
+
+    def clamp(s):
+        return min(max(int(s), 0), num_states - 1)
+
+    for r in range(b):
+        st, co = states[r], costs[r]
+        lm = lms[r] if lms is not None else np.zeros(k, np.int32)
+        # Each token's row: the split's from the cold tokens before it.
+        cold = (st >= 0) & (np.minimum(np.maximum(st, 0), num_states - 1)
+                            >= hot_rows)
+        before = np.cumsum(cold) - cold
+        if split:
+            cold_needed[r] = cold.sum()
+            cold_over[r] = cold.sum() > cold_cap
+        rows = []
+        for t in range(k):
+            sc = clamp(st[t])
+            if not split:
+                rows.append(emit[sc])
+            elif sc < hot_rows:
+                rows.append(emit_hot[sc])
+            elif st[t] >= 0 and before[t] < cold_cap:
+                rows.append(emit[sc])
+            else:
+                rows.append(emit_hot[0])
+
+        def row_of(t):
+            return rows[t]
+
+        def n_emit(t):
+            if st[t] < 0:
+                return 0
+            x = rows[t]
+            return srl(x[7], 13) & 0x3FF if compact else int(x[g * 5 + 3])
+
+        def put(i, nxt, t, w_bits, pdf, ol, ol2):
+            c = np.float32(co[t] + np.int32(w_bits).view(np.float32))
+            lp = logp[r, pdf] if 0 <= pdf < p else np.float32(0.0)
+            o_state[r, i], o_cost[r, i] = nxt, fma32(am_scale, lp, c)
+            o_tok[r, i], o_ol[r, i], o_ol2[r, i] = t, ol, ol2
+            o_lm[r, i] = lm[t]
+
+        cum = np.cumsum([-(-max(n_emit(t) - g, 0) // gc) for t in range(k)])
+        rows_needed = int(cum[-1]) if csr else 0
+        needed[r] = rows_needed * gc
+        overflow[r] = rows_needed > n_slots
+        for t in range(k):  # the self-loop lanes
+            s, row = int(st[t]), row_of(t)
+            if compact:
+                has, ol, w, pdf = (srl(row[7], 12) & 1, 0, row[6],
+                                   int(row[7]) & 0xFFF)
+            else:
+                has, ol, w, pdf = row[g * 5 + 4:g * 5 + 8]
+            if s >= 0 and has > 0:
+                put(t, min(s, num_states - 1), t, w, pdf, ol, 0)
+        for t in range(k):  # the first-G block lanes
+            row = row_of(t)
+            for j in range(min(n_emit(t), g)):
+                if compact:
+                    nw = int(row[2 * j])
+                    nxt, pdf, w = nw & 0xFFFFF, srl(nw, 20), row[2 * j + 1]
+                    ol = srl(row[4], 16) if j else int(row[4]) & 0xFFFF
+                    l4 = srl(row[5], 16) if j else int(row[5]) & 0xFFFF
+                else:
+                    nxt, ol, w, pdf, l4 = row[j * 5:j * 5 + 5]
+                put(k + t * g + j, nxt, t, w, pdf, ol, l4)
+        for slot in range(min(n_slots, rows_needed)):  # the CSR lanes
+            lo, hi = 0, k - 1  # binary search: first t with cum[t] > slot
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if cum[mid] > slot:
+                    hi = mid
+                else:
+                    lo = mid + 1
+            t = lo
+            rr = slot - (int(cum[t - 1]) if t else 0)
+            row = row_of(t)
+            over_lo = int(row[8]) if compact else int(row[g * 5 + 2])
+            ri = min(max(over_lo + rr, 0), over.shape[0] - 1)
+            for j in range(gc):
+                if rr * gc + j < n_emit(t) - g:
+                    nxt, ol, w, pdf, l4 = over[ri, j * 5:j * 5 + 5]
+                    put(k + k * g + slot * gc + j, nxt, t, w, pdf, ol, l4)
+    return (o_state, o_cost, o_tok, o_ol, o_ol2,
+            o_lm if lms is not None else None, overflow, needed,
+            cold_over if split else None, cold_needed if split else None)
+
+
+# -- the numpy model of csrc/frame_select.cu -------------------------------
+
+def ordered(c):
+    """Order-preserving uint32 cost bits: -0.0 == +0.0, NaN after +inf."""
+    u = np.asarray(c, np.float32).view(np.uint32).copy()
+    u[c == 0] = 0
+    u[np.isnan(c)] = 0x7FC00000
+    return np.where(u & SIGN, ~u, u | SIGN).astype(np.uint32)
+
+
+def radix_select(keys, k, passes):
+    """The kernel's radix select over [n, 3] uint32 keys (their words in
+    the order searched): (prefix, masks) such that exactly the k least keys
+    are <= prefix under the masks.  `passes` collects the digit count each
+    search took."""
+    pre, msk, rank = [0, 0, 0], [0, 0, 0], k
+    for d in range(12):
+        w, shift = d >> 2, 24 - 8 * (d & 3)
+        match = np.ones(len(keys), bool)
+        for i in range(3):
+            match &= ((keys[:, i] ^ pre[i]) & msk[i]) == 0
+        hist = np.bincount((keys[match, w] >> shift) & 0xFF, minlength=256)
+        bucket = 0
+        while bucket < 255 and hist[bucket] < rank:
+            rank -= int(hist[bucket])
+            bucket += 1
+        pre[w] |= bucket << shift
+        msk[w] |= 0xFF << shift
+        if hist[bucket] == rank:
+            passes.append(d + 1)
+            return pre, msk
+    raise AssertionError("the radix select did not end")
+
+
+def at_most(keys, pre, msk):
+    """keys under the masks <= the prefix, lexicographically."""
+    a = [keys[:, i] & np.uint32(msk[i]) for i in range(3)]
+    p = [np.uint32(x) for x in pre]
+    return ((a[0] < p[0]) | ((a[0] == p[0]) & ((a[1] < p[1])
+            | ((a[1] == p[1]) & (a[2] <= p[2])))))
+
+
+BY_GROUP = [1, 2, 0]  # the key words (cost, state, lm) in (state, lm) order
+
+
+def select_model(state, lm, cost, w1, w2, tok, olab2, olabel, k, beam,
+                 passes=None, c2=0):
+    """(states, lms, costs, prev_slot, words, demand, overflow) of the
+    kernel, row by row; c2: BeamConfig.select_compact."""
+    passes = [] if passes is None else passes
+    b, e = state.shape
+    c2 = max(c2, k) if c2 else 0  # the lanes, as _compact_width
+    c2 = c2 if c2 < e else 0
+    out_s = np.full((b, k), -1, np.int32)
+    out_l = np.zeros((b, k), np.int32)
+    out_c = np.full((b, k), np.inf, np.float32)
+    out_p = np.zeros((b, k), np.int32)
+    out_w = np.zeros((b, k, 2), np.int32)
+    demand = np.zeros(b, np.int32)
+    overflow = np.zeros(b, bool)
+    for r in range(b):
+        c = cost[r].copy()
+        for w in (w1, w2):
+            if w is not None:
+                c = (c + w[r]).astype(np.float32)
+        lmr = lm[r] if lm is not None else np.zeros(e, np.int32)
+        ck = ordered(c)
+        win = {}  # (state, lm) -> (cost bits << 32 | lane), the least
+        for i in range(e):
+            if state[r, i] >= SENTINEL:
+                continue
+            key = (int(state[r, i]), int(lmr[i]))
+            v = (int(ck[i]) << 32) | i
+            win[key] = min(win.get(key, v), v)
+        mn = np.float32(np.nan) if np.isnan(c).any() else c.min()
+        cut = np.float32(mn + np.float32(beam))
+        def survives(v):
+            x = c[v & 0xFFFFFFFF]
+            return bool(np.isfinite(x) and x <= cut)
+
+        demand[r] = sum(survives(v) for v in win.values())
+        overflow[r] = bool(c2) and demand[r] > c2
+        keys = np.array(
+            [(v >> 32, (s ^ SIGN) & 0xFFFFFFFF, (l ^ SIGN) & 0xFFFFFFFF,
+              v & 0xFFFFFFFF) for (s, l), v in win.items()
+             if (survives(v) if c2 else (v >> 32) < ORD_POS_INF)],
+            np.uint32).reshape(-1, 4)
+        if c2 and len(keys) > c2:  # the first c2 in (state, lm) order
+            by_group = keys[:, BY_GROUP]
+            pre, msk = radix_select(by_group, c2, passes)
+            keys = keys[at_most(by_group, pre, msk)]
+            assert len(keys) == c2
+        group_order = bool(c2) and c2 <= k
+        if not group_order and len(keys) > k:
+            pre, msk = radix_select(keys[:, :3], k, passes)
+            keys = keys[at_most(keys[:, :3], pre, msk)]
+            assert len(keys) == k
+        if group_order:
+            keys = keys[np.lexsort((keys[:, 2], keys[:, 1]))]
+        else:
+            keys = keys[np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))]
+        slot_c = c[keys[:, 3].astype(np.int64)]
+        fin = slot_c[np.isfinite(slot_c)]
+        if len(fin):
+            cutoff = np.float32(fin.min() + np.float32(beam))
+        for j, key in enumerate(keys):
+            i = int(key[3])
+            if not np.isfinite(c[i]):
+                continue
+            out_l[r, j] = lmr[i] if lm is not None else 0
+            if c[i] <= cutoff:
+                out_s[r, j], out_c[r, j], out_p[r, j] = state[r, i], c[i], \
+                    tok[r, i]
+                out_w[r, j] = (olab2[r, i], olabel[r, i])
+    return out_s, out_l, out_c, out_p, out_w, demand, overflow
+
+
+# -- JAX references --------------------------------------------------------
+
+def jax_select(k, beam, state, lm, cost, w1, w2, tok, olab2, olabel,
+               select_compact=0):
+    """JAX's `_select_best` (compact=True: `_select_sorts` with the demand,
+    or `_select_compacted`) + `_eps_free_step`'s threshold, vmapped over
+    rows; a row's prev_slot and words are zeroed where its cost is not
+    finite (see select_beam_ref)."""
+    cfg = jbeam.BeamConfig(beam_size=k, beam=beam,
+                           select_compact=select_compact)
+    has_lm, has_w1, has_w2 = lm is not None, w1 is not None, w2 is not None
+
+    def one(s, l, c, a1, a2, t, o2, o1):
+        if has_w1:
+            c = c + a1
+        if has_w2:
+            c = c + a2
+        (states, lms, costs, prev, x0, x1), over, demand = \
+            jbeam._select_best(cfg, s, l if has_lm else None, c, [t, o2, o1],
+                               compact=True)
+        cutoff = jnp.min(costs) + cfg.beam
+        keep = costs <= cutoff
+        fin = keep & jnp.isfinite(costs)
+        return (jnp.where(keep, states, -1), lms,
+                jnp.where(keep, costs, jbeam.INF), jnp.where(fin, prev, 0),
+                jnp.stack([jnp.where(fin, x0, 0), jnp.where(fin, x1, 0)], 1),
+                demand, over)
+
+    zeros = np.zeros_like(cost)
+    args = [state, lm if has_lm else state, cost,
+            w1 if has_w1 else zeros, w2 if has_w2 else zeros, tok, olab2,
+            olabel]
+    return [np.asarray(x) for x in jax.jit(jax.vmap(one))(
+        *(jnp.asarray(a) for a in args))]
+
+
+def port_select(k, beam, *cols, wrapper=tbeam.select_beam_ref,
+                select_compact=0):
+    cfg = tbeam.BeamConfig(beam_size=k, beam=beam,
+                           select_compact=select_compact)
+    t = [None if c is None else torch.from_numpy(np.ascontiguousarray(c))
+         for c in cols]
+    s = wrapper(cfg, *t)
+    over = (np.zeros(len(cols[0]), bool) if s.overflow is None
+            else to_np(s.overflow))
+    return [to_np(x) for x in (s.states, s.lms, s.costs, s.prev_slot,
+                                s.words, s.demand)] + [over], s
+
+
+SELECT_NAMES = ("states", "lms", "costs", "prev_slot", "words", "demand",
+                "overflow")
+
+
+def _stack(rows, lm_on, weights):
+    cols = [np.stack(c) for c in zip(*rows)]
+    if not lm_on:
+        cols[1] = None
+    if weights == "none":
+        cols[3] = cols[4] = None
+    elif weights == "w2":
+        cols[3] = None
+    return cols
+
+
+@pytest.mark.parametrize("lm_on,weights", [(False, "none"), (True, "both"),
+                                           (True, "w2")])
+def test_select_model_matches_jax_on_adversarial_rows(lm_on, weights):
+    """Every adversarial row, bit for bit: the kernel's model against JAX's
+    sorts + threshold, and the port's plain version against the model."""
+    k, beam = 8, 16.0
+    rows = adversarial_rows(1)
+    cols = _stack(list(rows.values()), lm_on, weights)
+    passes = []
+    got = select_model(*cols, k, beam, passes=passes)
+    ref = jax_select(k, beam, *cols)
+    for name, x, y in zip(SELECT_NAMES, ref, got):
+        assert_same(x, y, name)
+    plain, _ = port_select(k, beam, *cols)
+    for name, x, y in zip(SELECT_NAMES, got, plain):
+        assert_same(x, y, f"select_beam_ref {name}")
+    names_rows = list(rows)
+    states, costs = got[0], got[2]
+    finite = np.isfinite(costs).sum(1)
+    by = dict(zip(names_rows, finite))
+    assert by["few"] < k and by["exactly-k"] == k and by["dead"] == 0
+    assert (states[names_rows.index("sentinel")] < SENTINEL).all()
+    assert costs[names_rows.index("neg-inf"), 0] == np.inf
+    row = names_rows.index("threshold")
+    past = ~np.isfinite(costs[row]) & (got[1][row] != 0)
+    assert past.any() == lm_on  # winners past the threshold keep their lm
+    assert passes  # the radix select ran
+
+
+@pytest.mark.parametrize("seed,lm_on", [(2, False), (3, True), (4, True)])
+def test_select_model_radix_digits(seed, lm_on):
+    """More winners than K whose costs tie in bulk: the radix select runs
+    on into the state (and lm) digits; the model, JAX and the plain
+    version agree bit for bit."""
+    k = 64
+    cols = tied_rows(seed, lm_on)
+    passes = []
+    got = select_model(*cols, k, 16.0, passes=passes)
+    for name, x, y in zip(SELECT_NAMES, jax_select(k, 16.0, *cols), got):
+        assert_same(x, y, name)
+    plain, _ = port_select(k, 16.0, *cols)
+    for x, y in zip(got, plain):
+        assert_same(x, y)
+    assert max(passes) > 4  # past the four cost digits
+
+
+@pytest.mark.parametrize("c2", [8, 13, 90])
+@pytest.mark.parametrize("lm_on,weights", [(False, "none"), (True, "both")])
+def test_select_model_compact_matches_jax(c2, lm_on, weights):
+    """select_compact on every adversarial row, bit for bit: the kernel's
+    model against JAX's `_select_compacted` + threshold, and the port's
+    plain version against the model.  c2 == K returns the beam in (state,
+    lm) order; rows with more survivors than c2 set the overflow flag."""
+    k, beam = 8, 16.0
+    cols = _stack(list(adversarial_rows(1).values()), lm_on, weights)
+    got = select_model(*cols, k, beam, c2=c2)
+    ref = jax_select(k, beam, *cols, select_compact=c2)
+    for name, x, y in zip(SELECT_NAMES, ref, got):
+        assert_same(x, y, name)
+    plain, _ = port_select(k, beam, *cols, select_compact=c2)
+    for name, x, y in zip(SELECT_NAMES, got, plain):
+        assert_same(x, y, f"select_beam_ref {name}")
+    assert got[6].any() == (c2 < 90)  # the "many" row overflows
+    if c2 == k:  # (state, lm) order, not cost order
+        for st_row in got[0]:
+            assert (np.diff(st_row[st_row >= 0]) >= 0).all()
+        assert any((np.diff(c[np.isfinite(c)]) < 0).any() for c in got[2])
+
+
+@pytest.mark.parametrize("seed,lm_on,c2", [(2, False, 64), (3, True, 64),
+                                           (4, True, 150), (5, False, 3000)])
+def test_select_model_compact_radix_digits(seed, lm_on, c2):
+    """More survivors than c2 (and than K) on rows whose costs tie in
+    bulk: the (state, lm) radix select, then the cost one; the model, JAX
+    and the plain version agree bit for bit."""
+    k = 64
+    cols = tied_rows(seed, lm_on)
+    passes = []
+    got = select_model(*cols, k, 16.0, passes=passes, c2=c2)
+    for name, x, y in zip(SELECT_NAMES,
+                          jax_select(k, 16.0, *cols, select_compact=c2), got):
+        assert_same(x, y, name)
+    plain, _ = port_select(k, 16.0, *cols, select_compact=c2)
+    for name, x, y in zip(SELECT_NAMES, got, plain):
+        assert_same(x, y, f"select_beam_ref {name}")
+    assert got[6].any() == (c2 < 3000)
+    assert passes
+
+
+# -- the expansion against JAX ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def trie():
+    tg = make_trie_graph(np.random.RandomState(1), num_words=120,
+                         num_phones=25, bigram_states=30, variants=2)
+    g2, olab2, mode = prepare_decode_graph(tg.fst)
+    assert mode == "eps_free"
+    delta = make_big_lm(np.random.RandomState(9),
+                        num_words=tg.num_words).delta_lm()
+    return tg, g2, olab2, JaxDeviceLm.build(delta)
+
+
+# (group, csr_group, compact, hot rows as a share of the states)
+LAYOUTS = {"compact": (2, 16, None, 0), "classic-g4": (4, 4, None, 0),
+           "classic-g2": (2, 16, False, 0), "classic-hot": (2, 16, None, 3)}
+
+
+def _tables(trie, layout):
+    tg, g2, olab2, _ = trie
+    g, gc, compact, hot = LAYOUTS[layout]
+    jd = JaxDeviceFst.build(g2, tg.tid2pdf, group=g, eps_depth_cap=1,
+                            csr_group=gc, olabel2=olab2, compact=compact,
+                            hot_rows=g2.num_states // hot if hot else 0)
+    td = dfst_from_jax(jd)
+    assert td.emit_compact == (layout == "compact")
+    assert bool(td.hot_rows) == bool(hot)
+    assert td.max_emit_fanout > g  # the CSR pass runs
+    return jd, td
+
+
+def jax_expand(jcfg, jd, states, costs, lms, logp, need_lm):
+    """JAX's `_expand` (emitting) + `_acoustic_lookup` + :717 under
+    jax.jit, vmapped over rows: (valid, next, cost, tok, olabel, olab2,
+    lm, overflow, needed, cold_over, cold_needed)."""
+    def one(s, c, l, lp):
+        k = s.shape[0]
+        beam = jbeam.BeamState(s, l, c, jnp.arange(k, dtype=jnp.int32),
+                               jnp.bool_(False), jnp.zeros(5, jnp.int32))
+        x = jbeam._expand(jcfg, jd, beam, jcfg.expand_size, True,
+                          need_lm=need_lm, need_bp=False, need_eps=True)
+        cost = x.cost - jcfg.am_scale * jbeam._acoustic_lookup(lp, x.pdf)
+        return (x.valid, x.next_state, cost, x.tok, x.olabel, x.eps,
+                x.lm if need_lm else x.tok, x.overflow, x.needed,
+                jnp.asarray(x.cold_over), jnp.asarray(x.cold_needed))
+
+    return [np.asarray(v) for v in jax.jit(jax.vmap(one))(
+        jnp.asarray(states), jnp.asarray(costs), jnp.asarray(lms),
+        jnp.asarray(logp))]
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("expand_size,need_lm", [(512, True), (48, False)])
+def test_expand_model_matches_jax(trie, layout, expand_size, need_lm):
+    """Both row layouts, the hot/cold split (at 48 slots with 5 cold
+    lanes, which overflow), a CSR tail (and at 48 slots an overflowing
+    one), pdfs past logp's width: the model equals JAX on the valid lanes
+    (and in overflow, needed and the cold counts), and the port's plain
+    version in full."""
+    jd, td = _tables(trie, layout)
+    b, k = 3, 32
+    states, costs, lms = random_beam(td, 5, b, k)
+    rng = np.random.RandomState(6)
+    p = int(to_np(trie[0].tid2pdf).max()) + 1 - 4  # the top pdfs are out
+    logp = np.log(rng.dirichlet(np.ones(p), b)).astype(np.float32)
+    cold = (5 if expand_size == 48 else 100) if td.hot_rows else 0
+    kw = dict(beam_size=k, expand_size=expand_size, am_scale=0.1,
+              cold_expand_size=cold)
+    jcfg, tcfg = jbeam.BeamConfig(**kw), tbeam.BeamConfig(**kw)
+    g, gc = td.group, td.csr_group
+    n_slots = -(-expand_size // gc)
+    got = expand_model(states, costs, lms if need_lm else None,
+                       to_np(td.emit_block), to_np(td.over_packed), logp, k,
+                       g, gc, td.emit_compact, n_slots, True, 0.1,
+                       to_np(td.emit_hot) if cold else None, min(cold, k))
+    ref = jax_expand(jcfg, jd, states, costs, lms, logp, need_lm)
+    valid = ref[0]
+    assert_same(valid, got[0] != SENTINEL, "valid lanes")
+    for name, x, y in zip(("next", "cost", "tok", "olabel", "olab2", "lm"),
+                          ref[1:7], got[:6]):
+        if y is not None:
+            assert_same(np.where(valid, x, 0), np.where(valid, y, 0), name)
+    assert_same(ref[7], got[6], "overflow")
+    assert_same(ref[8], got[7], "needed")
+    assert got[6].any() == (expand_size == 48)
+    if cold:
+        assert_same(ref[9], got[8], "cold_over")
+        assert_same(ref[10], got[9], "cold_needed")
+        assert got[8].any() == (cold == 5)
+        assert (got[9] > 0).all()
+    assert valid[:, k + k * g:].any()  # live CSR lanes
+    beam = tbeam.BeamState(torch.from_numpy(states), torch.from_numpy(lms),
+                           torch.from_numpy(costs),
+                           torch.arange(k, dtype=torch.int32).expand(b, k),
+                           torch.zeros(b, dtype=torch.bool),
+                           torch.zeros((b, 5), dtype=torch.int32))
+    plain = tbeam.expand_emitting_ref(tcfg, td, beam, torch.from_numpy(logp),
+                                      need_lm)
+    for name, x, y in zip(tbeam.EmitCands._fields, got, plain):
+        if x is not None or y is not None:
+            assert_same(x, y, f"expand_emitting_ref {name}")
+
+
+def test_expand_model_reads_zero_past_logp(trie):
+    """A live lane whose pdf is outside [0, P) adds no acoustic term, as
+    the one-hot lookup gives: cost = token cost + arc weight exactly."""
+    jd, td = _tables(trie, "compact")
+    states, costs, lms = random_beam(td, 8, 2, 32)
+    logp = np.full((2, 3), -7.0, np.float32)  # P = 3: most pdfs are out
+    got = expand_model(states, costs, None, to_np(td.emit_block),
+                       to_np(td.over_packed), logp, 32, 2, 16, True, 32,
+                       True, 0.1)
+    jcfg = jbeam.BeamConfig(beam_size=32, expand_size=512, am_scale=0.1)
+    ref = jax_expand(jcfg, jd, states, costs, lms, logp, False)
+    valid = ref[0]
+    assert_same(np.where(valid, ref[2], 0), np.where(valid, got[1], 0),
+                "cost")
+    assert valid.sum() > 50
+
+
+# -- the step and the public names ----------------------------------------
+
+def _mid_beam(trie, jd, jl, k, frames=6):
+    """A JAX beam after `frames` planted frames of two utterances, plus an
+    empty third row (every candidate of the next frame dead)."""
+    tg = trie[0]
+    logp, _ = plant_logp(np.random.RandomState(2), tg, 3, frames + 1)
+    kw = dict(beam_size=k, expand_size=256, eps_expand_size=64,
+              max_eps_iters=4, beam=12.0)
+    jcfg = jbeam.BeamConfig(**kw)
+    jb, _ = jbeam.init_beam_batch(jcfg, jl is not None, 3, jd, jl)
+    lp = np.ascontiguousarray(np.transpose(logp[:, :frames], (1, 0, 2)))
+    jb, _ = jbeam.decode_chunk(jcfg, jl is not None, jd, jl, jb,
+                               jnp.asarray(lp), jnp.ones((frames, 3), bool))
+    jb = jb._replace(states=jb.states.at[2].set(-1),
+                     costs=jb.costs.at[2].set(jnp.inf))
+    return kw, jb, logp[:, frames]
+
+
+@pytest.mark.parametrize("lm_on,layout,knobs", [
+    (False, "compact", {}), (True, "compact", {}),
+    (False, "compact", {"select_compact": 64}),
+    (True, "classic-hot", {"cold_expand_size": 10, "select_compact": 300})])
+def test_eps_free_step_matches_jax(trie, lm_on, layout, knobs):
+    """The port's _eps_free_step on the CPU (through expand_emitting and
+    select_beam) against JAX's _eps_free_step, one frame from a mid-decode
+    beam, also with select_compact and the hot/cold split: the new beam
+    bit for bit; prev_slot and words too, where JAX's are not the
+    payloads of a dead row."""
+    jd, td = _tables(trie, layout)
+    jl = trie[3] if lm_on else None
+    tl = dlm_from_jax(jl) if lm_on else None
+    kw, jb, logp = _mid_beam(trie, jd, jl, 64)
+    kw.update(knobs)
+    jcfg, tcfg = jbeam.BeamConfig(**kw), tbeam.BeamConfig(**kw)
+    step = jax.jit(jax.vmap(lambda b_, lp: jbeam._eps_free_step(
+        jcfg, jd, jl, b_, lp)))
+    (nb, prev, words) = step(jb, jnp.asarray(logp))
+    tb = tbeam.BeamState(*(torch.from_numpy(np.array(x)) for x in jb))
+    before = (tbeam.expand_emitting.launches, tbeam.select_beam.launches)
+    got_b, got_prev, got_words = tbeam._eps_free_step(
+        tcfg, td, tl, tb, torch.from_numpy(logp))
+    assert (tbeam.expand_emitting.launches,
+            tbeam.select_beam.launches) == before
+    for name, x, y in zip(nb._fields, nb, got_b):
+        assert_same(x, y, f"beam {name}")
+    alive = np.isfinite(np.asarray(nb.costs)).any(1)
+    assert alive.tolist() == [True, True, False]
+    assert_same(np.asarray(prev)[alive], to_np(got_prev)[alive], "prev")
+    assert_same(np.asarray(words)[alive], to_np(got_words)[alive], "words")
+    assert not to_np(got_prev)[~alive].any()
+    assert not to_np(got_words)[~alive].any()
+    if lm_on:
+        assert (to_np(got_b.lm) > 0).any()
+
+
+def test_public_names_take_the_plain_version_on_cpu(trie, monkeypatch):
+    """CPU tensors: expand_emitting and select_beam give their plain
+    versions' outputs exactly; no kernel is built or counted."""
+    def no_kernel(*args):
+        raise AssertionError("a CPU tensor reached a kernel")
+
+    monkeypatch.setattr(tbeam, "kernel_library", no_kernel)
+    _, td = _tables(trie, "classic-g4")
+    states, costs, lms = random_beam(td, 3, 2, 16)
+    beam = tbeam.BeamState(torch.from_numpy(states), torch.from_numpy(lms),
+                           torch.from_numpy(costs),
+                           torch.arange(16, dtype=torch.int32).expand(2, 16),
+                           torch.zeros(2, dtype=torch.bool),
+                           torch.zeros((2, 5), dtype=torch.int32))
+    logp = torch.from_numpy(np.log(np.random.RandomState(0).dirichlet(
+        np.ones(200), 2)).astype(np.float32))
+    cfg = tbeam.BeamConfig(beam_size=16, expand_size=128)
+    before = (tbeam.expand_emitting.launches, tbeam.select_beam.launches)
+    got = tbeam.expand_emitting(cfg, td, beam, logp, True)
+    ref = tbeam.expand_emitting_ref(cfg, td, beam, logp, True)
+    for name, x, y in zip(tbeam.EmitCands._fields, ref, got):
+        assert_same(x, y, name)
+    cols = (got.state, got.lm, got.cost, None, None, got.tok, got.olab2,
+            got.olabel)
+    sel = tbeam.select_beam(cfg, *cols)
+    ref = tbeam.select_beam_ref(cfg, *cols)
+    for name, x, y in zip(tbeam.Selected._fields, ref, sel):
+        assert_same(x, y, name)
+    assert (tbeam.expand_emitting.launches,
+            tbeam.select_beam.launches) == before
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(trie):
+    """Other devices, dtypes, shapes and layouts raise on every device: no
+    path falls back to a plain version."""
+    _, td = _tables(trie, "compact")
+    _, td4 = _tables(trie, "classic-g4")
+    cfg = tbeam.BeamConfig(beam_size=4, expand_size=64)
+    z = torch.zeros((2, 4), dtype=torch.int32)
+    f = torch.zeros((2, 4))
+    beam = tbeam.BeamState(z, z, f, z, torch.zeros(2, dtype=torch.bool),
+                           torch.zeros((2, 5), dtype=torch.int32))
+    logp = torch.zeros((2, 10))
+    meta = tbeam.BeamState(*(x.to("meta") for x in beam))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tbeam.expand_emitting(cfg, td, meta, logp.to("meta"), False)
+    with pytest.raises(ValueError, match="float32"):
+        tbeam.expand_emitting(cfg, td, beam._replace(costs=f.double()),
+                              logp, False)
+    with pytest.raises(ValueError, match=r"needs beam \[B, 8\]"):
+        tbeam.expand_emitting(tbeam.BeamConfig(beam_size=8), td, beam, logp,
+                              False)
+    with pytest.raises(ValueError, match="emit_hot must be"):
+        tbeam.expand_emitting(
+            tbeam.BeamConfig(beam_size=4, cold_expand_size=8),
+            dataclasses.replace(td4, hot_rows=5, emit_hot=None), beam, logp,
+            False)
+    with pytest.raises(ValueError, match="emit_hot must hold rows"):
+        tbeam.expand_emitting(
+            tbeam.BeamConfig(beam_size=4, cold_expand_size=8),
+            dataclasses.replace(td4, hot_rows=5,
+                                emit_hot=td4.emit_block[:5, :-1]),
+            beam, logp, False)
+    with pytest.raises(ValueError, match="neither the compact"):
+        tbeam.expand_emitting(cfg, dataclasses.replace(
+            td4, emit_block=td4.emit_block[:, :-1]), beam, logp, False)
+    e = torch.zeros((2, 12), dtype=torch.int32)
+    c = torch.zeros((2, 12))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tbeam.select_beam(cfg, e.to("meta"), None, c.to("meta"), None, None,
+                          e.to("meta"), e.to("meta"), e.to("meta"))
+    with pytest.raises(ValueError, match="cost must be"):
+        tbeam.select_beam(cfg, e, None, c.double(), None, None, e, e, e)
+    with pytest.raises(ValueError, match="tok must be"):
+        tbeam.select_beam(cfg, e, None, c, None, None, e[:, :5], e, e)
+    with pytest.raises(ValueError, match="lm must be"):
+        tbeam.select_beam(tbeam.BeamConfig(beam_size=4, select_compact=8),
+                          e, e.to(torch.int64), c, None, None, e, e, e)
+
