@@ -770,21 +770,41 @@ class Selected(NamedTuple):
     demand: torch.Tensor  # i32 [B] (hiwater slot 3)
 
 
+def select_geometry(e: int) -> Tuple[int, int, bool]:
+    """(CTAs a row's cluster takes, log2 of its table's slots, whether the
+    table lives in shared memory) of csrc/frame_select.cu over e lanes: a
+    function of the shape alone.  The table has more than e * 4/3 slots
+    (at least 16); its slices of at most _SELECT_SLICE_BYTES (16 B a slot)
+    take the CTAs' shared memory, 8 CTAs where that does, else 16; a
+    larger table keeps 16 slices in global scratch."""
+    log2cap = max(4, (e + e // 3).bit_length())
+    table = 16 << log2cap
+    for cluster in (8, 16):
+        if table // cluster <= _SELECT_SLICE_BYTES:
+            return cluster, log2cap, True
+    return 16, log2cap, False
+
+
 def select_beam(cfg: BeamConfig, state: torch.Tensor,
                 lm: Optional[torch.Tensor], cost: torch.Tensor,
                 w1: Optional[torch.Tensor], w2: Optional[torch.Tensor],
                 tok: torch.Tensor, olab2: torch.Tensor,
-                olabel: torch.Tensor) -> Selected:
+                olabel: torch.Tensor,
+                stamps: Optional[torch.Tensor] = None) -> Selected:
     """The eps-free frame's selection over [B, E] candidates: cost + w1 +
     w2 (each optional, added in that order), exact dedup by (state, lm)
     (lm None: LM off), exact top-K by cost (with cfg.select_compact, of
     the beam-threshold survivors compacted first), the beam threshold.
 
     CPU tensors take the plain version (select_beam_ref); CUDA tensors
-    launch the hand-written kernel (csrc/frame_select.cu: group winners by
-    a 64-bit atomicMin in a hash table, radix selects of the c2-th and the
-    K-th key, a shared-memory sort) or raise.  `select_beam.launches`
-    counts the launches.
+    launch the hand-written kernel (csrc/frame_select.cu: one thread-block
+    cluster per row, select_geometry(E); group winners by 64-bit CASes in
+    a table partitioned over the cluster's shared memory, each lane routed
+    to the CTA that owns its home slot; radix selects from the
+    candidates' common prefix; per-CTA sorts merged by rank) or raise.  `select_beam.launches` counts the launches.
+    `stamps`, an int64 [B, SELECT_STAMPS] CUDA tensor, has the kernel
+    write each row's phase times (see frame_select.cu); the decode path
+    passes none.
     """
     if state.device.type not in ("cpu", "cuda"):
         raise ValueError(f"select_beam: unsupported device {state.device}")
@@ -802,6 +822,14 @@ def select_beam(cfg: BeamConfig, state: torch.Tensor,
                               or tuple(t.shape) != (b, e)):
             raise ValueError(f"select_beam: {name} must be a {dtype} "
                              f"[B, E] tensor on {state.device}")
+    if stamps is not None and (
+            stamps.device != state.device or state.device.type != "cuda"
+            or stamps.dtype != torch.int64
+            or tuple(stamps.shape) != (b, SELECT_STAMPS)
+            or not stamps.is_contiguous()):
+        raise ValueError(f"select_beam: stamps must be a contiguous int64 "
+                         f"[B, {SELECT_STAMPS}] tensor on the candidates' "
+                         f"CUDA device")
     if state.device.type == "cpu":
         return select_beam_ref(cfg, state, lm, cost, w1, w2, tok, olab2,
                                olabel)
@@ -823,11 +851,9 @@ def select_beam(cfg: BeamConfig, state: torch.Tensor,
                    else None,
                    torch.empty(b, dtype=I32, device=dev))
     if b:
-        log2cap = max(1, (e + e // 3).bit_length())
-        table = torch.empty((b, 2, 1 << log2cap), dtype=torch.int64,
-                            device=dev)
-        groups = torch.empty((b, e), dtype=I32, device=dev)
-        cands = torch.empty((b, e, 4), dtype=I32, device=dev)
+        cluster, log2cap, shared = select_geometry(e)
+        table = None if shared else torch.empty(
+            (b, 1 << log2cap, 2), dtype=torch.int64, device=dev)
         lib = kernel_library("frame_select", _SELECT_ARGTYPES)
         with torch.cuda.device(dev):
             rc = lib.catears_frame_select(
@@ -835,8 +861,10 @@ def select_beam(cfg: BeamConfig, state: torch.Tensor,
                   for t, _ in columns.values()),
                 *(x.data_ptr() for x in out[:5]), out.demand.data_ptr(),
                 out.overflow.data_ptr() if c2 else None,
-                table.data_ptr(), groups.data_ptr(), cands.data_ptr(), b, e,
-                k, c2, log2cap, float(np.float32(cfg.beam)),
+                None if table is None else table.data_ptr(),
+                None if stamps is None else stamps.data_ptr(), b, e, k, c2,
+                log2cap, cluster.bit_length() - 1, int(shared),
+                float(np.float32(cfg.beam)),
                 torch.cuda.current_stream().cuda_stream)
         check_launch(lib, rc, "select_beam")
         _SELECT_COUNTER.launches += 1
@@ -845,9 +873,11 @@ def select_beam(cfg: BeamConfig, state: torch.Tensor,
 
 select_beam.launches = 0
 _SELECT_COUNTER = select_beam  # as _EXPAND_COUNTER
-_SELECT_MAX_K = 8192  # the kernel's shared-memory sort holds K keys
-_SELECT_ARGTYPES = {"catears_frame_select": [ctypes.c_void_p] * 18
-                    + [ctypes.c_int] * 5 + [ctypes.c_float,
+_SELECT_MAX_K = 8192  # the beam widths the kernel is built and tested for
+_SELECT_SLICE_BYTES = 128 * 1024  # frame_select.cu kSliceBytes
+SELECT_STAMPS = 16  # frame_select.cu kStamps
+_SELECT_ARGTYPES = {"catears_frame_select": [ctypes.c_void_p] * 17
+                    + [ctypes.c_int] * 7 + [ctypes.c_float,
                                             ctypes.c_void_p]}
 
 

@@ -210,7 +210,14 @@ on after `lm-kernel`) hold csrc/frame_expand.cu and csrc/frame_select.cu
 to their plain versions bit for bit on the arguments of the last of 100
 planted frames of 16 utterances (the bench's 16 x 38,912 lanes, beam
 2048), with device, call and plain ms, the bytes bound, its share and
-the SMs the grid covers.
+the SMs the grid covers.  `select-kernel` also prints the cluster launch
+(CTAs, CTAs per row's cluster, the table's storage: shared or global)
+and the device ms of each of the kernel's phases, read from the
+%globaltimer stamps it writes when given a stamp buffer (the decode
+passes none); `select-kernel-b1` holds the kernel to its plain version
+on the first row alone, and `select-kernel-global` (with LM on) on 2
+synthetic rows of 100,000 lanes at beam 8192, whose table takes global
+memory.
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  Each kernel is
@@ -933,6 +940,69 @@ def expand_bytes(args, got):
                          csr_rows=csr_rows, logp_reads=logp_reads)
 
 
+# The phases frame_select.cu stamps (%globaltimer after each, CTA 0 of a
+# row's cluster), in order; the stamp buffer's last column is the radix
+# passes the row ran.
+SELECT_PHASES = ("clear", "route", "route_sync", "claim", "scan", "select",
+                 "compact", "sort", "counts", "rank_write")
+
+
+def select_geometry_line(e, b):
+    """The select kernel's launch for b rows of e lanes: CTAs, cluster
+    size, the SMs they cover, the table's storage (select_geometry)."""
+    cluster, log2cap, shared = tbeam.select_geometry(e)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(ctas=b * cluster, cluster=cluster,
+                sms_used=f"{min(b * cluster, sms)}/{sms}", table_slots=1
+                << log2cap, storage="shared" if shared else "global")
+
+
+def select_phase_ms(args, calls=10):
+    """Device ms of each of frame_select.cu's phases on `args` (the mean
+    over rows and calls of the kernel's own stamps), and per row (means)
+    the radix passes and CTA 0's candidates and selected keys."""
+    b = args[1].shape[0]
+    stamps = torch.zeros((b, tbeam.SELECT_STAMPS), dtype=torch.int64,
+                         device=args[1].device)
+    spans = []
+    for _ in range(calls):
+        tbeam.select_beam(*args, stamps=stamps)
+        torch.cuda.synchronize()
+        st = stamps.cpu().numpy()
+        spans.append(np.diff(st[:, :len(SELECT_PHASES) + 1], axis=1)
+                     .mean(0) / 1e6)
+    ms = np.mean(spans, 0)
+    return dict({f"{n}_ms": f"{m:.5f}" for n, m in zip(SELECT_PHASES, ms)},
+                radix_passes=float(st[:, -1].mean()),
+                cta0_candidates=float(st[:, 11].mean()),
+                cta0_selected=float(st[:, 12].mean()))
+
+
+def synthetic_select_args(seed, b, e, k, lm_on, cuda):
+    """select_beam's arguments over b rows of e lanes shaped like a frame's
+    candidates (a quarter dead, the rest on about e/3 (state, lm) groups,
+    costs 100-120 with cross-group ties, weights in eighths), beam k."""
+    rng = np.random.RandomState(seed)
+    groups = max(1, e // 3)
+    pick = rng.randint(0, groups, (b, e))
+    state = rng.randint(0, 4 * e, groups)[pick].astype(np.int32)
+    lm = rng.randint(0, 50, groups)[pick].astype(np.int32)
+    cost = (100 + rng.uniform(0, 20, (b, e))).astype(np.float32)
+    tie = rng.rand(b, e) < 0.2
+    cost[tie] = np.round(cost[tie] * 4) / 4
+    dead = rng.rand(b, e) < 0.25
+    state[dead] = tbeam.SENTINEL_STATE
+    cost[dead] = np.inf
+    w1 = (rng.randint(-8, 8, (b, e)) / 8).astype(np.float32)
+    w2 = (rng.randint(0, 8, (b, e)) / 8).astype(np.float32)
+    pay = [rng.randint(0, 10**6, (b, e)).astype(np.int32) for _ in range(3)]
+    cols = [state, lm if lm_on else None, cost, w1 if lm_on else None,
+            w2 if lm_on else None, *pay]
+    cfg = tbeam.BeamConfig(beam_size=k, beam=16.0)
+    return [cfg] + [None if c is None else torch.from_numpy(c).to(cuda)
+                    for c in cols]
+
+
 def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
     """csrc/frame_expand.cu (expand_emitting on cuda) and
     csrc/frame_select.cu (select_beam) against their plain versions on the
@@ -942,8 +1012,12 @@ def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
     bit-equal; device ms (CUDA graph replay), the call's ms with the
     host's, the plain version's ms, the bound from the bytes these inputs
     need (each read once, each output written once: expand_bytes for the
-    expansion) and its share, and the SMs the grid covers.  Returns both
-    kernels' totals."""
+    expansion) and its share, and the SMs the grid covers.  The selection
+    also prints its launch (CTAs, cluster size, table storage), its device
+    ms per phase from the kernel's stamps, and is held to its plain
+    version on the first row alone (B = 1) and, with LM on, on synthetic
+    rows that put its table in global memory (K = 8192 over 100,000
+    lanes).  Returns both kernels' totals."""
     lm = dec.dlm is not None
     planted = plant_logp(np.random.RandomState(4), tg, LM_KERNEL_UTTS,
                          LM_KERNEL_FRAMES)[0]
@@ -971,6 +1045,7 @@ def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
             counted["valid_lanes"] = int(
                 (got.state < tbeam.SENTINEL_STATE).sum())
             blocks = -(-e // 4096) * b  # frame_expand.cu kLanesPerBlock
+            launch = dict(blocks=blocks, sms_used=f"{min(blocks, sms)}/{sms}")
         else:
             cfg, state, lms, _c, w1, w2 = args[:6]
             b, e = state.shape
@@ -978,15 +1053,15 @@ def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
             read = 8 + 4 * sum(x is not None for x in (lms, w1, w2))
             kept = int(torch.isfinite(got.costs).sum())
             n_bytes = b * e * read + 12 * kept + b * k * 24 + 4 * b
-            blocks = b  # one block per row
             counted = dict(kept=kept, demand=got.demand.tolist())
+            launch = dict(**select_geometry_line(e, b),
+                          **select_phase_ms(args))
         b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         phase(name, lm="on" if lm else "off", rows=b, lanes=e, beam=k,
               **counted, equal=equal, max_abs_err=err, ms=f"{t_k:.4f}",
               call_ms=f"{t_call:.4f}", plain_ms=f"{t_p:.4f}",
               bound_ms=f"{b_ms:.5f}", bound_by="bytes",
-              share_of_bound=f"{b_ms / t_k:.4f}", blocks=blocks,
-              sms_used=f"{min(blocks, sms)}/{sms}", card=f"'{card}'")
+              share_of_bound=f"{b_ms / t_k:.4f}", **launch, card=f"'{card}'")
         if not equal:
             fail(f"{name}: the kernel differs from its plain version "
                  f"(LM {'on' if lm else 'off'})")
@@ -994,6 +1069,26 @@ def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
         totals["max_abs_err"] = err
         add_timing(totals, t_k, t_p, b_ms, "bytes")
         out[name] = totals
+    # The selection on one row, and (LM on) on a table in global memory.
+    shapes = [("select-kernel-b1", [sel[0]] + [
+        None if x is None else x[:1].contiguous() for x in sel[1:]])]
+    if lm:
+        shapes.append(("select-kernel-global",
+                       synthetic_select_args(5, 2, 100_000, 8192, True,
+                                             cuda)))
+    for name, args in shapes:
+        got, _, equal = kernel_equals_plain(tbeam.select_beam,
+                                            tbeam.select_beam_ref, args)
+        b, e = args[1].shape
+        t_k = device_ms(lambda: tbeam.select_beam(*args))
+        phase(name, lm="on" if lm else "off", rows=b, lanes=e,
+              beam=args[0].beam_size, demand=got.demand.tolist(),
+              kept=int(torch.isfinite(got.costs).sum()), equal=equal,
+              ms=f"{t_k:.4f}", **select_geometry_line(e, b),
+              card=f"'{card}'")
+        if not equal:
+            fail(f"{name}: frame_select.cu differs from select_beam_ref at "
+                 f"{b} x {e} lanes, beam {args[0].beam_size}")
     return out["expand-kernel"], out["select-kernel"]
 
 

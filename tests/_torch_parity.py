@@ -505,3 +505,53 @@ def tied_rows(seed, lm_on, e=2000):
     pay = [rng.randint(0, 10**6, (3, e)).astype(np.int32) for _ in range(3)]
     return [state, lmv if lm_on else None, cost, None,
             w2 if lm_on else None, *pay]
+
+
+SELECT_HASH = 0x9E3779B97F4A7C15  # csrc/frame_select.cu's group hash
+
+
+def group_home(state, lm, bits: int) -> np.ndarray:
+    """The top `bits` bits of frame_select.cu's hash of each (state, lm)
+    group key (lm None: LM off, 0): the CTA, of 2**bits, whose table
+    slice holds the group's home slot."""
+    lm = np.zeros_like(state) if lm is None else lm
+    key = ((np.asarray(state).astype(np.uint64) ^ np.uint64(0x80000000))
+           & np.uint64(0xFFFFFFFF)) << np.uint64(32)
+    key |= np.asarray(lm).astype(np.int64).astype(np.uint64) & np.uint64(
+        0xFFFFFFFF)
+    with np.errstate(over="ignore"):
+        prod = key * np.uint64(SELECT_HASH)
+    return (prod >> np.uint64(64 - bits)).astype(np.int64)
+
+
+def beam_rows(seed, b, e, lm_on, weights=True, one_slice=False):
+    """[B, E] candidate rows shaped like a frame's: a quarter of the lanes
+    dead (state SENTINEL_STATE, cost +inf), the rest on about E/3 (state,
+    lm) groups with costs 100-120 (some tied across groups), weights w1,
+    w2 in eighths.  one_slice: every group's key hashes into CTA 0's table
+    slice at every cluster size up to 16 (group_home(.., 4) == 0), so the
+    claims probe across the slices.  Returns (state, lm or None, cost, w1,
+    w2, tok, olab2, olabel) as select_beam takes them."""
+    rng = np.random.RandomState(seed)
+    n_groups = max(1, e // 3)
+    pool_s = rng.randint(0, 4 * e + 64, 64 * n_groups).astype(np.int32)
+    pool_l = (rng.randint(0, 50, 64 * n_groups) if lm_on
+              else np.zeros(64 * n_groups, np.int64)).astype(np.int32)
+    if one_slice:
+        home = group_home(pool_s, pool_l if lm_on else None, 4) == 0
+        pool_s, pool_l = pool_s[home], pool_l[home]
+    pairs = np.unique(np.stack([pool_s, pool_l], 1), axis=0)
+    pairs = pairs[rng.permutation(len(pairs))[:n_groups]]
+    pick = rng.randint(0, len(pairs), (b, e))
+    state, lmv = pairs[pick, 0], pairs[pick, 1]
+    cost = (100 + rng.uniform(0, 20, (b, e))).astype(np.float32)
+    tie = rng.rand(b, e) < 0.2
+    cost[tie] = np.round(cost[tie] * 4) / 4
+    dead = rng.rand(b, e) < 0.25
+    state = np.where(dead, SENTINEL_STATE, state).astype(np.int32)
+    cost[dead] = np.inf
+    w1 = (rng.randint(-8, 8, (b, e)) / 8).astype(np.float32)
+    w2 = (rng.randint(0, 8, (b, e)) / 8).astype(np.float32)
+    pay = [rng.randint(0, 10**6, (b, e)).astype(np.int32) for _ in range(3)]
+    return [state, lmv.astype(np.int32) if lm_on else None, cost,
+            w1 if weights else None, w2 if weights else None, *pay]

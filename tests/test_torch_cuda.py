@@ -20,7 +20,10 @@ non-contiguous or mistyped inputs; the eps-free frame's two kernels
 behind decode.beam.select_beam) must equal their plain versions bit for bit
 on tests/test_torch_frame_kernels.py's cases, both emit row layouts, LM off
 and on, with and without the hot/cold split and select_compact, be what an
-eps-free decode launches, and refuse what they do not take; the decoder on cuda, LM off and on, on
+eps-free decode launches, and refuse what they do not take (the selection
+also at B = 1, 8, 16 and K = 1, 2,048, 8,192, on both table storages, on
+rows whose groups all hash into one CTA's slice, and with its phase
+stamps); the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
 costs.  The sharded pipeline over logical shards of the card must equal the
 same mesh on the CPU, and tools.synth's loss and gradients the CPU's.
@@ -34,8 +37,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (adversarial_rows, backtrace_case, big_lm_queries,
-                           chain_delta, random_beam, tied_rows, walk_lanes)
+from _torch_parity import (adversarial_rows, backtrace_case, beam_rows,
+                           big_lm_queries, chain_delta, group_home,
+                           random_beam, tied_rows, walk_lanes)
 from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
@@ -629,6 +633,95 @@ def test_select_kernel_bit_equal(cuda, case, lm_on, weights, compact):
     assert (got.overflow is None) == (not c2)
     if c2:
         assert bool(got.overflow.any())
+
+
+def _select_on_card(cuda, cfg, cols):
+    """select_beam on the card (a non-default stream) against
+    select_beam_ref on the card, bit for bit; returns the kernel's."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    card_cols = [None if c is None else torch.from_numpy(
+        np.ascontiguousarray(c)).to(cuda) for c in cols]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = tbeam.select_beam.launches
+    with torch.cuda.stream(side):
+        got = tbeam.select_beam(cfg, *card_cols)
+    side.synchronize()
+    assert tbeam.select_beam.launches == before + 1
+    ref = tbeam.select_beam_ref(cfg, *card_cols)
+    for name in tbeam.Selected._fields:
+        r, g = getattr(ref, name), getattr(got, name)
+        if r is None or g is None:
+            assert r is None and g is None, name
+            continue
+        _same_bytes([r], [g], name)
+    return got
+
+
+# Lanes a row holds at each beam: the bench's 38,912 (8 CTAs, the table
+# in shared memory); at K = 8192, 100,000 (16 CTAs, the table in global
+# memory); at K = 1, 4,096.
+SELECT_LANES = {1: 4096, 2048: 38912, 8192: 100_000}
+
+
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 2048, 8192])
+@pytest.mark.parametrize("lm_on", [False, True])
+def test_select_kernel_shapes(cuda, b, k, lm_on):
+    """csrc/frame_select.cu == select_beam_ref bit for bit at B rows of
+    frame-like candidates (tests/_torch_parity.py::beam_rows), for each
+    cluster size and table storage the shapes take, select_compact off,
+    at K and wider than K."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    e = SELECT_LANES[k]
+    cols = beam_rows(10 + b, b, e, lm_on, weights=lm_on)
+    cluster, _, shared = tbeam.select_geometry(e)
+    assert (cluster, shared) == ((16, False) if k == 8192 else (8, True))
+    for c2 in (0, k, 2 * k + 5):
+        got = _select_on_card(cuda, BeamConfig(beam_size=k, beam=16.0,
+                                               select_compact=c2), cols)
+        assert (got.demand > 2 * k + 5).all()  # the selects run
+        assert c2 == 0 or bool(got.overflow.all())
+
+
+@pytest.mark.parametrize("lm_on", [False, True])
+@pytest.mark.parametrize("k", [64, 2048])
+def test_select_kernel_one_slice_rows(cuda, lm_on, k):
+    """Rows whose (state, lm) groups all hash into CTA 0's table slice:
+    the claims probe across the cluster's slices; the kernel still equals
+    select_beam_ref bit for bit, select_compact off, at K and wider."""
+    cols = beam_rows(12, 4, 8192, lm_on, weights=lm_on, one_slice=True)
+    live = cols[0] < 2**30
+    assert (group_home(cols[0][live], None if cols[1] is None
+                       else cols[1][live], 4) == 0).all()
+    for c2 in (0, k, 2 * k + 5):
+        _select_on_card(cuda, BeamConfig(beam_size=k, beam=16.0,
+                                         select_compact=c2), cols)
+
+
+def test_select_kernel_phase_stamps(cuda):
+    """With a stamp buffer the kernel writes each row's phase times, in
+    order, and its radix passes; the outputs are the same as without."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    cols = [None if c is None else torch.from_numpy(c).to(cuda)
+            for c in beam_rows(13, 4, 38912, True)]
+    cfg = BeamConfig(beam_size=2048, beam=16.0)
+    stamps = torch.zeros((4, tbeam.SELECT_STAMPS), dtype=torch.int64,
+                         device=cuda)
+    got = tbeam.select_beam(cfg, *cols, stamps=stamps)
+    ref = tbeam.select_beam(cfg, *cols)
+    torch.cuda.synchronize()
+    for name in tbeam.Selected._fields:
+        if getattr(ref, name) is not None:
+            _same_bytes([getattr(ref, name)], [getattr(got, name)], name)
+    st = stamps.cpu().numpy()
+    assert (np.diff(st[:, :11], axis=1) >= 0).all() and (st[:, 0] > 0).all()
+    assert (st[:, -1] >= 1).all()  # the cost select ran
+    with pytest.raises(ValueError, match="stamps"):
+        tbeam.select_beam(cfg, *cols, stamps=stamps[:, :3])
 
 
 @pytest.mark.parametrize("arc_group,lm", [(2, False), (2, True), (4, True)])

@@ -14,18 +14,25 @@ plain versions:
   one rounding each; held to JAX's `_expand` + `_acoustic_lookup` and
   `_eps_free_step`'s acoustic line under jax.jit, on the valid lanes (the
   two JAX ownership branches differ on the dead ones);
-* the selection: group winners by a min over (order-preserving cost bits,
-  lane), the K-th key by a radix select of 8 bits a pass, the selected
-  keys in (cost, state, lm) order, the threshold; with select_compact the
+* the selection: the row's group table split into one slice per CTA of
+  a cluster (C = 1, 8, 16), each group claimed from its home slot with the
+  probe running on into the next CTA's slice, in any lane order; the
+  winner by a min over (order-preserving cost bits, lane); each CTA's
+  candidates; radix selects of 8 bits a pass that start past the digits
+  every candidate shares and sum the CTAs' histograms; each CTA's sorted
+  keys merged by rank (a key's slot is its place in its own list plus the
+  peers' keys below it); the threshold; with select_compact the
   beam-threshold survivors, the c2-th of them in (state, lm) order by a
   radix select first; held to JAX's `_select_best` (`_select_sorts` or
   `_select_compacted`) + `_eps_free_step`'s threshold on adversarial
-  rows.
+  rows, on rows whose costs tie in bulk, and on rows whose groups all hash
+  into one CTA's slice.
 
 The card's tests (tests/test_torch_cuda.py) hold each kernel to the same
 plain versions bit for bit.
 """
 
+import bisect
 import dataclasses
 from fractions import Fraction
 
@@ -35,8 +42,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (adversarial_rows, assert_same, dfst_from_jax,
-                           dlm_from_jax, random_beam, tied_rows, to_np)
+from _torch_parity import (SELECT_HASH, adversarial_rows, assert_same,
+                           beam_rows, dfst_from_jax, dlm_from_jax,
+                           group_home, random_beam, tied_rows, to_np)
 from catears_tpu.decode import beam as jbeam
 from catears_tpu.graph.device import DeviceFst as JaxDeviceFst
 from catears_tpu.graph.device import DeviceLm as JaxDeviceLm
@@ -190,26 +198,51 @@ def ordered(c):
     return np.where(u & SIGN, ~u, u | SIGN).astype(np.uint32)
 
 
-def radix_select(keys, k, passes):
-    """The kernel's radix select over [n, 3] uint32 keys (their words in
-    the order searched): (prefix, masks) such that exactly the k least keys
-    are <= prefix under the masks.  `passes` collects the digit count each
-    search took."""
-    pre, msk, rank = [0, 0, 0], [0, 0, 0], k
-    for d in range(12):
+def unordered(u):
+    """The float32 of ordered bits (-0.0 comes back as +0.0)."""
+    u = int(u)
+    bits = u & 0x7FFFFFFF if u & SIGN else ~u & 0xFFFFFFFF
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
+def radix_select(slices, want, passes):
+    """The kernel's radix select over each CTA's [n, 3] uint32 keys (their
+    words in the order searched): (prefix, masks) such that exactly the
+    `want` least keys are <= prefix under the masks.  The digits that every
+    key shares (where the AND and the OR of the keys agree: the common
+    prefix of the least and the greatest key) are fixed first; each pass
+    sums the CTAs' histograms of one digit and takes the bucket holding
+    the rank.  `passes` gets (the first digit searched, the digits fixed
+    when the select ended)."""
+    keys = np.concatenate(slices)
+    an = np.bitwise_and.reduce(keys, axis=0)
+    on = np.bitwise_or.reduce(keys, axis=0)
+    pre, msk = [0, 0, 0], [0, 0, 0]
+    d0 = 0
+    while d0 < 12:
+        w, shift = d0 >> 2, 24 - 8 * (d0 & 3)
+        if ((int(an[w]) ^ int(on[w])) >> shift) & 0xFF:
+            break
+        pre[w] |= int(an[w]) & (0xFF << shift)
+        msk[w] |= 0xFF << shift
+        d0 += 1
+    rank = want
+    for d in range(d0, 12):
         w, shift = d >> 2, 24 - 8 * (d & 3)
-        match = np.ones(len(keys), bool)
-        for i in range(3):
-            match &= ((keys[:, i] ^ pre[i]) & msk[i]) == 0
-        hist = np.bincount((keys[match, w] >> shift) & 0xFF, minlength=256)
-        bucket = 0
-        while bucket < 255 and hist[bucket] < rank:
-            rank -= int(hist[bucket])
-            bucket += 1
+        hist = np.zeros(256, np.int64)
+        for part in slices:  # each CTA's histogram, summed over DSMEM
+            match = np.ones(len(part), bool)
+            for i in range(3):
+                match &= ((part[:, i] ^ pre[i]) & msk[i]) == 0
+            hist += np.bincount((part[match, w] >> shift) & 0xFF,
+                                minlength=256)
+        cum = np.cumsum(hist)  # the warp's prefix scan
+        bucket = int(np.argmax(cum >= rank))
+        rank -= int(cum[bucket] - hist[bucket])
         pre[w] |= bucket << shift
         msk[w] |= 0xFF << shift
         if hist[bucket] == rank:
-            passes.append(d + 1)
+            passes.append((d0, d + 1))
             return pre, msk
     raise AssertionError("the radix select did not end")
 
@@ -222,17 +255,49 @@ def at_most(keys, pre, msk):
             | ((a[1] == p[1]) & (a[2] <= p[2])))))
 
 
-BY_GROUP = [1, 2, 0]  # the key words (cost, state, lm) in (state, lm) order
+BY_COST = [0, 1, 2]  # the key words (cost, state, lm) most significant first
+BY_GROUP = [1, 2, 0]  # the same words in (state, lm) order
+
+
+def claim_groups(state, lm, ck, log2cap, order):
+    """The row's open-addressing table after every live lane's claim, in
+    the lane order `order` (the kernel's atomics come in any order): slot
+    -> (key, winner), the winner the least (cost bits << 32 | lane), a key
+    probing on from its home slot into the next CTA's slice and round the
+    table.  Returns ({slot: [key, winner]}, the longest probe)."""
+    cap = 1 << log2cap
+    table, longest = {}, 0
+    for i in order:
+        if state[i] >= SENTINEL:
+            continue
+        key = (((int(state[i]) ^ SIGN) & 0xFFFFFFFF) << 32) | (
+            int(lm[i]) & 0xFFFFFFFF)
+        h = ((key * SELECT_HASH) & (2**64 - 1)) >> (64 - log2cap)
+        probe = 0
+        while h in table and table[h][0] != key:
+            h, probe = (h + 1) % cap, probe + 1
+        longest = max(longest, probe)
+        v = (int(ck[i]) << 32) | int(i)
+        slot = table.setdefault(h, [key, v])
+        slot[1] = min(slot[1], v)
+    return table, longest
 
 
 def select_model(state, lm, cost, w1, w2, tok, olab2, olabel, k, beam,
-                 passes=None, c2=0):
+                 passes=None, c2=0, cluster=8, seed=0, stats=None):
     """(states, lms, costs, prev_slot, words, demand, overflow) of the
-    kernel, row by row; c2: BeamConfig.select_compact."""
+    kernel, row by row: a cluster of `cluster` CTAs per row, each owning a
+    slice of the group table; c2: BeamConfig.select_compact; seed: the
+    order the lanes claim in.  stats, a dict, gets the most CTAs whose
+    slices held a row's groups and the longest probe."""
     passes = [] if passes is None else passes
+    stats = {} if stats is None else stats
     b, e = state.shape
     c2 = max(c2, k) if c2 else 0  # the lanes, as _compact_width
     c2 = c2 if c2 < e else 0
+    log2cap = tbeam.select_geometry(e)[1]
+    slice_ = (1 << log2cap) // cluster
+    rng = np.random.RandomState(seed)
     out_s = np.full((b, k), -1, np.int32)
     out_l = np.zeros((b, k), np.int32)
     out_c = np.full((b, k), np.inf, np.float32)
@@ -247,46 +312,63 @@ def select_model(state, lm, cost, w1, w2, tok, olab2, olabel, k, beam,
                 c = (c + w[r]).astype(np.float32)
         lmr = lm[r] if lm is not None else np.zeros(e, np.int32)
         ck = ordered(c)
-        win = {}  # (state, lm) -> (cost bits << 32 | lane), the least
-        for i in range(e):
-            if state[r, i] >= SENTINEL:
-                continue
-            key = (int(state[r, i]), int(lmr[i]))
-            v = (int(ck[i]) << 32) | i
-            win[key] = min(win.get(key, v), v)
-        mn = np.float32(np.nan) if np.isnan(c).any() else c.min()
+        table, longest = claim_groups(state[r], lmr, ck, log2cap,
+                                      rng.permutation(e))
+        # Each CTA's slice: its occupied slots as (cost bits, state, lm,
+        # lane) keys.
+        slices = []
+        for q in range(cluster):
+            got = [(v >> 32, key >> 32, (key & 0xFFFFFFFF) ^ SIGN,
+                    v & 0xFFFFFFFF) for h, (key, v) in sorted(table.items())
+                   if h // slice_ == q]
+            slices.append(np.array(got, np.uint32).reshape(-1, 4))
+        stats["ctas"] = max(stats.get("ctas", 0),
+                            sum(len(x) > 0 for x in slices))
+        stats["probe"] = max(stats.get("probe", 0), longest)
+        mn = np.float32(np.nan) if np.isnan(c).any() else (
+            unordered(ck.min()) if e else np.float32(np.inf))
         cut = np.float32(mn + np.float32(beam))
-        def survives(v):
-            x = c[v & 0xFFFFFFFF]
-            return bool(np.isfinite(x) and x <= cut)
 
-        demand[r] = sum(survives(v) for v in win.values())
+        def survives(x):
+            if np.isnan(cut):
+                return np.zeros(len(x), bool)
+            return (x > ORD_NEG_INF) & (x < ORD_POS_INF) & (
+                x <= ordered(np.float32([cut]))[0])
+
+        demand[r] = sum(int(survives(x[:, 0]).sum()) for x in slices)
         overflow[r] = bool(c2) and demand[r] > c2
-        keys = np.array(
-            [(v >> 32, (s ^ SIGN) & 0xFFFFFFFF, (l ^ SIGN) & 0xFFFFFFFF,
-              v & 0xFFFFFFFF) for (s, l), v in win.items()
-             if (survives(v) if c2 else (v >> 32) < ORD_POS_INF)],
-            np.uint32).reshape(-1, 4)
-        if c2 and len(keys) > c2:  # the first c2 in (state, lm) order
-            by_group = keys[:, BY_GROUP]
-            pre, msk = radix_select(by_group, c2, passes)
-            keys = keys[at_most(by_group, pre, msk)]
-            assert len(keys) == c2
+        cands = [x[survives(x[:, 0])] if c2 else x[x[:, 0] < ORD_POS_INF]
+                 for x in slices]
+        n_in = sum(len(x) for x in cands)
+        if c2 and n_in > c2:  # the first c2 in (state, lm) order
+            pre, msk = radix_select([x[:, BY_GROUP] for x in cands], c2,
+                                    passes)
+            cands = [x[at_most(x[:, BY_GROUP], pre, msk)] for x in cands]
+            n_in = c2
+            assert sum(len(x) for x in cands) == c2
         group_order = bool(c2) and c2 <= k
-        if not group_order and len(keys) > k:
-            pre, msk = radix_select(keys[:, :3], k, passes)
-            keys = keys[at_most(keys[:, :3], pre, msk)]
-            assert len(keys) == k
-        if group_order:
-            keys = keys[np.lexsort((keys[:, 2], keys[:, 1]))]
-        else:
-            keys = keys[np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))]
-        slot_c = c[keys[:, 3].astype(np.int64)]
-        fin = slot_c[np.isfinite(slot_c)]
-        if len(fin):
-            cutoff = np.float32(fin.min() + np.float32(beam))
-        for j, key in enumerate(keys):
-            i = int(key[3])
+        if not group_order and n_in > k:
+            pre, msk = radix_select([x[:, BY_COST] for x in cands], k,
+                                    passes)
+            cands = [x[at_most(x[:, BY_COST], pre, msk)] for x in cands]
+            assert sum(len(x) for x in cands) == k
+        order = BY_GROUP if group_order else BY_COST
+        # Each CTA sorts its keys; a key's slot is its local rank plus the
+        # peers' keys below it.
+        lists = [sorted(tuple(int(v) for v in key[order]) + (int(key[3]),)
+                        for key in x) for x in cands]
+        slots = {}
+        for q, mine in enumerate(lists):
+            for i, key in enumerate(mine):
+                slots[i + sum(bisect.bisect_left(peer, key)
+                              for p, peer in enumerate(lists) if p != q)] = key
+        assert sorted(slots) == list(range(len(slots)))
+        fin = [ok for ok in (key[order.index(0)] for key in slots.values())
+               if ORD_NEG_INF < ok < ORD_POS_INF]
+        if fin:
+            cutoff = np.float32(unordered(min(fin)) + np.float32(beam))
+        for j, key in slots.items():
+            i = key[3]
             if not np.isfinite(c[i]):
                 continue
             out_l[r, j] = lmr[i] if lm is not None else 0
@@ -361,16 +443,23 @@ def _stack(rows, lm_on, weights):
     return cols
 
 
+CLUSTERS = [1, 8, 16]  # CTAs a row's cluster takes (frame_select.cu: 8, 16)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("lm_on,weights", [(False, "none"), (True, "both"),
                                            (True, "w2")])
-def test_select_model_matches_jax_on_adversarial_rows(lm_on, weights):
-    """Every adversarial row, bit for bit: the kernel's model against JAX's
-    sorts + threshold, and the port's plain version against the model."""
+def test_select_model_matches_jax_on_adversarial_rows(lm_on, weights,
+                                                      cluster):
+    """Every adversarial row, bit for bit: the kernel's model (its table
+    partitioned over `cluster` CTAs) against JAX's sorts + threshold, and
+    the port's plain version against the model."""
     k, beam = 8, 16.0
     rows = adversarial_rows(1)
     cols = _stack(list(rows.values()), lm_on, weights)
     passes = []
-    got = select_model(*cols, k, beam, passes=passes)
+    got = select_model(*cols, k, beam, passes=passes, cluster=cluster,
+                       seed=cluster)
     ref = jax_select(k, beam, *cols)
     for name, x, y in zip(SELECT_NAMES, ref, got):
         assert_same(x, y, name)
@@ -390,33 +479,37 @@ def test_select_model_matches_jax_on_adversarial_rows(lm_on, weights):
     assert passes  # the radix select ran
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("seed,lm_on", [(2, False), (3, True), (4, True)])
-def test_select_model_radix_digits(seed, lm_on):
+def test_select_model_radix_digits(seed, lm_on, cluster):
     """More winners than K whose costs tie in bulk: the radix select runs
     on into the state (and lm) digits; the model, JAX and the plain
     version agree bit for bit."""
     k = 64
     cols = tied_rows(seed, lm_on)
     passes = []
-    got = select_model(*cols, k, 16.0, passes=passes)
+    got = select_model(*cols, k, 16.0, passes=passes, cluster=cluster,
+                       seed=seed)
     for name, x, y in zip(SELECT_NAMES, jax_select(k, 16.0, *cols), got):
         assert_same(x, y, name)
     plain, _ = port_select(k, 16.0, *cols)
     for x, y in zip(got, plain):
         assert_same(x, y)
-    assert max(passes) > 4  # past the four cost digits
+    # The select ended past the cost word (digits 0-3 of the key).
+    assert max(end for _, end in passes) > 4
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("c2", [8, 13, 90])
 @pytest.mark.parametrize("lm_on,weights", [(False, "none"), (True, "both")])
-def test_select_model_compact_matches_jax(c2, lm_on, weights):
+def test_select_model_compact_matches_jax(c2, lm_on, weights, cluster):
     """select_compact on every adversarial row, bit for bit: the kernel's
     model against JAX's `_select_compacted` + threshold, and the port's
     plain version against the model.  c2 == K returns the beam in (state,
     lm) order; rows with more survivors than c2 set the overflow flag."""
     k, beam = 8, 16.0
     cols = _stack(list(adversarial_rows(1).values()), lm_on, weights)
-    got = select_model(*cols, k, beam, c2=c2)
+    got = select_model(*cols, k, beam, c2=c2, cluster=cluster, seed=c2)
     ref = jax_select(k, beam, *cols, select_compact=c2)
     for name, x, y in zip(SELECT_NAMES, ref, got):
         assert_same(x, y, name)
@@ -430,16 +523,18 @@ def test_select_model_compact_matches_jax(c2, lm_on, weights):
         assert any((np.diff(c[np.isfinite(c)]) < 0).any() for c in got[2])
 
 
+@pytest.mark.parametrize("cluster", CLUSTERS)
 @pytest.mark.parametrize("seed,lm_on,c2", [(2, False, 64), (3, True, 64),
                                            (4, True, 150), (5, False, 3000)])
-def test_select_model_compact_radix_digits(seed, lm_on, c2):
+def test_select_model_compact_radix_digits(seed, lm_on, c2, cluster):
     """More survivors than c2 (and than K) on rows whose costs tie in
     bulk: the (state, lm) radix select, then the cost one; the model, JAX
     and the plain version agree bit for bit."""
     k = 64
     cols = tied_rows(seed, lm_on)
     passes = []
-    got = select_model(*cols, k, 16.0, passes=passes, c2=c2)
+    got = select_model(*cols, k, 16.0, passes=passes, c2=c2,
+                       cluster=cluster, seed=seed)
     for name, x, y in zip(SELECT_NAMES,
                           jax_select(k, 16.0, *cols, select_compact=c2), got):
         assert_same(x, y, name)
@@ -448,6 +543,68 @@ def test_select_model_compact_radix_digits(seed, lm_on, c2):
         assert_same(x, y, f"select_beam_ref {name}")
     assert got[6].any() == (c2 < 3000)
     assert passes
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("lm_on,c2", [(False, 0), (True, 0), (True, 64),
+                                      (False, 200)])
+def test_select_model_one_slice_row(lm_on, c2, cluster):
+    """Rows whose (state, lm) groups all hash into CTA 0's table slice: the
+    claims probe on into the next slices (at 8 and 16 CTAs the groups fill
+    several), and the model still equals JAX and the plain version bit for
+    bit, in any claim order."""
+    k = 64
+    cols = beam_rows(6, 2, 3000, lm_on, weights=lm_on, one_slice=True)
+    live = cols[0] < SENTINEL
+    assert (group_home(cols[0][live], None if cols[1] is None
+                       else cols[1][live], 4) == 0).all()
+    ref = jax_select(k, 16.0, *cols, select_compact=c2)
+    plain, _ = port_select(k, 16.0, *cols, select_compact=c2)
+    for seed in (0, 1):
+        stats = {}
+        got = select_model(*cols, k, 16.0, c2=c2, cluster=cluster,
+                           seed=seed, stats=stats)
+        for name, x, y in zip(SELECT_NAMES, ref, got):
+            assert_same(x, y, name)
+        for name, x, y in zip(SELECT_NAMES, got, plain):
+            assert_same(x, y, f"select_beam_ref {name}")
+        slice_ = (1 << tbeam.select_geometry(3000)[1]) // cluster
+        if cluster > 1:  # the groups spilled from CTA 0 into its peers
+            assert stats["probe"] > slice_ and stats["ctas"] >= 2
+    assert np.isfinite(got[2]).sum() == 2 * k
+
+
+def test_select_model_common_prefix_cuts_the_passes():
+    """On a beam-like row (costs 100-120, no ties in bulk) the cost select
+    starts past the digits every candidate shares (the sign and exponent
+    of the costs), so it runs fewer passes than the digits it fixes; the
+    model still equals JAX bit for bit."""
+    k = 256
+    cols = beam_rows(8, 2, 3000, True)
+    passes = []
+    got = select_model(*cols, k, 16.0, passes=passes)
+    for name, x, y in zip(SELECT_NAMES, jax_select(k, 16.0, *cols), got):
+        assert_same(x, y, name)
+    assert len(passes) == 2
+    for start, end in passes:
+        assert 1 <= start < end <= 4  # within the cost word
+        assert end - start < end  # the common prefix saved a pass
+
+
+def test_select_geometry():
+    """The kernel's cluster and table storage follow the shape alone: 8
+    CTAs with shared slices up to 65,536 slots (the bench's 38,912 lanes),
+    16 up to 131,072, then 16 slices in global memory; more slots than 4/3
+    of the lanes."""
+    assert tbeam.select_geometry(38912) == (8, 16, True)
+    assert tbeam.select_geometry(49152) == (16, 17, True)
+    assert tbeam.select_geometry(98303) == (16, 17, True)
+    assert tbeam.select_geometry(100000) == (16, 18, False)
+    assert tbeam.select_geometry(1) == (8, 4, True)
+    for e in (1, 96, 2000, 38912, 10**6):
+        c, log2cap, shared = tbeam.select_geometry(e)
+        assert (1 << log2cap) > e + e // 3
+        assert shared == ((16 << log2cap) // c <= 128 * 1024)
 
 
 # -- the expansion against JAX ---------------------------------------------
@@ -704,4 +861,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(trie):
     with pytest.raises(ValueError, match="lm must be"):
         tbeam.select_beam(tbeam.BeamConfig(beam_size=4, select_compact=8),
                           e, e.to(torch.int64), c, None, None, e, e, e)
+    with pytest.raises(ValueError, match="stamps must be"):  # a card's only
+        tbeam.select_beam(cfg, e, None, c, None, None, e, e, e,
+                          stamps=torch.zeros((2, tbeam.SELECT_STAMPS),
+                                             dtype=torch.int64))
 
