@@ -1,0 +1,9 @@
+"""`frame_select`'s share of its bandwidth roofline over the traced window."""
+
+from asrbench.readers import roofline
+
+
+def read(rec):
+    if rec.get("kind") != "bulk":
+        return None
+    return roofline(rec, "frame_select")

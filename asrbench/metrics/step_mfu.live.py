@@ -1,0 +1,10 @@
+"""The live window's least time (AM FLOPs at the float32 peak, decoder
+bytes at the HBM peak) over its wall time."""
+
+from asrbench.readers import step_mfu
+
+
+def read(rec):
+    if rec.get("kind") != "live":
+        return None
+    return step_mfu(rec)
