@@ -626,6 +626,15 @@ class EmitCands(NamedTuple):
     cold_needed: Optional[torch.Tensor] = None
 
 
+def emit_lanes(cfg: BeamConfig, dfst: DeviceFst) -> int:
+    """Candidate lanes per row of the eps-free frame's expansion and
+    selection: K self-loops, K * G first-G block arcs and the CSR
+    overflow capacity (expand_size in whole csr_group slots)."""
+    k, g, gc = cfg.beam_size, dfst.group, dfst.csr_group
+    n_slots = -(-cfg.expand_size // gc) if dfst.max_emit_fanout > g else 0
+    return k + k * g + n_slots * gc
+
+
 def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
                     logp: torch.Tensor, need_lm: bool) -> EmitCands:
     """The eps-free frame's expansion: every live token's self-loop, its
@@ -695,7 +704,7 @@ def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
     n_slots = -(-cfg.expand_size // gc) if csr else 0
     if csr and dfst.over_packed.shape[0] < 1:
         raise ValueError("expand_emitting: no over_packed rows")
-    e = k + k * g + n_slots * gc
+    e = emit_lanes(cfg, dfst)
 
     def out(dtype, shape=(b, e)):
         return torch.empty(shape, dtype=dtype, device=dev)

@@ -29,6 +29,7 @@ from catears_tpu_torch.decode.beam import (
     FrameTrace,
     backtrace_device,
     decode_chunk,
+    emit_lanes,
     init_beam_batch,
 )
 from catears_tpu_torch.decode.hyp import (
@@ -74,6 +75,14 @@ def safe_config(fst: FlatFst, arc_group: int, base: BeamConfig,
 
 def _round_up(v: int, quantum: int) -> int:
     return -(-v // quantum) * quantum
+
+
+def _device_lm(delta_lm: Optional[DeltaLmFst],
+               device: torch.device) -> Optional[DeviceLm]:
+    if delta_lm is None:
+        return None
+    with log.span("setup.device_lm"):
+        return DeviceLm.build(delta_lm, device=device)
 
 
 def _decode_graph(fst: FlatFst, close_eps: bool):
@@ -174,23 +183,23 @@ class Decoder:
             self.dfst = dfst
         else:
             device = resolve_device(device)
-            dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
+            with log.span("setup.decode_graph"):
+                dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
             if auto_capacity:
                 config = safe_config(dec_fst, arc_group, config,
                                      delta_lm is not None,
                                      csr_group=csr_group)
-            self.dfst = DeviceFst.build(dec_fst, tid2pdf, group=arc_group,
-                                        eps_depth_cap=cap,
-                                        csr_group=csr_group, olabel2=olab2,
-                                        device=device)
+            with log.span("setup.device_fst"):
+                self.dfst = DeviceFst.build(
+                    dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
+                    csr_group=csr_group, olabel2=olab2, device=device)
         self.cfg = config
         self.fst = fst
         self.delta_lm = delta_lm
         if dlm is not None:
             self.dlm = dlm
         else:
-            self.dlm = (DeviceLm.build(delta_lm, device=self.dfst.device)
-                        if delta_lm is not None else None)
+            self.dlm = _device_lm(delta_lm, self.dfst.device)
         self.has_lm = delta_lm is not None
         self.chunk_frames = chunk_frames
         self.initialize()
@@ -356,8 +365,10 @@ class BatchDecoder:
         self.fst = fst
         self.delta_lm = delta_lm
         self.chunk_frames = chunk_frames
-        dec_fst, cap, olab2 = (_decode_graph(fst, close_eps) if dfst is None
-                               else (fst, None, None))
+        dec_fst, cap, olab2 = fst, None, None
+        if dfst is None:
+            with log.span("setup.decode_graph"):
+                dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
         self.auto_capacity = config is None
         if config is None:
             config = safe_config(dec_fst, arc_group,
@@ -366,11 +377,14 @@ class BatchDecoder:
         elif config.am_scale != am_scale:
             config = dataclasses.replace(config, am_scale=am_scale)
         self.cfg = config
-        self.dfst = dfst if dfst is not None else DeviceFst.build(
-            dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
-            csr_group=csr_group, olabel2=olab2, device=resolve_device(device))
-        self.dlm = (DeviceLm.build(delta_lm, device=self.dfst.device)
-                    if delta_lm is not None else None)
+        if dfst is None:
+            with log.span("setup.device_fst"):
+                dfst = DeviceFst.build(
+                    dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
+                    csr_group=csr_group, olabel2=olab2,
+                    device=resolve_device(device))
+        self.dfst = dfst
+        self.dlm = _device_lm(delta_lm, self.dfst.device)
 
     def decode(self, logp, lengths: Optional[Sequence[int]] = None,
                device_backtrace: bool = True,
@@ -391,21 +405,25 @@ class BatchDecoder:
         if self.auto_capacity:
             retry_on_overflow = False  # safe_config bounds cannot truncate
         args = (self.fst, self.dfst, self.dlm, self.delta_lm, logp, lengths)
-        try:
-            return _decode_batch_once(*args, self.cfg, self.chunk_frames,
-                                      device_backtrace, final_fallback)
-        except BeamCapacityError as err:
-            if not retry_on_overflow or err.hiwater is None:
-                raise
-            regrown = _regrow_config(self.cfg, err.hiwater, retry_margin)
-            log.count("overflow_retries", 1)
-            print(f"# catears: capacity overflow (hiwater={err.hiwater}); "
-                  f"regrowing geometry to expand={regrown.expand_size} "
-                  f"eps={regrown.eps_expand_size} "
-                  f"lm={regrown.lm_expand_size} and retrying once",
-                  file=sys.stderr)
-            return _decode_batch_once(*args, regrown, self.chunk_frames,
-                                      device_backtrace, final_fallback)
+        with log.span("decode"):
+            try:
+                return _decode_batch_once(*args, self.cfg, self.chunk_frames,
+                                          device_backtrace, final_fallback)
+            except BeamCapacityError as err:
+                if not retry_on_overflow or err.hiwater is None:
+                    raise
+                regrown = _regrow_config(self.cfg, err.hiwater, retry_margin)
+                log.count("overflow_retries", 1)
+                print(f"# catears: capacity overflow (hiwater={err.hiwater});"
+                      f" regrowing geometry to expand={regrown.expand_size} "
+                      f"eps={regrown.eps_expand_size} "
+                      f"lm={regrown.lm_expand_size} and retrying once",
+                      file=sys.stderr)
+                with log.span("decode.retry", hiwater=list(err.hiwater)):
+                    return _decode_batch_once(*args, regrown,
+                                              self.chunk_frames,
+                                              device_backtrace,
+                                              final_fallback)
 
 
 def decode_batch(fst: FlatFst, tid2pdf: np.ndarray, logp,
@@ -437,51 +455,86 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                        config: BeamConfig, chunk_frames: int,
                        device_backtrace: bool,
                        final_fallback: bool = False) -> List[Hypothesis]:
+    """One decode of the batch at `config`'s capacities, spanned (inside
+    the caller's `decode` span) as decode.init, one decode.frames per
+    chunk, decode.read (the host waits for the frame loop there),
+    decode.backtrace and decode.hyps; while tracing, the read also takes
+    the beam's hiwater for the `decode` span."""
     dev = dfst.device
-    logp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
-    b, t, _ = logp.shape
-    lengths = list(lengths) if lengths is not None else [t] * b
-    beam, init_trace = init_beam_batch(config, b, dfst, dlm)
-    len_arr = np.asarray(lengths)
-    log.count("frames_decoded", int(len_arr.sum()))
-    # Chunks of real frames only: the JAX decoder pads its last chunk with
-    # invalid (identity) frames because its shapes are static.
-    valid = torch.as_tensor(np.arange(t)[:, None] < len_arr[None, :],
-                            device=dev)
+    with log.span("decode.init"):
+        logp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
+        b, t, _ = logp.shape
+        lengths = list(lengths) if lengths is not None else [t] * b
+        beam, init_trace = init_beam_batch(config, b, dfst, dlm)
+        len_arr = np.asarray(lengths)
+        log.count("frames_decoded", int(len_arr.sum()))
+        log.annotate("decode", batch=b, frames=int(len_arr.sum()), steps=t)
+        # Chunks of real frames only: the JAX decoder pads its last chunk
+        # with invalid (identity) frames because its shapes are static.
+        valid = torch.as_tensor(np.arange(t)[:, None] < len_arr[None, :],
+                                device=dev)
     logp_t = logp.transpose(0, 1)
     prevs, words = [], []
     for off in range(0, t, chunk_frames):
-        beam, trace = decode_chunk(config, dfst, beam,
-                                   logp_t[off:off + chunk_frames],
-                                   valid[off:off + chunk_frames], dlm)
+        with log.span("decode.frames", frames=min(chunk_frames, t - off)):
+            beam, trace = decode_chunk(config, dfst, beam,
+                                       logp_t[off:off + chunk_frames],
+                                       valid[off:off + chunk_frames], dlm)
         prevs.append(trace.prev_slot)
         words.append(trace.words)
 
-    overflow = beam.overflow.cpu().numpy()
-    if overflow.any():
-        bad = np.flatnonzero(overflow).tolist()
-        raise BeamCapacityError(
-            f"arc expansion overflowed capacity (expand_size="
-            f"{config.expand_size}, eps_expand_size="
-            f"{config.eps_expand_size}) for utterances {bad}",
-            hiwater=tuple(int(x) for x in
-                          beam.hiwater.cpu().numpy().max(axis=0)))
-    states = beam.states.cpu().numpy()
-    lms = beam.lm.cpu().numpy()
-    costs = beam.costs.cpu().numpy()
+    with log.span("decode.read"):
+        overflow = beam.overflow.cpu().numpy()
+        if log.tracing():
+            log.annotate("decode", hiwater=beam.hiwater.cpu().numpy().max(
+                axis=0).tolist(), lanes=(emit_lanes(config, dfst)
+                                         if dfst.eps_removed else None))
+        if overflow.any():
+            bad = np.flatnonzero(overflow).tolist()
+            raise BeamCapacityError(
+                f"arc expansion overflowed capacity (expand_size="
+                f"{config.expand_size}, eps_expand_size="
+                f"{config.eps_expand_size}) for utterances {bad}",
+                hiwater=tuple(int(x) for x in
+                              beam.hiwater.cpu().numpy().max(axis=0)))
+        states = beam.states.cpu().numpy()
+        lms = beam.lm.cpu().numpy()
+        costs = beam.costs.cpu().numpy()
     if not device_backtrace:
-        prev = torch.cat(prevs).cpu().numpy()
-        word = torch.cat(words).cpu().numpy()
-        init_prev = init_trace.prev_slot.cpu().numpy()
-        init_words = init_trace.words.cpu().numpy()
+        with log.span("decode.backtrace"):
+            prev = torch.cat(prevs).cpu().numpy()
+            word = torch.cat(words).cpu().numpy()
+            init_prev = init_trace.prev_slot.cpu().numpy()
+            init_words = init_trace.words.cpu().numpy()
+            return [
+                best_path([HostTrace(init_prev[u], init_words[u])]
+                          + [HostTrace(prev[f, u], word[f, u])
+                             for f in range(lengths[u])],
+                          states[u], lms[u], costs[u], fst, delta_lm,
+                          end_of_stream=True)
+                for u in range(b)
+            ]
+    with log.span("decode.backtrace"):
+        frame_words = _device_backtrace(dfst, delta_lm, states, lms, costs,
+                                        init_trace, prevs, words,
+                                        final_fallback)
+    with log.span("decode.hyps"):
         return [
-            best_path([HostTrace(init_prev[u], init_words[u])]
-                      + [HostTrace(prev[f, u], word[f, u])
-                         for f in range(lengths[u])],
-                      states[u], lms[u], costs[u], fst, delta_lm,
-                      end_of_stream=True)
-            for u in range(b)
+            Hypothesis([], 0.0) if empty
+            else Hypothesis(assemble_words(fw), total)
+            for fw, total, empty in frame_words
         ]
+
+
+def _device_backtrace(dfst: DeviceFst, delta_lm: Optional[DeltaLmFst],
+                      states: np.ndarray, lms: np.ndarray,
+                      costs: np.ndarray, init_trace: FrameTrace,
+                      prevs: List[torch.Tensor], words: List[torch.Tensor],
+                      final_fallback: bool):
+    """(frame words [T, W], total cost, no final token) of each utterance:
+    the host's exact final-weight pick, then one device backtrace."""
+    b = states.shape[0]
+    dev = dfst.device
     final = dfst.final.cpu().numpy()
     # Exact final-weight selection on the host (a delta-LM final needs the
     # backoff walk), then ONE backtrace on the device for the whole batch.
@@ -518,8 +571,5 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                         torch.cat([init_words[None]] + words))
     frame_words = backtrace_device(
         traces, torch.as_tensor(best_slots, device=dev)).cpu().numpy()
-    return [
-        Hypothesis([], 0.0) if empty[u]
-        else Hypothesis(assemble_words(frame_words[u]), float(totals[u]))
-        for u in range(b)
-    ]
+    return [(frame_words[u], float(totals[u]), bool(empty[u]))
+            for u in range(b)]

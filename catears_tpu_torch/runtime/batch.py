@@ -58,19 +58,28 @@ def _batched_logp(am, t_max: int, waves: torch.Tensor,
 
 def batched_logp(am, waves: List[np.ndarray]) -> Tuple[torch.Tensor,
                                                        List[int]]:
-    """Ragged waves -> ([B, T_max, P] log-probs on am.device, lengths)."""
-    lengths = [num_frames(w.shape[0]) for w in waves]
-    t_max = max(max(lengths), 1)
-    s_max = bucket(max(w.shape[0] for w in waves), base=4096)
-    t_bucket = num_frames(s_max)
-    padded = np.zeros((len(waves), s_max), np.float32)
-    for i, w in enumerate(waves):
-        padded[i, :w.shape[0]] = w
+    """Ragged waves -> ([B, T_max, P] log-probs on am.device, lengths).
+
+    Spanned as `logp` (a device span: its CUDA-event time is the batched
+    AM's), with children `logp.host` (padding, bucketing, the uploads'
+    enqueue) and `logp.am` (fbank, context gather, AM enqueue)."""
     dev = am.device
-    with torch.no_grad():
-        logp = _batched_logp(am, t_bucket, torch.from_numpy(padded).to(dev),
-                             torch.as_tensor(lengths, dtype=torch.int64,
-                                             device=dev))
+    with log.span("logp", device=dev.type == "cuda") as sp, \
+            torch.no_grad():
+        with log.span("logp.host"):
+            lengths = [num_frames(w.shape[0]) for w in waves]
+            t_max = max(max(lengths), 1)
+            s_max = bucket(max(w.shape[0] for w in waves), base=4096)
+            t_bucket = num_frames(s_max)
+            padded = np.zeros((len(waves), s_max), np.float32)
+            for i, w in enumerate(waves):
+                padded[i, :w.shape[0]] = w
+            wave_dev = torch.from_numpy(padded).to(dev)
+            counts = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
+        with log.span("logp.am"):
+            logp = _batched_logp(am, t_bucket, wave_dev, counts)
+        sp.set(batch=len(waves), frames=sum(lengths),
+               audio_s=sum(w.shape[0] for w in waves) / 16000.0)
     return logp[:, :t_max], lengths
 
 

@@ -151,24 +151,28 @@ class _FusedStep:
         padding).  Streams with active False decode identity frames and
         keep their CMVN ring; the caller keeps their ctx."""
         with torch.no_grad():
-            wave = torch.from_numpy(samples).to(self.device)
-            feats = fbank_from_wave(wave, n_frames)  # [B, n_frames, 40]
-            if self.cmvn:
-                gsum, gcount, rings, counts = cm
-                feats, new_rings, new_counts = _device_cmvn_chunk(
-                    gsum, gcount, rings, counts, feats)
-                cm = (gsum, gcount,
-                      torch.where(active[:, None, None], new_rings, rings),
-                      torch.where(active, new_counts, counts))
-            if ctx is None:
-                left = feats[:, :1].expand(-1, self.am.left_context, -1)
-                window = torch.cat([left, feats], dim=1)
-            else:
-                window = torch.cat([ctx, feats], dim=1)
-            logp = self.am.forward_padded(window)  # [B, F, P]
-            valid = active[None, :].expand(logp.shape[1], -1)
-            beam, trace = decode_chunk(self.cfg, self.dfst, beam,
-                                       logp.transpose(0, 1), valid, self.dlm)
+            with log.span("tick.features"):
+                wave = torch.from_numpy(samples).to(self.device)
+                feats = fbank_from_wave(wave, n_frames)  # [B, n_frames, 40]
+                if self.cmvn:
+                    gsum, gcount, rings, counts = cm
+                    feats, new_rings, new_counts = _device_cmvn_chunk(
+                        gsum, gcount, rings, counts, feats)
+                    cm = (gsum, gcount,
+                          torch.where(active[:, None, None], new_rings,
+                                      rings),
+                          torch.where(active, new_counts, counts))
+                if ctx is None:
+                    left = feats[:, :1].expand(-1, self.am.left_context, -1)
+                    window = torch.cat([left, feats], dim=1)
+                else:
+                    window = torch.cat([ctx, feats], dim=1)
+                logp = self.am.forward_padded(window)  # [B, F, P]
+            with log.span("tick.decode", frames=logp.shape[1]):
+                valid = active[None, :].expand(logp.shape[1], -1)
+                beam, trace = decode_chunk(self.cfg, self.dfst, beam,
+                                           logp.transpose(0, 1), valid,
+                                           self.dlm)
         ctx_len = self.am.left_context + self.am.right_context
         return window[:, -ctx_len:], cm, beam, trace
 
@@ -457,7 +461,9 @@ class BatchStreamingSession:
         self._drain()
 
     def process_batch(self, chunks) -> None:
-        """Feed one chunk per stream (None or empty to skip one), then step.
+        """Feed one chunk per stream (None or empty to skip one), then step
+        (spanned as `tick.step`; the fused steps' parts as `tick.features`,
+        fbank + CMVN + AM, and `tick.decode`).
 
         Appends every stream's samples before draining, so simultaneous
         arrivals decode as one fused [B] group step (B separate process()
@@ -468,13 +474,14 @@ class BatchStreamingSession:
         if len(chunks) != self.b:
             raise ValueError(f"process_batch takes one chunk per stream "
                              f"({self.b}), got {len(chunks)}")
-        for u, s in enumerate(chunks):
-            if s is None or self._flushed[u]:
-                continue
-            s = np.asarray(s, np.float32).ravel()
-            if s.size:
-                self._samples[u] = np.concatenate([self._samples[u], s])
-        self._drain()
+        with log.span("tick.step"):
+            for u, s in enumerate(chunks):
+                if s is None or self._flushed[u]:
+                    continue
+                s = np.asarray(s, np.float32).ravel()
+                if s.size:
+                    self._samples[u] = np.concatenate([self._samples[u], s])
+            self._drain()
 
     def _host_cmvn_tail(self, u: int, feats: np.ndarray) -> np.ndarray:
         gsum, gcount, rings, counts = self._cm
@@ -507,7 +514,8 @@ class BatchStreamingSession:
     def _materialize(self) -> None:
         if not self._dev_traces:
             return
-        prev, words = _pull_traces([t for t, _, _ in self._dev_traces])
+        with log.span("partials.copy"):
+            prev, words = _pull_traces([t for t, _, _ in self._dev_traces])
         off = 0
         for trace, n_valid, only in self._dev_traces:
             for u in (range(self.b) if only is None else (only,)):
@@ -537,19 +545,22 @@ class BatchStreamingSession:
         one of the pending traces, then per-stream incremental host walks
         (B best_path() calls give the same hypotheses with B pulls).  As in
         the JAX package, a stream already flushed gets its non-final
-        (end_of_stream=False) hypothesis too."""
-        ovf, states, lms, costs = (x.cpu().numpy() for x in (
-            self.beam.overflow, self.beam.states, self.beam.lm,
-            self.beam.costs))
-        if ovf.any():
-            raise BeamCapacityError(
-                f"arc expansion overflowed capacity for streams "
-                f"{np.nonzero(ovf)[0].tolist()} "
-                f"(expand_size={self.cfg.expand_size})")
-        self._materialize()
-        return [
-            best_path(self._host_traces[u], states[u], lms[u], costs[u],
-                      self.fst, self.delta_lm, end_of_stream=False,
-                      tracker=self._trackers[u])
-            for u in range(self.b)
-        ]
+        (end_of_stream=False) hypothesis too.  Spanned as `tick.partials`,
+        its device-to-host copies as `partials.copy`."""
+        with log.span("tick.partials"):
+            with log.span("partials.copy"):
+                ovf, states, lms, costs = (x.cpu().numpy() for x in (
+                    self.beam.overflow, self.beam.states, self.beam.lm,
+                    self.beam.costs))
+            if ovf.any():
+                raise BeamCapacityError(
+                    f"arc expansion overflowed capacity for streams "
+                    f"{np.nonzero(ovf)[0].tolist()} "
+                    f"(expand_size={self.cfg.expand_size})")
+            self._materialize()
+            return [
+                best_path(self._host_traces[u], states[u], lms[u], costs[u],
+                          self.fst, self.delta_lm, end_of_stream=False,
+                          tracker=self._trackers[u])
+                for u in range(self.b)
+            ]

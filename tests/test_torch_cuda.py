@@ -959,3 +959,35 @@ def test_train_am_first_step_cuda_vs_cpu(cuda):
     assert abs(loss - loss_ref) <= 1e-5 * abs(loss_ref)
     for a, b in zip(grads, grads_ref):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_device_span_times_the_card_on_the_profilers_clock(cuda):
+    """A device span's CUDA-event seconds cover its kernels, and the
+    profiler shows those kernels inside the span's host interval (the
+    spans' clock is the one kineto gives CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from catears_tpu_torch.utils import log
+
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    log.start_tracing()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with log.span("mm", device=True):
+                for _ in range(8):
+                    y = x @ x
+                y.sum().item()  # the host waits: the kernels end inside
+            torch.cuda.synchronize()
+    finally:
+        log.stop_tracing()
+    (s,) = log.spans()
+    kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type().name == "CUDA"
+               and not e.name().startswith("Mem")]
+    assert len(kernels) >= 8
+    busy = sum(b - a for a, b in kernels) / 1e9
+    assert busy * 0.9 <= s.device_s <= (s.end_ns - s.start_ns) / 1e9
+    assert s.start_ns <= min(a for a, _ in kernels)
+    assert max(b for _, b in kernels) <= s.end_ns
