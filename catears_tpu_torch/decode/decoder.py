@@ -8,7 +8,8 @@ under a frame_valid mask; `autosize` sizes a deployment's capacities from
 one generous decode.  `BatchDecoder` is the batch path: optional delta-LM
 rescoring, the overflow regrow-and-retry and the device backtrace with the
 host's final-weight pick (or the host backtrace), `decode_batch` its
-one-shot form.  Both decode every mode of `prepare_decode_graph`:
+one-shot form; on a card its frame loop replays one CUDA graph per chunk
+(`_ChunkRunner`).  Both decode every mode of `prepare_decode_graph`:
 eps-free and closed graphs with the transformed graph (epsilon depth
 capped at 1), raw ones (or any graph when close_eps=False) with the
 original graph and its own epsilon depth, as the JAX decoders do.
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +31,9 @@ from catears_tpu_torch.decode.beam import (
     backtrace_device,
     decode_chunk,
     emit_lanes,
+    expand_emitting,
     init_beam_batch,
+    select_beam,
 )
 from catears_tpu_torch.decode.hyp import (
     HostTrace,
@@ -40,7 +43,8 @@ from catears_tpu_torch.decode.hyp import (
 )
 from catears_tpu_torch.decode.oracle import Hypothesis
 from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
-                                            expansion_bounds)
+                                            expansion_bounds, lm_propagate,
+                                            lm_propagate_capped)
 from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst
 from catears_tpu_torch.graph.transform import prepare_decode_graph
 from catears_tpu_torch.utils import log
@@ -343,6 +347,15 @@ class BatchDecoder:
     host.  Traces stay on the device and the backtrace runs there; only the
     final beam and the [B, T, W] word array come back.  With `delta_lm`
     the decode is rescored by that G' (its DeviceLm built once, here).
+
+    The frames run chunk_frames at a time, the last chunk padded with
+    invalid (identity) frames, through a `_ChunkRunner`: on a card one
+    CUDA graph, captured by the first decode of its shape and replayed
+    once a chunk (counters `frame_graph_captures`, `frame_graph_replays`);
+    on the CPU the same steps eagerly.  The decoder keeps a runner per
+    (batch size, chunk_frames, log-prob width) at its own config and one
+    at the last regrown config (see `_runner`); `drop_graphs` frees them.
+    One decode at a time: the runners' buffers are shared by its decodes.
     """
 
     def __init__(self, fst: FlatFst, tid2pdf: np.ndarray,
@@ -385,6 +398,36 @@ class BatchDecoder:
                     device=resolve_device(device))
         self.dfst = dfst
         self.dlm = _device_lm(delta_lm, self.dfst.device)
+        self._runners: Dict[tuple, _ChunkRunner] = {}
+        self._pool = None  # the runners' CUDA graph memory pool
+
+    def drop_graphs(self) -> None:
+        """Frees the frame loop's chunk runners, on a card their CUDA
+        graphs and buffers; the next decode of each shape captures
+        again."""
+        self._runners.clear()
+
+    def _runner(self, config: BeamConfig, beam: BeamState,
+                num_pdfs: int) -> "_ChunkRunner":
+        """The chunk runner of a decode of `beam`'s batch at `config`,
+        reset to start from `beam`.  Runners are kept per (batch size,
+        chunk_frames, log-prob width) and whether `config` is the
+        decoder's own: a retry at another regrown config replaces the
+        regrown runner before it, so a decoder holds at most two a shape.
+        On a card their graphs share one memory pool (one decode runs at
+        a time, and each runner keeps its own buffers and trace)."""
+        key = (beam.states.shape[0], self.chunk_frames, num_pdfs,
+               config == self.cfg)
+        if key not in self._runners or self._runners[key].cfg != config:
+            self._runners.pop(key, None)  # its graph's memory is reused
+            if self.dfst.device.type == "cuda" and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            self._runners[key] = _ChunkRunner(
+                config, self.dfst, self.dlm, beam, self.chunk_frames,
+                num_pdfs, self._pool)
+        runner = self._runners[key]
+        runner.reset(beam)
+        return runner
 
     def decode(self, logp, lengths: Optional[Sequence[int]] = None,
                device_backtrace: bool = True,
@@ -408,7 +451,8 @@ class BatchDecoder:
         with log.span("decode"):
             try:
                 return _decode_batch_once(*args, self.cfg, self.chunk_frames,
-                                          device_backtrace, final_fallback)
+                                          device_backtrace, final_fallback,
+                                          self._runner)
             except BeamCapacityError as err:
                 if not retry_on_overflow or err.hiwater is None:
                     raise
@@ -423,7 +467,7 @@ class BatchDecoder:
                     return _decode_batch_once(*args, regrown,
                                               self.chunk_frames,
                                               device_backtrace,
-                                              final_fallback)
+                                              final_fallback, self._runner)
 
 
 def decode_batch(fst: FlatFst, tid2pdf: np.ndarray, logp,
@@ -453,35 +497,47 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                        delta_lm: Optional[DeltaLmFst], logp,
                        lengths: Optional[Sequence[int]],
                        config: BeamConfig, chunk_frames: int,
-                       device_backtrace: bool,
-                       final_fallback: bool = False) -> List[Hypothesis]:
+                       device_backtrace: bool, final_fallback: bool,
+                       runner_for: Callable[[BeamConfig, BeamState, int],
+                                            "_ChunkRunner"]
+                       ) -> List[Hypothesis]:
     """One decode of the batch at `config`'s capacities, spanned (inside
     the caller's `decode` span) as decode.init, one decode.frames per
     chunk, decode.read (the host waits for the frame loop there),
     decode.backtrace and decode.hyps; while tracing, the read also takes
-    the beam's hiwater for the `decode` span."""
+    the beam's hiwater for the `decode` span.  The frames run through the
+    chunk runner `runner_for(config, initial beam, log-prob width)` gives,
+    `chunk_frames` steps at a time."""
     dev = dfst.device
+    c = chunk_frames
     with log.span("decode.init"):
         logp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
-        b, t, _ = logp.shape
+        b, t, p = logp.shape
         lengths = list(lengths) if lengths is not None else [t] * b
         beam, init_trace = init_beam_batch(config, b, dfst, dlm)
         len_arr = np.asarray(lengths)
         log.count("frames_decoded", int(len_arr.sum()))
         log.annotate("decode", batch=b, frames=int(len_arr.sum()), steps=t)
-        # Chunks of real frames only: the JAX decoder pads its last chunk
-        # with invalid (identity) frames because its shapes are static.
-        valid = torch.as_tensor(np.arange(t)[:, None] < len_arr[None, :],
-                                device=dev)
+        # Whole chunks: the last is padded with invalid (identity) frames,
+        # as the JAX decoder pads it, so one graph serves every length.
+        valid = torch.as_tensor(np.arange(-(-t // c) * c)[:, None]
+                                < len_arr[None, :], device=dev)
+        runner = runner_for(config, beam, p)
     logp_t = logp.transpose(0, 1)
-    prevs, words = [], []
-    for off in range(0, t, chunk_frames):
-        with log.span("decode.frames", frames=min(chunk_frames, t - off)):
-            beam, trace = decode_chunk(config, dfst, beam,
-                                       logp_t[off:off + chunk_frames],
-                                       valid[off:off + chunk_frames], dlm)
-        prevs.append(trace.prev_slot)
-        words.append(trace.words)
+    traces = None
+    for off in range(0, t, c):
+        n = min(c, t - off)
+        with log.span("decode.frames", frames=n,
+                      graph=runner.graph is not None):
+            trace = runner.run(logp_t[off:off + n], valid[off:off + c])
+            if traces is None:
+                traces = _trace_buffer(init_trace, trace, t)
+            traces.prev_slot[1 + off:1 + off + n].copy_(trace.prev_slot[:n])
+            traces.words[1 + off:1 + off + n].copy_(trace.words[:n])
+    if traces is None:  # no frame: the init trace alone
+        traces = FrameTrace(init_trace.prev_slot[None],
+                            init_trace.words[None])
+    beam = runner.beam
 
     with log.span("decode.read"):
         overflow = beam.overflow.cpu().numpy()
@@ -502,22 +558,18 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
         costs = beam.costs.cpu().numpy()
     if not device_backtrace:
         with log.span("decode.backtrace"):
-            prev = torch.cat(prevs).cpu().numpy()
-            word = torch.cat(words).cpu().numpy()
-            init_prev = init_trace.prev_slot.cpu().numpy()
-            init_words = init_trace.words.cpu().numpy()
+            prev = traces.prev_slot.cpu().numpy()
+            word = traces.words.cpu().numpy()
             return [
-                best_path([HostTrace(init_prev[u], init_words[u])]
-                          + [HostTrace(prev[f, u], word[f, u])
-                             for f in range(lengths[u])],
+                best_path([HostTrace(prev[f, u], word[f, u])
+                           for f in range(lengths[u] + 1)],
                           states[u], lms[u], costs[u], fst, delta_lm,
                           end_of_stream=True)
                 for u in range(b)
             ]
     with log.span("decode.backtrace"):
         frame_words = _device_backtrace(dfst, delta_lm, states, lms, costs,
-                                        init_trace, prevs, words,
-                                        final_fallback)
+                                        traces, final_fallback)
     with log.span("decode.hyps"):
         return [
             Hypothesis([], 0.0) if empty
@@ -526,13 +578,115 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
         ]
 
 
+def _trace_buffer(init: FrameTrace, chunk: FrameTrace, t: int) -> FrameTrace:
+    """The decode's own [1 + T, B, ...] trace, shaped like the chunk's,
+    with `init` in frame 0.  In eps-free mode a graph with no epsilon arcs
+    has a 1-wide init trace beside 2-wide frame traces (the JAX decoder
+    fails to concatenate them); in the other modes the widths are equal.
+    Words are zero-padded, so widening with zeros changes nothing."""
+    prev = chunk.prev_slot.new_empty((1 + t,) + chunk.prev_slot.shape[1:])
+    words = chunk.words.new_empty((1 + t,) + chunk.words.shape[1:])
+    prev[0].copy_(init.prev_slot)
+    words[0].zero_()
+    words[0, ..., :init.words.shape[-1]].copy_(init.words)
+    return FrameTrace(prev, words)
+
+
+# The kernel wrappers a frame step launches through, each counting its
+# launches on `.launches`; a graph's replay adds the launches it holds.
+_FRAME_KERNELS = (expand_emitting, select_beam, lm_propagate_capped,
+                  lm_propagate)
+
+
+class _ChunkRunner:
+    """`chunk` frame steps of a B-row batch over static buffers: the beam
+    (carried from chunk to chunk), a [chunk, B, P] log-prob chunk and a
+    [chunk, B] valid mask.  On a card the steps are one CUDA graph,
+    captured once here and replayed per chunk; on the CPU they run
+    eagerly over the same buffers.  The body is `decode_chunk` as every
+    other caller runs it, followed by copies of its output beam into the
+    static beam, so replays chain with no host work between them.  `pool`
+    is the CUDA graph memory pool the capture allocates its temporaries
+    and trace from (None: a private one)."""
+
+    def __init__(self, cfg: BeamConfig, dfst: DeviceFst,
+                 dlm: Optional[DeviceLm], beam: BeamState, chunk: int,
+                 num_pdfs: int, pool=None):
+        dev = dfst.device
+        b = beam.states.shape[0]
+        self.cfg, self.dfst, self.dlm = cfg, dfst, dlm
+        self.beam = BeamState(*(x.clone() for x in beam))
+        self.logp = torch.zeros((chunk, b, num_pdfs), dtype=torch.float32,
+                                device=dev)
+        self.valid = torch.zeros((chunk, b), dtype=torch.bool, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.trace: Optional[FrameTrace] = None
+        self.launches = ()  # each of _FRAME_KERNELS' launches in a replay
+        if dev.type == "cuda":
+            self._capture(pool)
+
+    def _body(self) -> FrameTrace:
+        beam, trace = decode_chunk(self.cfg, self.dfst, self.beam, self.logp,
+                                   self.valid, self.dlm)
+        for dst, src in zip(self.beam, beam):
+            dst.copy_(src)
+        return trace
+
+    def _capture(self, pool) -> None:
+        """One eager chunk on a side stream first (every kernel library
+        loaded, the launch attributes set; the frames are invalid, so the
+        beam stays valid), then the capture, its temporaries in `pool`.
+        The capture launches nothing: the calls it made to each kernel
+        wrapper are taken off its `.launches` and added at each replay."""
+        dev = self.dfst.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._body()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = [k.launches for k in _FRAME_KERNELS]
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.trace = self._body()
+        self.launches = tuple(k.launches - n
+                              for k, n in zip(_FRAME_KERNELS, before))
+        for k, n in zip(_FRAME_KERNELS, before):
+            k.launches = n
+        self.graph = graph
+        log.count("frame_graph_captures")
+
+    def reset(self, beam: BeamState) -> None:
+        """Start a decode from `beam` (init_beam_batch's)."""
+        for dst, src in zip(self.beam, beam):
+            dst.copy_(src)
+
+    def run(self, logp: torch.Tensor, valid: torch.Tensor) -> FrameTrace:
+        """The next chunk: `logp` [n <= chunk, B, P] (the rows past n are
+        zeroed) and `valid` [chunk, B].  Returns the chunk's [chunk, B,
+        ...] trace, which the next run overwrites."""
+        n = logp.shape[0]
+        self.logp[:n].copy_(logp)
+        if n < self.logp.shape[0]:
+            self.logp[n:].zero_()
+        self.valid.copy_(valid)
+        if self.graph is None:
+            return self._body()
+        self.graph.replay()
+        for k, n in zip(_FRAME_KERNELS, self.launches):
+            k.launches += n
+        log.count("frame_graph_replays")
+        return self.trace
+
+
 def _device_backtrace(dfst: DeviceFst, delta_lm: Optional[DeltaLmFst],
                       states: np.ndarray, lms: np.ndarray,
-                      costs: np.ndarray, init_trace: FrameTrace,
-                      prevs: List[torch.Tensor], words: List[torch.Tensor],
+                      costs: np.ndarray, traces: FrameTrace,
                       final_fallback: bool):
-    """(frame words [T, W], total cost, no final token) of each utterance:
-    the host's exact final-weight pick, then one device backtrace."""
+    """(frame words [T, W], total cost, no final token) of each utterance
+    from the decode's [1 + T, B, ...] traces: the host's exact final-weight
+    pick, then one device backtrace."""
     b = states.shape[0]
     dev = dfst.device
     final = dfst.final.cpu().numpy()
@@ -561,14 +715,6 @@ def _device_backtrace(dfst: DeviceFst, delta_lm: Optional[DeltaLmFst],
             total = np.where(ok, costs[u], np.inf)
         best_slots[u] = int(np.argmin(total))
         totals[u] = total[best_slots[u]]
-    # In eps-free mode a graph with no epsilon arcs has a 1-wide init
-    # trace beside 2-wide frame traces (the JAX decoder fails to
-    # concatenate them); in the other modes the widths are equal.  Words
-    # are zero-padded, so widening with zeros changes nothing.
-    pad = (words[0].shape[-1] - init_trace.words.shape[-1]) if words else 0
-    init_words = torch.nn.functional.pad(init_trace.words, (0, pad))
-    traces = FrameTrace(torch.cat([init_trace.prev_slot[None]] + prevs),
-                        torch.cat([init_words[None]] + words))
     frame_words = backtrace_device(
         traces, torch.as_tensor(best_slots, device=dev)).cpu().numpy()
     return [(frame_words[u], float(totals[u]), bool(empty[u]))

@@ -849,6 +849,7 @@ def lm_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
     shape for the kernels line."""
     planted = plant_logp(np.random.RandomState(4), tg, LM_KERNEL_UTTS,
                          LM_KERNEL_FRAMES)[0]
+    dec.drop_graphs()  # captured anew: the spied wrapper is called
     with spied(tbeam, "lm_propagate_capped", []) as walk:
         dec.decode(torch.from_numpy(planted).to(cuda), final_fallback=True)
     dlm, states, labels, cap = walk
@@ -1021,6 +1022,7 @@ def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
     lm = dec.dlm is not None
     planted = plant_logp(np.random.RandomState(4), tg, LM_KERNEL_UTTS,
                          LM_KERNEL_FRAMES)[0]
+    dec.drop_graphs()  # captured anew: the spied wrapper is called
     with spied(tbeam, "expand_emitting", []) as ex, \
             spied(tbeam, "select_beam", []) as sel:
         dec.decode(torch.from_numpy(planted).to(cuda), final_fallback=True)
@@ -1163,11 +1165,8 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
     # backtrace the cheapest token so the paths compared are real.
     zero_counts()
     loops = FrameLoop(), FrameLoop()
-    try:
-        with loops[0]:
-            hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
-    except RuntimeError as e:  # set_sync_debug_mode("error") raised
-        fail(f"{name}: a device read in the decode's frame loop: {e}")
+    with loops[0]:
+        hyp_gpu = dec.decode(logp, lengths, final_fallback=True)
     launched = loop_launches(name, counts(), lm, bulk=True)
     with loops[1]:
         hyp_cpu = dec_cpu.decode(logp.cpu(), lengths, final_fallback=True)
@@ -1209,10 +1208,57 @@ def decoder_phase(name, dec, dec_cpu, logp, lengths, tg, card):
 
 
 class FrameLoop:
-    """While entered, the decoders' `decode_chunk` runs with every device
-    read raising (torch.cuda.set_sync_debug_mode("error")) and timed on the
-    host clock between two synchronizes; the high-water marks of the last
-    chunk's beam are kept."""
+    """While entered, BatchDecoder's frame loop is read from its spans
+    (log.start_tracing): its frames (the `decode.frames` spans'), its time
+    on the host clock (from each decode's first `decode.frames` to the end
+    of its `decode.read`, where the host waits for the last chunk), and
+    the high-water marks the last `decode` span took from its final beam.
+    On the card each chunk is a replayed CUDA graph, which holds no device
+    read: its capture would have raised on one."""
+
+    def __init__(self):
+        self.spans = None  # the spans recorded, once exited
+
+    def __enter__(self):
+        log.start_tracing()
+        return self
+
+    def __exit__(self, *exc):
+        log.stop_tracing()
+        self.spans = log.spans()
+
+    def _read(self):
+        """(seconds, frames, high-water marks) of the decodes so far."""
+        seconds, frames, hiwater, start = 0.0, 0, None, None
+        for s in self.spans if self.spans is not None else log.spans():
+            if s.name == "decode.frames":
+                frames += s.attrs["frames"]
+                start = s.start_ns if start is None else start
+            elif s.name == "decode.read" and start is not None:
+                seconds += (s.end_ns - start) / 1e9
+                start = None
+            elif s.name == "decode" and "hiwater" in s.attrs:
+                hiwater = s.attrs["hiwater"]
+        return seconds, frames, hiwater
+
+    @property
+    def frames(self):
+        return self._read()[1]
+
+    def ms_per_frame(self):
+        seconds, frames, _ = self._read()
+        return f"{seconds * 1e3 / frames:.3f}"
+
+    def marks(self):
+        """The five high-water slots, max over the batch."""
+        return [int(x) for x in self._read()[2]]
+
+
+class StepLoop:
+    """While entered, the single-utterance Decoder's `decode_chunk` runs
+    with every device read raising (torch.cuda.set_sync_debug_mode("error"))
+    and timed on the host clock between two synchronizes; the high-water
+    marks of the last chunk's beam are kept."""
 
     def __init__(self):
         from catears_tpu_torch.decode import decoder
@@ -1305,19 +1351,15 @@ def closure_phase(name, dec, dec_cpu, logp, lengths, tg, card,
     loop = FrameLoop()
     retries = log.metrics().get("overflow_retries", 0)
     zero_counts()
-    try:
-        with loop:
-            hyp_gpu = dec.decode(logp[:, :frames],
-                                 [min(n, frames) for n in lengths],
-                                 final_fallback=True)
-            ms_per_frame, hiwater = loop.ms_per_frame(), loop.marks()
-            if frames != cut_frames:
-                hyp_gpu = dec.decode(logp[:, :cut_frames], cut,
-                                     final_fallback=True)
-            wer, n_ref, planted_s, n, planted_frames = planted_wer(
-                dec, tg, lm, CLOSURE_PLANTED)
-    except RuntimeError as e:  # set_sync_debug_mode("error") raised
-        fail(f"{name}: a device read in the decode's frame loop: {e}")
+    with loop:
+        hyp_gpu = dec.decode(logp[:, :frames],
+                             [min(n, frames) for n in lengths],
+                             final_fallback=True)
+        ms_per_frame, hiwater = loop.ms_per_frame(), loop.marks()
+    if frames != cut_frames:
+        hyp_gpu = dec.decode(logp[:, :cut_frames], cut, final_fallback=True)
+    wer, n_ref, planted_s, n, planted_frames = planted_wer(
+        dec, tg, lm, CLOSURE_PLANTED)
     launched = loop_launches(name, counts(), lm, bulk=True, eps_free=False)
     t0 = time.perf_counter()
     hyp_cpu = dec_cpu.decode(logp[:, :cut_frames].cpu(), cut,
@@ -1463,16 +1505,13 @@ def variants_phase(rec, tg, card, cuda=torch.device("cuda:0")):
         loop = FrameLoop()
         overflowed = None
         zero_counts()
-        try:
-            with loop, spied(tbeam, "expand_emitting", []) as ex, \
-                    spied(tbeam, "select_beam", []) as sel:
-                try:
-                    hyps = dec.decode(planted_dev, retry_on_overflow=False,
-                                      final_fallback=True)
-                except BeamCapacityError as err:
-                    overflowed = list(err.hiwater)
-        except RuntimeError as e:  # set_sync_debug_mode("error") raised
-            fail(f"variant-{name}: a device read in the frame loop: {e}")
+        with loop, spied(tbeam, "expand_emitting", []) as ex, \
+                spied(tbeam, "select_beam", []) as sel:
+            try:
+                hyps = dec.decode(planted_dev, retry_on_overflow=False,
+                                  final_fallback=True)
+            except BeamCapacityError as err:
+                overflowed = list(err.hiwater)
         ms_per_frame, hiwater = loop.ms_per_frame(), loop.marks()
         # The knobs run in the kernels: both launch every frame, and each
         # equals its plain version on the decode's last frame.
@@ -1755,7 +1794,7 @@ def stream_decoder_phase(name, rec, tg, card, frames, decoder=None,
         decoder.initialize()
         return decoder
 
-    loop = FrameLoop() if decoder is not None else contextlib.nullcontext()
+    loop = StepLoop() if decoder is not None else contextlib.nullcontext()
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()

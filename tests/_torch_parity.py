@@ -555,3 +555,118 @@ def beam_rows(seed, b, e, lm_on, weights=True, one_slice=False):
     pay = [rng.randint(0, 10**6, (b, e)).astype(np.int32) for _ in range(3)]
     return [state, lmv.astype(np.int32) if lm_on else None, cost,
             w1 if weights else None, w2 if weights else None, *pay]
+
+
+def runner_trie(mode: str, lm: bool, device, chunk: int, cfg):
+    """A BatchDecoder of the small planted trie (120 words, with its G'
+    when `lm`) in graph mode `mode`: "eps-free" (prepare_decode_graph's),
+    "closed" (close_epsilons at depth 1, a prebuilt dfst) or "raw"
+    (close_eps=False).  Returns (decoder, TrieGraph)."""
+    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.graph.device import DeviceFst
+    from catears_tpu_torch.graph.transform import close_epsilons
+    from catears_tpu_torch.tools.biggraph import make_big_lm, make_trie_graph
+
+    tg = make_trie_graph(np.random.RandomState(1), num_words=120,
+                         num_phones=25, bigram_states=30, variants=2)
+    delta = (make_big_lm(np.random.RandomState(9),
+                         num_words=tg.num_words).delta_lm() if lm else None)
+    if mode == "closed":
+        closed = close_epsilons(tg.fst)[0]
+        dfst = DeviceFst.build(closed, tg.tid2pdf, group=2, eps_depth_cap=1,
+                               csr_group=16, device=device)
+        dec = BatchDecoder(closed, tg.tid2pdf, config=cfg, dfst=dfst,
+                           delta_lm=delta, chunk_frames=chunk)
+    else:
+        dec = BatchDecoder(tg.fst, tg.tid2pdf, config=cfg, arc_group=2,
+                           csr_group=16, close_eps=mode == "eps-free",
+                           delta_lm=delta, chunk_frames=chunk, device=device)
+    assert dec.dfst.eps_removed == (mode == "eps-free")
+    return dec, tg
+
+
+def eager_frame_loop(dec, logp, lengths, cfg):
+    """BatchDecoder `dec`'s frame loop as the plain eager loop:
+    init_beam_batch, then decode_chunk over chunks of the batch's real
+    frames (the last one shorter, nothing padded), the traces stacked
+    after the zero-padded init trace.  Returns (final beam, [1 + T, ...]
+    traces), numpy."""
+    from catears_tpu_torch.decode.beam import decode_chunk, init_beam_batch
+
+    dev = dec.dfst.device
+    lp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
+    b, t, _ = lp.shape
+    c = dec.chunk_frames
+    beam, init = init_beam_batch(cfg, b, dec.dfst, dec.dlm)
+    valid = torch.as_tensor(np.arange(t)[:, None]
+                            < np.asarray(lengths)[None, :], device=dev)
+    prevs, words = [init.prev_slot[None]], [init.words[None]]
+    for off in range(0, t, c):
+        beam, tr = decode_chunk(cfg, dec.dfst, beam,
+                                lp.transpose(0, 1)[off:off + c],
+                                valid[off:off + c], dec.dlm)
+        prevs.append(tr.prev_slot)
+        words.append(tr.words)
+    pad = words[-1].shape[-1] - words[0].shape[-1]
+    words[0] = torch.nn.functional.pad(words[0], (0, pad))
+    return ([to_np(x) for x in beam],
+            [to_np(torch.cat(prevs)), to_np(torch.cat(words))])
+
+
+def runner_decode(dec, logp, lengths, **kw):
+    """dec.decode(logp, lengths, **kw) with what its chunk runner left:
+    (hypotheses, the final beam, the decode's [1 + T, ...] traces as the
+    device backtrace got them, the config decoded at), numpy."""
+    from catears_tpu_torch.decode import decoder as tdecoder
+
+    seen = {}
+    runner_for, backtrace = dec._runner, tdecoder._device_backtrace
+
+    def spy_runner(*args):
+        seen["runner"] = runner_for(*args)
+        return seen["runner"]
+
+    def spy_backtrace(*args):
+        seen["traces"] = [to_np(x) for x in args[5]]
+        return backtrace(*args)
+
+    dec._runner = spy_runner
+    tdecoder._device_backtrace = spy_backtrace
+    try:
+        hyps = dec.decode(logp, lengths, **kw)
+    finally:
+        del dec._runner
+        tdecoder._device_backtrace = backtrace
+    runner = seen["runner"]
+    return (hyps, [to_np(x) for x in runner.beam], seen["traces"],
+            runner.cfg)
+
+
+def assert_runner_equals_eager(dec, logp, lengths, **kw):
+    """The decode through the chunk runner (padded chunks over static
+    buffers; a graph replay on a card) equals the eager loop at the config
+    it decoded at, byte for byte: the final beam (overflow and hiwater
+    included), the traces, and the words and weights the device backtrace
+    gives the eager traces.  Returns the runner's result."""
+    from catears_tpu_torch.decode import decoder as tdecoder
+    from catears_tpu_torch.decode.beam import FrameTrace
+    from catears_tpu_torch.decode.hyp import assemble_words
+
+    got = runner_decode(dec, logp, lengths, **kw)
+    hyps, beam, traces, cfg = got
+    ref_beam, ref_traces = eager_frame_loop(dec, logp, lengths, cfg)
+    for name, x, y in zip(("states", "lm", "costs", "bp", "overflow",
+                           "hiwater"), ref_beam, beam):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), name
+    for name, x, y in zip(("prev_slot", "words"), ref_traces, traces):
+        assert x.shape == y.shape and x.tobytes() == y.tobytes(), name
+    dev = dec.dfst.device
+    ref = tdecoder._device_backtrace(
+        dec.dfst, dec.delta_lm, ref_beam[0], ref_beam[1], ref_beam[2],
+        FrameTrace(*(torch.from_numpy(x).to(dev) for x in ref_traces)),
+        kw.get("final_fallback", False))
+    assert [h.words for h in hyps] == [
+        [] if empty else assemble_words(fw) for fw, _, empty in ref]
+    assert [h.weight for h in hyps] == [
+        0.0 if empty else total for _, total, empty in ref]
+    return got

@@ -25,8 +25,11 @@ also at B = 1, 8, 16 and K = 1, 2,048, 8,192, on both table storages, on
 rows whose groups all hash into one CTA's slice, and with its phase
 stamps); the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
-costs.  The sharded pipeline over logical shards of the card must equal the
-same mesh on the CPU, and tools.synth's loss and gradients the CPU's.
+costs, and its replay of one CUDA graph per chunk must equal the eager
+decode_chunk loop on the card byte for byte (also after an overflow's
+retry, and with no stale buffer between batches).  The sharded pipeline
+over logical shards of the card must equal the same mesh on the CPU, and
+tools.synth's loss and gradients the CPU's.
 """
 
 import dataclasses
@@ -37,9 +40,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (adversarial_rows, backtrace_case, beam_rows,
-                           big_lm_queries, chain_delta, group_home,
-                           random_beam, tied_rows, walk_lanes)
+from _torch_parity import (adversarial_rows, assert_runner_equals_eager,
+                           backtrace_case, beam_rows, big_lm_queries,
+                           chain_delta, group_home, random_beam, runner_trie,
+                           tied_rows, walk_lanes)
 from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
@@ -364,6 +368,88 @@ def test_decoder_closed_and_raw_cuda_vs_cpu(cuda, monkeypatch, mode, iters,
     assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
     assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
     assert any(h.words for h in hyps[1])
+
+
+REPLAY_MODES = [("eps-free", 4, False), ("eps-free", 4, True),
+                ("closed", 4, False), ("closed", 4, True),
+                ("raw", 4, False), ("raw", 1, False), ("raw", 4, True),
+                ("raw", 1, True)]
+
+
+@pytest.mark.parametrize("mode,iters,lm", REPLAY_MODES)
+def test_batch_decoder_replay_equals_the_eager_loop(cuda, mode, iters, lm):
+    """BatchDecoder on the card replays one CUDA graph per chunk of 16
+    frames (T = 60 and 37: the last chunk padded): the final beams
+    (overflow, hiwater), the traces, words and weights equal the eager
+    decode_chunk loop's on the card byte for byte, in every graph mode
+    (raw at max_eps_iters 4: static rounds; at 1: the arena), LM off and
+    on.  Batch A, then B, then A again reads A's results; the first
+    decode of a shape captures one graph, a later one none, and each
+    replays ceil(T / 16) times.  The frame kernels' `.launches` count what
+    the card ran: a capture adds nothing, a replay its 16 frames'."""
+    from catears_tpu_torch.decode import beam as tbeam
+    from catears_tpu_torch.tools.biggraph import plant_logp
+    from catears_tpu_torch.utils import log
+
+    cfg = BeamConfig(beam_size=128, expand_size=2048, eps_expand_size=1024,
+                     max_eps_iters=iters, beam=12.0,
+                     lm_expand_size=64 if lm else 0)
+    dec, tg = runner_trie(mode, lm, cuda, 16, cfg)
+    a = (plant_logp(np.random.RandomState(2), tg, 3, 60)[0], [60, 41, 17])
+    b = (plant_logp(np.random.RandomState(3), tg, 2, 37)[0], [37, 30])
+    counts = []
+    for logp, lengths in (a, b, a):
+        log.reset_metrics()
+        counts.append(assert_runner_equals_eager(dec, logp, lengths,
+                                                 final_fallback=True))
+        m = log.metrics()
+        counts[-1] = counts[-1] + ((m.get("frame_graph_captures", 0),
+                                    m.get("frame_graph_replays", 0)),)
+    log.reset_metrics()
+    assert [c[-1] for c in counts] == [(1, 4), (1, 3), (0, 4)]
+    # A's shape is captured: its decode launches only by replays (the
+    # eager loop of assert_runner_equals_eager is left out here).
+    before = (tbeam.expand_emitting.launches, tbeam.select_beam.launches)
+    dec.decode(*a, final_fallback=True)
+    launched = (tbeam.expand_emitting.launches - before[0],
+                tbeam.select_beam.launches - before[1])
+    assert launched == ((64, 64) if mode == "eps-free" else (0, 0))
+    first, again = counts[0], counts[2]
+    assert [(h.words, h.weight) for h in first[0]] == [
+        (h.words, h.weight) for h in again[0]]
+    assert any(h.words for h in first[0])
+    for x, y in zip(first[1] + first[2], again[1] + again[2]):
+        assert x.tobytes() == y.tobytes()
+
+
+@pytest.mark.parametrize("mode", ["eps-free", "closed"])
+def test_batch_decoder_replay_retries_an_overflow(cuda, mode):
+    """Capacities too small for the trie: the replayed decode overflows,
+    regrows them, captures a graph at the new config and decodes once
+    more, byte for byte the eager loop's at that config.  The same batch
+    again retries at the same regrown config with no capture, and the
+    decoder keeps two runners: its own config's and the regrown one."""
+    from catears_tpu_torch.tools.biggraph import plant_logp
+    from catears_tpu_torch.utils import log
+
+    tiny = BeamConfig(beam_size=128, expand_size=16, eps_expand_size=16,
+                      max_eps_iters=4, beam=1e9)
+    dec, tg = runner_trie(mode, False, cuda, 16, tiny)
+    logp = plant_logp(np.random.RandomState(5), tg, 2, 37)[0]
+    log.reset_metrics()
+    _, _, _, cfg = assert_runner_equals_eager(dec, logp, [37, 30],
+                                              final_fallback=True)
+    m = log.metrics()
+    log.reset_metrics()
+    assert cfg.expand_size > tiny.expand_size
+    assert m["overflow_retries"] == 1 and m["frame_graph_captures"] == 2
+    assert m["frame_graph_replays"] == 6
+    dec.decode(logp, [37, 30], final_fallback=True)
+    m = log.metrics()
+    log.reset_metrics()
+    assert m["overflow_retries"] == 1 and m["frame_graph_replays"] == 6
+    assert m.get("frame_graph_captures", 0) == 0
+    assert len(dec._runners) == 2
 
 
 @functools.lru_cache(maxsize=None)

@@ -110,12 +110,12 @@ def test_timed_keeps_its_counter_and_records_a_span(traced):
     log.reset_metrics()
 
 
-def _trie_decoder(config=None, chunk_frames=10):
+def _trie_decoder(config=None, chunk_frames=10, device=CPU):
     g = make_trie_graph(np.random.RandomState(1), num_words=120,
                         num_phones=25, bigram_states=30, variants=2)
     lp, _ = plant_logp(np.random.RandomState(2), g, 2, 35)
     dec = BatchDecoder(g.fst, g.tid2pdf, config=config,
-                       chunk_frames=chunk_frames, arc_group=2, device=CPU)
+                       chunk_frames=chunk_frames, arc_group=2, device=device)
     return dec, lp
 
 
@@ -178,6 +178,32 @@ def test_batch_decode_retry_spans(traced):
     assert len(first) == 5 and first[0] > cfg.expand_size
     assert len(top.attrs["hiwater"]) == 5
     assert top.attrs["hiwater"][0] >= first[0]
+    log.reset_metrics()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_frame_graph_counters(traced, device):
+    """The batch decoder's frame loop: on the CPU no graph (0 captures, 0
+    replays, graph=False on each decode.frames); on a card the first
+    decode of a shape captures one graph and every decode replays it once
+    a chunk, ceil(T / C) times, with graph=True."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = BeamConfig(beam_size=128, expand_size=2048, beam=12.0)
+    dec, lp = _trie_decoder(cfg, device=torch.device(device))
+    chunks = -(-lp.shape[1] // 10)
+    card = device == "cuda"
+    for captures in (1, 0):
+        log.reset_metrics()
+        log.start_tracing()
+        dec.decode(lp, [lp.shape[1], lp.shape[1] - 9])
+        m = log.metrics()
+        assert m.get("frame_graph_captures", 0) == (captures if card else 0)
+        assert m.get("frame_graph_replays", 0) == (chunks if card else 0)
+        frames = [s.attrs for s in log.spans() if s.name == "decode.frames"]
+        assert len(frames) == chunks
+        assert all(a["graph"] is card for a in frames)
     log.reset_metrics()
 
 
