@@ -503,7 +503,8 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                        ) -> List[Hypothesis]:
     """One decode of the batch at `config`'s capacities, spanned (inside
     the caller's `decode` span) as decode.init, one decode.frames per
-    chunk, decode.read (the host waits for the frame loop there),
+    chunk (with CUDA events on a card: the chunk's device time),
+    decode.read (the host waits for the frame loop there),
     decode.backtrace and decode.hyps; while tracing, the read also takes
     the beam's hiwater for the `decode` span.  The frames run through the
     chunk runner `runner_for(config, initial beam, log-prob width)` gives,
@@ -527,7 +528,7 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
     traces = None
     for off in range(0, t, c):
         n = min(c, t - off)
-        with log.span("decode.frames", frames=n,
+        with log.span("decode.frames", device=dev.type == "cuda", frames=n,
                       graph=runner.graph is not None):
             trace = runner.run(logp_t[off:off + n], valid[off:off + c])
             if traces is None:

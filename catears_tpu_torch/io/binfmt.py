@@ -9,7 +9,16 @@ files work in both frameworks):
              (reference src/matrix.cc:160-191, tool/convert_am.py write_matrix)
   NN02       "NN02" + i32 left_ctx + i32 right_ctx + i32 n_layers +
              per layer: "LAY0" + i32 type + payload
-             (reference src/nnet.cc:221-293, src/nnet.h:11-30)
+             (reference src/nnet.cc:221-293, src/nnet.h:11-30); types 0-9
+             are the reference's, 10-13 this package's factored TDNN
+             (Kaldi's chain TDNN-F), which the reference does not read:
+               10 spliced linear   i32 n + n x i32 offsets + MAT0 weight
+                                   [n*in, out], no bias
+               11 tdnnf block      i32 stride + f32 bypass + MAT0 linear
+                                   + MAT0 affine + VEC0 bias + VEC0
+                                   batchnorm scale + VEC0 offset
+               12 subsample        i32 factor
+               13 i-vector append  i32 dim
   pk::fst_0  32-byte name + i32 section_size + i32 n_states + i32 n_arcs +
              i32 start + f32 final[n_states] + i32 first_arc_idx[n_states] +
              n_arcs x (i32 next, i32 ilabel, i32 olabel, f32 weight), arcs
@@ -38,6 +47,11 @@ LAYER_SPLICE = 6
 LAYER_BATCHNORM = 7
 LAYER_LOGSOFTMAX = 8
 LAYER_NARROW = 9
+# The factored TDNN's kinds (this package's; see the module docstring).
+LAYER_SPLICED_LINEAR = 10
+LAYER_TDNNF = 11
+LAYER_SUBSAMPLE = 12
+LAYER_IVECTOR = 13
 
 PKFST_SECTION = b"pk::fst_0"
 
@@ -120,6 +134,13 @@ class LayerSpec:
     indices: Tuple[int, ...] = ()  # splice
     narrow_left: int = 0  # narrow
     narrow_right: int = 0  # narrow
+    offsets: Tuple[int, ...] = ()  # spliced linear: time offsets
+    stride: int = 0  # tdnnf: time stride in input frames
+    bypass: float = 0.0  # tdnnf: scale of the block's input added back
+    linear: np.ndarray = None  # tdnnf: [k*dim, bottleneck], no bias
+    affine: np.ndarray = None  # tdnnf: [k*bottleneck, dim], bias `bias`
+    factor: int = 0  # subsample
+    dim: int = 0  # i-vector append
 
 
 @dataclass
@@ -163,6 +184,44 @@ def read_nnet(fd: BinaryIO) -> NnetSpec:
         elif kind in (LAYER_RELU, LAYER_NORMALIZE, LAYER_SOFTMAX,
                       LAYER_LOGSOFTMAX):
             spec.layers.append(LayerSpec(kind))
+        elif kind == LAYER_SPLICED_LINEAR:
+            n = _read_i32(fd)
+            if n <= 0:
+                raise CorruptionError("spliced linear: no time offset")
+            offsets = tuple(_read_i32(fd) for _ in range(n))
+            w = read_mat0(fd)
+            if w.shape[0] % n:
+                raise CorruptionError(
+                    f"spliced linear: {w.shape[0]} input rows for {n} "
+                    f"offsets")
+            spec.layers.append(LayerSpec(kind, offsets=offsets, weight=w))
+        elif kind == LAYER_TDNNF:
+            stride = _read_i32(fd)
+            bypass = struct.unpack("<f", _read_exact(fd, 4))[0]
+            lin, aff = read_mat0(fd), read_mat0(fd)
+            b, scale, offset = read_vec0(fd), read_vec0(fd), read_vec0(fd)
+            k = 2 if stride else 1
+            dim, neck = aff.shape[1], lin.shape[1]
+            if stride < 0 or lin.shape[0] != k * dim \
+                    or aff.shape[0] != k * neck \
+                    or not b.size == scale.size == offset.size == dim:
+                raise CorruptionError(
+                    f"tdnnf layer: stride {stride}, linear {lin.shape}, "
+                    f"affine {aff.shape}, vectors {b.size}/{scale.size}/"
+                    f"{offset.size}")
+            spec.layers.append(LayerSpec(
+                kind, stride=stride, bypass=bypass, linear=lin, affine=aff,
+                bias=b, scale=scale, offset=offset))
+        elif kind == LAYER_SUBSAMPLE:
+            factor = _read_i32(fd)
+            if factor < 1:
+                raise CorruptionError(f"subsample layer: factor {factor}")
+            spec.layers.append(LayerSpec(kind, factor=factor))
+        elif kind == LAYER_IVECTOR:
+            dim = _read_i32(fd)
+            if dim < 1:
+                raise CorruptionError(f"i-vector layer: dim {dim}")
+            spec.layers.append(LayerSpec(kind, dim=dim))
         else:
             raise CorruptionError(f"unexpected layer type: {kind}")
     return spec
@@ -189,6 +248,22 @@ def write_nnet(fd: BinaryIO, spec: NnetSpec) -> None:
         elif layer.kind == LAYER_NARROW:
             fd.write(struct.pack("<i", layer.narrow_left))
             fd.write(struct.pack("<i", layer.narrow_right))
+        elif layer.kind == LAYER_SPLICED_LINEAR:
+            fd.write(struct.pack("<i", len(layer.offsets)))
+            for o in layer.offsets:
+                fd.write(struct.pack("<i", o))
+            write_mat0(fd, np.asarray(layer.weight, np.float32))
+        elif layer.kind == LAYER_TDNNF:
+            fd.write(struct.pack("<i", layer.stride))
+            fd.write(struct.pack("<f", layer.bypass))
+            write_mat0(fd, np.asarray(layer.linear, np.float32))
+            write_mat0(fd, np.asarray(layer.affine, np.float32))
+            for v in (layer.bias, layer.scale, layer.offset):
+                write_vec0(fd, np.asarray(v, np.float32))
+        elif layer.kind == LAYER_SUBSAMPLE:
+            fd.write(struct.pack("<i", layer.factor))
+        elif layer.kind == LAYER_IVECTOR:
+            fd.write(struct.pack("<i", layer.dim))
 
 
 @dataclass

@@ -10,11 +10,15 @@ catears_tpu/runtime/recognizer.py; the reference's ce_stt lifecycle).
                             (`beam_size`, `expand_size`, `eps_expand_size`,
                             `lm_expand_size`, `select_compact`,
                             `max_eps_iters`, `beam`, `arc_group`,
-                            `csr_group`), or takes `beam_config=`
+                            `csr_group`), or takes `beam_config=`;
+                            `am_scale` (default AM_SCALE, 0.1; a chain
+                            model's is 1.0), and the AM's `feature_type`
+                            (am/model.py)
   create_utterance(format)  one live stream: bytes -> samples -> fbank ->
                             (CMVN) -> AM -> decoder, a partial hypothesis
                             refreshed every 20 decoded frames
   create_stream_batch(n)    n live streams in one fused step per chunk
+                            (both refuse a subsampled or i-vector model)
   decode_wav_file(r, path)  one wav streamed through an Utterance (the CLI)
 
 `device` places the acoustic model, the fbank and the decode graph: the
@@ -47,7 +51,7 @@ from catears_tpu_torch.utils import log
 from catears_tpu_torch.utils.device import Device, resolve_device
 from catears_tpu_torch.utils.errors import CorruptionError
 
-AM_SCALE = 0.1  # acoustic scale, as in the JAX runtime
+AM_SCALE = 0.1  # default acoustic scale (`am_scale`), as in the JAX runtime
 PARTIAL_HYP_INTERVAL = 20  # frames between partial hypotheses
 
 
@@ -60,6 +64,7 @@ class Recognizer:
         self.conf = conf
         self.fst = FlatFst.read(conf.get_path("fst"))
         self.am = AcousticModel.read(conf, device=self.device)
+        self.am_scale = conf.get_float("am_scale", AM_SCALE)
         self.symbol_table = SymbolTable.read(conf.get_path("symbol_table"))
         self.delta_lm = self._read_delta_lm(conf)
         self.cmvn_stats = None
@@ -77,7 +82,7 @@ class Recognizer:
                     geo[key] = conf.get_int(key)
             if conf.has("beam"):
                 geo["beam"] = conf.get_float("beam")
-            beam_config = BeamConfig(am_scale=AM_SCALE, **geo)
+            beam_config = BeamConfig(am_scale=self.am_scale, **geo)
         self.beam_config = beam_config
         self.arc_group = conf.get_int("arc_group", 4)
         self.csr_group = conf.get_int("csr_group", 0) or None
@@ -110,7 +115,7 @@ class Recognizer:
         cached = getattr(self, "_graph_cache", None)
         if cached is None:
             dec = Decoder(
-                self.fst, self.am.tid2pdf, am_scale=AM_SCALE,
+                self.fst, self.am.tid2pdf, am_scale=self.am_scale,
                 delta_lm=self.delta_lm, config=self.beam_config,
                 chunk_frames=PARTIAL_HYP_INTERVAL,
                 arc_group=self.arc_group, csr_group=self.csr_group,
@@ -139,7 +144,8 @@ class Utterance:
         self.cmvn_stream = None
         cfg, dfst, dlm = recognizer._decode_graph()
         self.decoder = Decoder(
-            recognizer.fst, recognizer.am.tid2pdf, am_scale=AM_SCALE,
+            recognizer.fst, recognizer.am.tid2pdf,
+            am_scale=recognizer.am_scale,
             delta_lm=recognizer.delta_lm, config=cfg,
             chunk_frames=PARTIAL_HYP_INTERVAL, dfst=dfst, dlm=dlm)
         self.session = None

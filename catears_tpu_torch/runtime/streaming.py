@@ -139,6 +139,7 @@ class _FusedStep:
 
     def __init__(self, am: AcousticModel, cfg: BeamConfig, dfst: DeviceFst,
                  dlm: Optional[DeviceLm], cmvn: bool):
+        am.require_streamable("live streaming")
         self.am, self.cfg, self.dfst, self.dlm = am, cfg, dfst, dlm
         self.cmvn = cmvn
         self.device = dfst.device

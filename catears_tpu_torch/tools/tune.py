@@ -51,7 +51,7 @@ def main(argv=None) -> int:
     from catears_tpu_torch.decode.decoder import autosize
     from catears_tpu_torch.frontend.cmvn import CMVNStream
     from catears_tpu_torch.io.wav import read_16k_pcm, read_scp
-    from catears_tpu_torch.runtime.recognizer import AM_SCALE, Recognizer
+    from catears_tpu_torch.runtime.recognizer import Recognizer
     from catears_tpu_torch.utils.errors import CatEarsError
 
     try:
@@ -64,12 +64,12 @@ def main(argv=None) -> int:
             if rec.cmvn_stats is not None:
                 feats = CMVNStream(rec.cmvn_stats).process(feats)
             logps.append(rec.am.forward(rec.am.pad_context(feats)))
-        base = BeamConfig(am_scale=AM_SCALE)
+        base = BeamConfig(am_scale=rec.am_scale)
         if beam_size is not None:
             base = dataclasses.replace(base, beam_size=beam_size)
         # Per-utterance sizing (ragged lengths); the deployment geometry
         # covers the max demand across utterances.
-        cfgs = [autosize(rec.fst, rec.am.tid2pdf, lp, am_scale=AM_SCALE,
+        cfgs = [autosize(rec.fst, rec.am.tid2pdf, lp, am_scale=rec.am_scale,
                          delta_lm=rec.delta_lm, base=base, margin=margin,
                          arc_group=rec.arc_group, csr_group=rec.csr_group,
                          device=rec.device)

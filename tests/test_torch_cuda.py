@@ -1077,3 +1077,109 @@ def test_device_span_times_the_card_on_the_profilers_clock(cuda):
     assert busy * 0.9 <= s.device_s <= (s.end_ns - s.start_ns) / 1e9
     assert s.start_ns <= min(a for a, _ in kernels)
     assert max(b for _, b in kernels) <= s.end_ns
+
+
+def test_tdnnf_stack_cuda_vs_cpu(cuda):
+    """The chain TDNN-F at the recipe's widths (17 blocks of 1,536,
+    bottleneck 160, strides 1,1,1,0,3 x 12, 7,000 pdfs, a 100-wide
+    i-vector, MFCC folded into lda, subsampling 3) through batched_logp on
+    the card: each utterance's rows as on the CPU and as the float64
+    reference's every third row, within 1e-5 of the output's scale
+    (tests/test_torch_tdnnf.py's tolerance)."""
+    import tdnnf_reference as ref
+    from _tdnnf_parity import make_model, nnet_spec
+    from catears_tpu_torch.am.nnet import build_nnet
+
+    rng = np.random.RandomState(17)
+    model = make_model(rng, dim=1536, neck=160, pdfs=7000, ivector_dim=100,
+                       small=256, strides=(1, 1, 1, 0) + (3,) * 12)
+    spec = nnet_spec(model)
+    nnet_def, params = build_nnet(spec)
+    waves = [(rng.randn(n) * 1000).astype(np.float32)
+             for n in (16000, 9999, 400 + 160 * 20, 3000)]
+    ivs = rng.randn(len(waves), 100).astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        am = AcousticModel(nnet_def, params, None,
+                           np.zeros(14001, np.int32), 40, 40, 50, 7000,
+                           device=dev, feature_type="mfcc")
+        out.append(batched_logp(am, waves, ivs))
+    (cpu, lengths), (gpu, lengths_gpu) = out
+    assert lengths == lengths_gpu == [33, 20, 7, 6]
+    want = ref.logp(model, waves, ivs, cuda)
+    for u, n in enumerate(lengths):
+        scale = float(want[u].abs().max())
+        assert float((gpu[u, :n].cpu() - cpu[u, :n]).abs().max()) \
+            <= 1e-5 * scale
+        assert float((gpu[u, :n].double() - want[u]).abs().max()) \
+            <= 1e-5 * scale
+
+
+def test_batch_decoder_at_beam_7000_cuda_vs_cpu(cuda):
+    """BatchDecoder at the chain cell's beam (7,000 slots, beam 15,
+    acoustic scale 1.0) on a chain-topology graph of a few thousand
+    states, planted paths at 30 ms frames: the card's words and costs
+    equal the CPU's bit for bit, through the frame kernels."""
+    from _tdnnf_parity import chain_graph, plant
+    from catears_tpu_torch.decode import beam as tbeam
+
+    rng = np.random.RandomState(23)
+    fst, tid2pdf, pdfs, pairs = chain_graph(rng, num_words=3000,
+                                            num_phones=40, variants=4)
+    rows = [plant(rng, pairs, pdfs, n, amp=3.0) for n in (12, 7)]
+    t = max(r[0].shape[0] for r in rows)
+    logp = np.zeros((2, t, pdfs), np.float32)
+    for i, (lp, _) in enumerate(rows):
+        logp[i, :lp.shape[0]] = lp
+    cfg = BeamConfig(beam_size=7000, expand_size=262144, beam=15.0)
+    before = tbeam.select_beam.launches
+    hyps = [BatchDecoder(fst, tid2pdf, am_scale=1.0, config=cfg,
+                         arc_group=2, csr_group=16, device=dev).decode(
+        logp, [r[0].shape[0] for r in rows], final_fallback=True)
+        for dev in (torch.device("cpu"), cuda)]
+    assert tbeam.select_beam.launches > before
+    assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
+    assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+    assert any(h.words for h in hyps[1])
+
+
+def test_full_beam_7000_cuda_vs_cpu(cuda):
+    """The chain cell's search where its 7,000-slot beam fills: a
+    5,000-word chain graph of 350 phones x 10 variants, planted rows
+    scaled by 0.1 at acoustic scale 1.0, beam 15.  Frame by frame through
+    the frame kernels the card's beam (states and costs) equals the
+    CPU's bit for bit, and it is full on all but the first two frames;
+    BatchDecoder's graph-replayed decode gives the CPU's words and
+    costs."""
+    from _tdnnf_parity import chain_graph, plant
+    from catears_tpu_torch.decode import beam as tbeam
+
+    rng = np.random.RandomState(7)
+    fst, tid2pdf, pdfs, pairs = chain_graph(rng, num_words=5000,
+                                            num_phones=350, variants=10,
+                                            phones=(3, 8))
+    rows = [plant(rng, pairs, pdfs, 2)[0] for _ in range(2)]
+    t = min(r.shape[0] for r in rows)
+    logp = (0.1 * np.stack([r[:t] for r in rows])).astype(np.float32)
+    cfg = BeamConfig(beam_size=7000, expand_size=16384, beam=15.0,
+                     am_scale=1.0)
+    decs = [BatchDecoder(fst, tid2pdf, am_scale=1.0, config=cfg,
+                         arc_group=2, csr_group=16, device=dev)
+            for dev in (torch.device("cpu"), cuda)]
+    beams = [tbeam.init_beam_batch(d.cfg, 2, d.dfst, None)[0] for d in decs]
+    valid = torch.ones(1, 2, dtype=torch.bool)
+    full = 0
+    for f in range(t):
+        lp = torch.from_numpy(np.ascontiguousarray(
+            logp[:, f:f + 1].transpose(1, 0, 2)))
+        beams = [tbeam.decode_chunk(d.cfg, d.dfst, b, lp.to(d.dfst.device),
+                                    valid.to(d.dfst.device), None)[0]
+                 for d, b in zip(decs, beams)]
+        for name in ("states", "costs", "bp"):
+            x, y = (getattr(b, name) for b in beams)
+            assert torch.equal(x, y.cpu()), (f, name)
+        full += int(((beams[0].states >= 0).sum(dim=1) == 7000).all())
+    assert t >= 20 and full >= t - 2
+    hyps = [d.decode(logp, [t, t - 5], final_fallback=True) for d in decs]
+    assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
+    assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
