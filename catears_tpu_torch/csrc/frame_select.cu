@@ -97,7 +97,19 @@
 // larger table keeps the same slices in global scratch ([B, cap] slots,
 // cleared by the kernel itself, no memset; every lane claims there at
 // once with global atomics), and the sort then runs in a shared buffer of
-// next_pow2(min(K, slice)) keys.
+// next_pow2(min(K, slice)) keys.  There a row's table is sized to the row
+// (decode/beam.py::select_row_log2cap): each CTA first counts its live
+// lanes (state < SENTINEL_STATE), one cluster barrier sums them, and the
+// row clears, probes, compacts and selects over the least power of two
+// above 4/3 of that count (at least C slots, at most the shape's cap), the
+// first slots of its [cap] row.  Where the groups land changes with the
+// table's size; the winners, and so the outputs, do not.
+//
+// Rows whose frame is invalid (row_valid[row] == 0, given a row_valid)
+// do no work: the cluster writes the outputs of a row whose every lane is
+// dead (states -1, lms 0, costs +inf, prev_slot 0, words 0, demand 0,
+// overflow 0) and leaves before any barrier or DSMEM access; every CTA of
+// the cluster reads the same flag, so the exit is uniform.
 //
 // What bounds it on the H100 (3.35 TB/s): bytes.  Each lane's state, cost
 // (and lm, w1, w2) read once, 8-20 B; the K winners' payloads and the [B,
@@ -107,11 +119,13 @@
 // barriers a launch, a cluster barrier and a DSMEM read per radix pass.
 //
 // With a stamp buffer ([B, kStamps] int64), CTA 0 of each cluster writes
-// %globaltimer at the start and after each phase (clear; route, its
-// barrier, claim; compaction of the candidates; selects; compaction of the
-// selected keys; sort; the cluster's counts with the peers' lists copied;
-// rank and write), then its candidates, its selected keys and, last, the
-// radix passes the row ran; the main path passes none.
+// %globaltimer at the start and after each phase (clear, after the live
+// lanes' count on the global path; route, its barrier, claim; compaction
+// of the candidates; selects; compaction of the selected keys; sort; the
+// cluster's counts with the peers' lists copied; rank and write), then
+// its candidates, its selected keys, the row's table slots (0 for a row
+// whose frame is invalid: its phases take no time) and, last, the radix
+// passes the row ran; the main path passes none.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -158,6 +172,7 @@ struct Select {
   unsigned char* overflow;  // [B], or null (c2 == 0)
   ulonglong2* table;        // [B, cap] (key, winner) slots, or null (shared)
   long long* stamps;        // [B, kStamps], or null
+  const unsigned char* row_valid;  // [B] bools, or null (every row valid)
   int e, k, c2, log2cap, log2c;
   float beam;
 };
@@ -241,6 +256,7 @@ __device__ __forceinline__ ulonglong2 load_slot(const ulonglong2* slots,
 // cluster.sync); each field is written before one barrier and read after
 // it, never written again.
 struct Partials {
+  int n_live;        // live lanes in the CTA's range (global table only)
   unsigned min_ord;  // the least ordered lane cost (NaN lanes aside)
   int nan;           // a lane's cost is NaN
   int demand;        // survivors in the slice
@@ -267,7 +283,7 @@ struct Shared {
   int d0, rank, done, passes;
   // cluster totals
   unsigned min_ord, slot_min, and_w[3], or_w[3];
-  int nan, demand, n_cand, n_sel;
+  int n_live, nan, demand, n_cand, n_sel;
 };
 
 // CTA 0's time after a phase that ends in a cluster.sync (or, with the
@@ -279,6 +295,16 @@ __device__ __forceinline__ void stamp(const Select& a, size_t row, int at,
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     a.stamps[row * kStamps + at] = static_cast<long long>(t);
   }
+}
+
+// Output slot j (of [B, K]) empty: state -1, lm 0, cost +inf, words 0.
+__device__ __forceinline__ void empty_slot(const Select& a, size_t j) {
+  a.o_states[j] = -1;
+  a.o_lms[j] = 0;
+  a.o_costs[j] = INFINITY;
+  a.o_prev[j] = 0;
+  a.o_words[2 * j] = 0;
+  a.o_words[2 * j + 1] = 0;
 }
 
 __device__ __forceinline__ float lane_cost(const Select& a, size_t i) {
@@ -640,13 +666,66 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t row = blockIdx.x >> a.log2c;
   const bool leader = r == 0 && tid == 0;
   const size_t base = row * a.e;
-  const unsigned long long cap = 1ull << a.log2cap;
-  const int shift_owner = a.log2cap - a.log2c;
+  const size_t out = row * a.k;
+  // This CTA's lanes.
+  const int per = (a.e + nc - 1) / nc;
+  const int lo = min(a.e, r * per), hi = min(a.e, lo + per);
+  stamp(a, row, 0, leader);
+
+  // 0. A row whose frame is invalid: a dead row's outputs, and out.
+  if (a.row_valid && !a.row_valid[row]) {
+    for (int j = r * kThreads + tid; j < a.k; j += nc * kThreads)
+      empty_slot(a, out + j);
+    if (leader) {
+      a.demand[row] = 0;
+      if (a.overflow) a.overflow[row] = 0;
+      for (int at = 1; at <= 10; ++at) stamp(a, row, at, true);
+      if (a.stamps) {
+        a.stamps[row * kStamps + 11] = 0;
+        a.stamps[row * kStamps + 12] = 0;
+        a.stamps[row * kStamps + 13] = 0;
+        a.stamps[row * kStamps + kStamps - 1] = 0;
+      }
+    }
+    return;
+  }
+
+  // The row's table: the shape's, or on the global path the least power
+  // of two above 4/3 of the row's live lanes (at least C slots, at most
+  // the shape's cap: decode/beam.py::select_row_log2cap).
+  int log2cap = a.log2cap;
+  if (!kSharedTable) {
+    int n = 0;
+    for (int i = lo + tid; i < hi; i += kThreads)
+      n += a.state[base + i] < kSentinel;
+    n = __reduce_add_sync(0xFFFFFFFFu, n);
+    if (lane_id == 0) sh.wsum[0][warp] = static_cast<unsigned>(n);
+    __syncthreads();
+    if (tid < 32) {
+      n = static_cast<int>(
+          __reduce_add_sync(0xFFFFFFFFu, sh.wsum[0][lane_id]));
+      if (lane_id == 0) sh.part.n_live = n;
+    }
+    cluster.sync();
+    if (tid < 32) {
+      n = lane_id < nc ? cluster.map_shared_rank(&sh.part, lane_id)->n_live
+                       : 0;
+      n = __reduce_add_sync(0xFFFFFFFFu, n);
+      if (lane_id == 0) sh.n_live = n;
+    }
+    __syncthreads();
+    const int need = sh.n_live + sh.n_live / 3;  // < 2^31: e < 2^30
+    log2cap = min(a.log2cap, max(a.log2c, 32 - __clz(need)));
+  }
+  const unsigned long long cap = 1ull << log2cap;
+  const int shift_owner = log2cap - a.log2c;
   const int slice = 1 << shift_owner;
   ulonglong2* const own_smem = reinterpret_cast<ulonglong2*>(dyn);
+  // The row's global table (its first cap of the shape's slots).
+  ulonglong2* const row_table =
+      kSharedTable ? nullptr : a.table + (row << a.log2cap);
   ulonglong2* const own =
-      kSharedTable ? own_smem
-                   : a.table + row * cap + static_cast<size_t>(r) * slice;
+      kSharedTable ? own_smem : row_table + static_cast<size_t>(r) * slice;
   const unsigned own_base =
       static_cast<unsigned>(__cvta_generic_to_shared(own_smem));
   uint4* const list = reinterpret_cast<uint4*>(dyn);
@@ -655,13 +734,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int log2seg = 13 - a.log2c;  // kInboxBytes / 8 = 2^13 lanes
   const int seg = 1 << log2seg;
   uint2* const inbox = reinterpret_cast<uint2*>(dyn + 16 * slice);
-  // The entries the dynamic shared memory holds.
+  // The entries the dynamic shared memory holds: on the global path the
+  // sort buffer, sized by the launch from the shape's slice.
   int list_room = slice + kInboxBytes / 16;
+  const int shape_slice = 1 << (a.log2cap - a.log2c);
   if (!kSharedTable) {
     list_room = 1;
-    while (list_room < min(a.k, slice)) list_room <<= 1;
+    while (list_room < min(a.k, shape_slice)) list_room <<= 1;
   }
-  stamp(a, row, 0, leader);
 
   // 1. Clear the slice, the histograms and the partials.
   for (int i = tid; i < slice; i += kThreads)
@@ -691,8 +771,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   // own slice; a lane that finds its segment full is claimed at once by
   // this CTA.  Global table: every lane is claimed at once.
   {
-    const int per = (a.e + nc - 1) / nc;
-    const int lo = min(a.e, r * per), hi = min(a.e, lo + per);
     unsigned mn = kOrdPosInf;
     int nan = 0;
     for (int b0 = lo; b0 < hi; b0 += kBatch * kThreads) {
@@ -727,7 +805,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const unsigned long long v =
             (static_cast<unsigned long long>(ck) << 32) | lane;
         unsigned long long h =
-            (key * 0x9E3779B97F4A7C15ull) >> (64 - a.log2cap);
+            (key * 0x9E3779B97F4A7C15ull) >> (64 - log2cap);
         if (kSharedTable) {
           const int q = live ? static_cast<int>(h >> shift_owner) : -1;
           const unsigned same = __match_any_sync(0xFFFFFFFFu, q);
@@ -748,7 +826,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         } else if (live) {
           ulonglong2* slot;
           while (true) {
-            slot = a.table + row * cap + h;
+            slot = row_table + h;
             const unsigned long long prev = atomicCAS(&slot->x, kEmpty, key);
             if (prev == kEmpty || prev == key) break;
             h = (h + 1) & (cap - 1);
@@ -811,7 +889,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         live[u] = s[u] < kSentinel;
         key[u] = (static_cast<unsigned long long>(static_cast<unsigned>(s[u]) ^
                                                   kSign) << 32) | l[u];
-        home[u] = (key[u] * 0x9E3779B97F4A7C15ull) >> (64 - a.log2cap);
+        home[u] = (key[u] * 0x9E3779B97F4A7C15ull) >> (64 - log2cap);
         v[u] = (static_cast<unsigned long long>(in[u].y) << 32) | in[u].x;
       }
 #pragma unroll
@@ -942,7 +1020,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 5. This CTA's selected keys, compacted in order with their words in
   // the final key order (in place over the candidate list, or into the
   // sort buffer), then sorted.
-  const int list_cap = kSharedTable ? slice : min(a.k, slice);
+  const int list_cap = kSharedTable ? slice : min(a.k, shape_slice);
   int n_local = 0;
   unsigned slot_min = kOrdPosInf;
   for (int b0 = 0, chunk = 0; b0 < n_c; b0 += kThreads, ++chunk) {
@@ -1042,7 +1120,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool any_finite = sh.slot_min != kOrdPosInf;
   const float cutoff =
       any_finite ? __fadd_rn(unordered(sh.slot_min), a.beam) : 0.0f;
-  const size_t out = row * a.k;
   const int group = 32 / nc, gid = lane_id / nc, peer = lane_id % nc;
   for (int k0 = warp * group; k0 < n_local; k0 += kWarps * group) {
     const int i = k0 + gid;
@@ -1084,14 +1161,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.o_words[2 * j + 1] = w1;
     }
   }
-  for (int j = n_sel + r * kThreads + tid; j < a.k; j += nc * kThreads) {
-    a.o_states[out + j] = -1;
-    a.o_lms[out + j] = 0;
-    a.o_costs[out + j] = INFINITY;
-    a.o_prev[out + j] = 0;
-    a.o_words[2 * (out + j)] = 0;
-    a.o_words[2 * (out + j) + 1] = 0;
-  }
+  for (int j = n_sel + r * kThreads + tid; j < a.k; j += nc * kThreads)
+    empty_slot(a, out + j);
   if (leader) {
     a.demand[row] = sh.demand;
     if (a.overflow) a.overflow[row] = sh.demand > c2 ? 1 : 0;
@@ -1101,6 +1172,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (leader && a.stamps) {
     a.stamps[row * kStamps + 11] = n_c;      // CTA 0's candidates
     a.stamps[row * kStamps + 12] = n_local;  // and its selected keys
+    a.stamps[row * kStamps + 13] = static_cast<long long>(cap);
     a.stamps[row * kStamps + kStamps - 1] = sh.passes;
   }
 }
@@ -1132,6 +1204,34 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
+// The dynamic shared memory of a launch: the slice and the inbox, or on
+// the global path the sort buffer of next_pow2(min(k, slice)) keys.
+long long launch_smem(int k, int log2cap, int log2c, int shared) {
+  const long long slice = 1ll << (log2cap - log2c);
+  if (shared) return 16 * slice + kInboxBytes;
+  long long keys = 1;
+  while (keys < std::min<long long>(k, slice)) keys <<= 1;
+  return 16 * keys;
+}
+
+cudaLaunchConfig_t launch_config(int rows, int k, int log2cap, int log2c,
+                                 int shared, cudaStream_t s,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) << log2c);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes =
+      static_cast<size_t>(launch_smem(k, log2cap, log2c, shared));
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << log2c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1140,32 +1240,28 @@ extern "C" {
 // log2cap) > e); shared != 0: the table's slices in shared memory
 // ((1 << (log2cap - log2c)) * 16 <= kSliceBytes) and table null; else
 // table is rows * (1 << log2cap) slots of 16 B in global memory (cleared
-// by the kernel) and min(k, slice) keys fit the sort buffer.  1 <= k <=
-// 8192; c2 = 0 (the classic sorts) or K <= c2 < e (select_compact), and
-// then overflow is rows bytes.  stamps: null, or rows * kStamps int64.
+// by the kernel, a row's first slots as its live lanes need them) and
+// min(k, slice) keys fit the sort buffer.  1 <= k <= 8192; c2 = 0 (the
+// classic sorts) or K <= c2 < e (select_compact), and then overflow is
+// rows bytes.  stamps: null, or rows * kStamps int64.  row_valid: null,
+// or rows bools (a row whose byte is 0 gets a dead row's outputs).
 int catears_frame_select(const void* state, const void* lm, const void* cost,
                          const void* w1, const void* w2, const void* tok,
                          const void* olab2, const void* olabel,
                          void* o_states, void* o_lms, void* o_costs,
                          void* o_prev, void* o_words, void* demand,
-                         void* overflow, void* table, void* stamps, int rows,
-                         int e, int k, int c2, int log2cap, int log2c,
-                         int shared, float beam, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                         void* overflow, void* table, void* stamps,
+                         const void* row_valid, int rows, int e, int k,
+                         int c2, int log2cap, int log2c, int shared,
+                         float beam, void* stream) {
   if (log2c < 0 || log2c > 4 || log2cap < log2c ||
       log2cap - log2c > 30 ||
       (!shared && !table))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long slice = 1ll << (log2cap - log2c);
-  long long smem = 16 * slice + kInboxBytes;  // the slice and the inbox
-  if (!shared) {  // the sort buffer
-    long long keys = 1;
-    while (keys < std::min<long long>(k, slice)) keys <<= 1;
-    smem = 16 * keys;
-  }
-  if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (launch_smem(k, log2cap, log2c, shared) > kMaxDynamicSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Select a{static_cast<const int*>(state),
                  static_cast<const int*>(lm),
                  static_cast<const float*>(cost),
@@ -1183,23 +1279,35 @@ int catears_frame_select(const void* state, const void* lm, const void* cost,
                  static_cast<unsigned char*>(overflow),
                  static_cast<ulonglong2*>(shared ? nullptr : table),
                  static_cast<long long*>(stamps),
+                 static_cast<const unsigned char*>(row_valid),
                  e, k, c2, log2cap, log2c, beam};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows) << log2c);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = s;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1u << log2c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg =
+      launch_config(rows, k, log2cap, log2c, shared,
+                    static_cast<cudaStream_t>(stream), attr);
   err = shared ? cudaLaunchKernelEx(&cfg, frame_select_kernel<true>, a)
                : cudaLaunchKernelEx(&cfg, frame_select_kernel<false>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Into *clusters: how many of the launch's clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters), i.e. the rows one wave takes.
+int catears_frame_select_clusters(int k, int log2cap, int log2c, int shared,
+                                  void* clusters) {
+  if (log2c < 0 || log2c > 4 || log2cap < log2c || log2cap - log2c > 30)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(1, k, log2cap, log2c, shared, nullptr, attr);
+  err = cudaOccupancyMaxActiveClusters(
+      static_cast<int*>(clusters),
+      shared ? reinterpret_cast<const void*>(frame_select_kernel<true>)
+             : reinterpret_cast<const void*>(frame_select_kernel<false>),
+      &cfg);
+  return static_cast<int>(err);
 }
 
 const char* catears_error_string(int code) {

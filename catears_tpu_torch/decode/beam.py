@@ -27,7 +27,8 @@ The three graph modes of graph.transform.prepare_decode_graph:
   expansion with its acoustic term is one launch of csrc/frame_expand.cu
   (`expand_emitting`, the hot/cold split included) and the selection with
   its beam threshold one of csrc/frame_select.cu (`select_beam`, with or
-  without select_compact); on the CPU their plain versions
+  without select_compact; the rows whose frame is invalid masked, so
+  that they cost the kernel nothing); on the CPU their plain versions
   `expand_emitting_ref` / `select_beam_ref`;
 * a static epsilon depth (closed graphs, depth 1; raw graphs of depth <=
   max_eps_iters): `_emitting_step` + `_eps_closure_fused`, one merge
@@ -794,26 +795,61 @@ def select_geometry(e: int) -> Tuple[int, int, bool]:
     return 16, log2cap, False
 
 
+def select_row_log2cap(live: int, e: int) -> int:
+    """Log2 of the table slots csrc/frame_select.cu gives a row with
+    `live` live lanes (state < SENTINEL_STATE) of e: on the shared path
+    the shape's table (select_geometry(e)); on the global path the least
+    power of two above 4/3 of the live lanes, at least the cluster's C
+    slots and at most the shape's cap."""
+    cluster, log2cap, shared = select_geometry(e)
+    if shared:
+        return log2cap
+    return min(log2cap, max(cluster.bit_length() - 1,
+                            (live + live // 3).bit_length()))
+
+
+def select_clusters(e: int, k: int) -> int:
+    """The clusters of select_beam's launch over [B, e] lanes at beam k
+    that the current card holds at once (cudaOccupancyMaxActiveClusters):
+    the rows one wave of the kernel takes."""
+    cluster, log2cap, shared = select_geometry(e)
+    lib = kernel_library("frame_select", _SELECT_ARGTYPES)
+    n = ctypes.c_int(0)
+    rc = lib.catears_frame_select_clusters(k, log2cap,
+                                           cluster.bit_length() - 1,
+                                           int(shared), ctypes.addressof(n))
+    check_launch(lib, rc, "select_clusters")
+    return n.value
+
+
 def select_beam(cfg: BeamConfig, state: torch.Tensor,
                 lm: Optional[torch.Tensor], cost: torch.Tensor,
                 w1: Optional[torch.Tensor], w2: Optional[torch.Tensor],
                 tok: torch.Tensor, olab2: torch.Tensor,
                 olabel: torch.Tensor,
-                stamps: Optional[torch.Tensor] = None) -> Selected:
+                stamps: Optional[torch.Tensor] = None,
+                row_valid: Optional[torch.Tensor] = None) -> Selected:
     """The eps-free frame's selection over [B, E] candidates: cost + w1 +
     w2 (each optional, added in that order), exact dedup by (state, lm)
     (lm None: LM off), exact top-K by cost (with cfg.select_compact, of
     the beam-threshold survivors compacted first), the beam threshold.
+    `row_valid`, a contiguous bool [B] tensor on the candidates' device
+    (None: every row), masks rows: a masked row's outputs are those of a
+    row whose every lane is dead (states -1, lms 0, costs +inf, prev_slot
+    0, words 0, demand 0, overflow False), and the kernel does no work
+    for it.
 
     CPU tensors take the plain version (select_beam_ref); CUDA tensors
     launch the hand-written kernel (csrc/frame_select.cu: one thread-block
     cluster per row, select_geometry(E); group winners by 64-bit CASes in
     a table partitioned over the cluster's shared memory, each lane routed
     to the CTA that owns its home slot; radix selects from the
-    candidates' common prefix; per-CTA sorts merged by rank) or raise.  `select_beam.launches` counts the launches.
-    `stamps`, an int64 [B, SELECT_STAMPS] CUDA tensor, has the kernel
-    write each row's phase times (see frame_select.cu); the decode path
-    passes none.
+    candidates' common prefix; per-CTA sorts merged by rank; on the
+    global-table path each row's table sized to its live lanes,
+    select_row_log2cap) or raise.  `select_beam.launches` counts the
+    launches.  `stamps`, an int64 [B, SELECT_STAMPS] CUDA tensor, has the
+    kernel write each row's phase times and table slots (see
+    frame_select.cu); the decode path passes none.
     """
     if state.device.type not in ("cpu", "cuda"):
         raise ValueError(f"select_beam: unsupported device {state.device}")
@@ -839,9 +875,15 @@ def select_beam(cfg: BeamConfig, state: torch.Tensor,
         raise ValueError(f"select_beam: stamps must be a contiguous int64 "
                          f"[B, {SELECT_STAMPS}] tensor on the candidates' "
                          f"CUDA device")
+    if row_valid is not None and (
+            row_valid.device != state.device or row_valid.dtype != torch.bool
+            or tuple(row_valid.shape) != (b,)
+            or not row_valid.is_contiguous()):
+        raise ValueError("select_beam: row_valid must be a contiguous bool "
+                         "[B] tensor on the candidates' device")
     if state.device.type == "cpu":
         return select_beam_ref(cfg, state, lm, cost, w1, w2, tok, olab2,
-                               olabel)
+                               olabel, row_valid)
     if not all(t.is_contiguous() for t, _ in columns.values()
                if t is not None):
         raise ValueError("select_beam: the candidates must be contiguous")
@@ -871,8 +913,9 @@ def select_beam(cfg: BeamConfig, state: torch.Tensor,
                 *(x.data_ptr() for x in out[:5]), out.demand.data_ptr(),
                 out.overflow.data_ptr() if c2 else None,
                 None if table is None else table.data_ptr(),
-                None if stamps is None else stamps.data_ptr(), b, e, k, c2,
-                log2cap, cluster.bit_length() - 1, int(shared),
+                None if stamps is None else stamps.data_ptr(),
+                None if row_valid is None else row_valid.data_ptr(), b, e,
+                k, c2, log2cap, cluster.bit_length() - 1, int(shared),
                 float(np.float32(cfg.beam)),
                 torch.cuda.current_stream().cuda_stream)
         check_launch(lib, rc, "select_beam")
@@ -885,18 +928,22 @@ _SELECT_COUNTER = select_beam  # as _EXPAND_COUNTER
 _SELECT_MAX_K = 8192  # the beam widths the kernel is built and tested for
 _SELECT_SLICE_BYTES = 128 * 1024  # frame_select.cu kSliceBytes
 SELECT_STAMPS = 16  # frame_select.cu kStamps
-_SELECT_ARGTYPES = {"catears_frame_select": [ctypes.c_void_p] * 17
+_SELECT_ARGTYPES = {"catears_frame_select": [ctypes.c_void_p] * 18
                     + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                            ctypes.c_void_p]}
+                                            ctypes.c_void_p],
+                    "catears_frame_select_clusters": [ctypes.c_int] * 4
+                    + [ctypes.c_void_p]}
 
 
 def select_beam_ref(cfg: BeamConfig, state: torch.Tensor,
                     lm: Optional[torch.Tensor], cost: torch.Tensor,
                     w1: Optional[torch.Tensor], w2: Optional[torch.Tensor],
                     tok: torch.Tensor, olab2: torch.Tensor,
-                    olabel: torch.Tensor) -> Selected:
+                    olabel: torch.Tensor,
+                    row_valid: Optional[torch.Tensor] = None) -> Selected:
     """Plain version of select_beam: _select_best (the classic sorts, or
-    select_compact's compaction) and the beam threshold.
+    select_compact's compaction) and the beam threshold; a row that
+    row_valid masks has every lane dead (state SENTINEL_STATE, cost +inf).
 
     JAX's keep is `costs <= min + beam` alone, so a row with no finite
     slot (min = +inf) keeps the payloads of whatever entries fill its
@@ -905,6 +952,9 @@ def select_beam_ref(cfg: BeamConfig, state: torch.Tensor,
     for w in (w1, w2):
         if w is not None:
             cost = cost + w
+    if row_valid is not None:
+        state = torch.where(row_valid[:, None], state, SENTINEL_STATE)
+        cost = torch.where(row_valid[:, None], cost, INF)
     (states, lms, costs, prev, w0, w1_), overflow, demand = _select_best(
         cfg, state, lm, cost, [tok, olab2, olabel], compact=True)
     # min, not costs[:, 0]: a compacted selection returns the beam in
@@ -919,12 +969,16 @@ def select_beam_ref(cfg: BeamConfig, state: torch.Tensor,
 
 
 def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
-                   beam: BeamState, logp: torch.Tensor):
+                   beam: BeamState, logp: torch.Tensor,
+                   frame_valid: Optional[torch.Tensor] = None):
     """One-selection frame for eps-removed graphs: expand emitting arcs
     (each carrying up to two output labels) with the acoustic term
     (expand_emitting), with an LM the two delta-LM walks, then one exact
     dedup + top-K + beam threshold (select_beam): on a card two hand
     kernels, with or without the hot/cold split and select_compact.
+    `frame_valid` [B] (None: every row) reaches select_beam as its
+    row_valid: the rows whose frame is invalid, which the caller throws
+    away, get a dead row's selection, and on a card cost it nothing.
 
     Returns (beam', prev_slot [B, K], words [B, K, 2] newest-first).
     """
@@ -945,7 +999,7 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
         overflow = overflow | over1 | over2
         hiwater = _max_at(hiwater, 2, torch.maximum(need1, need2))
     s = select_beam(cfg, c.state, lm_state, c.cost, w1, w2, c.tok, c.olab2,
-                    c.olabel)
+                    c.olabel, row_valid=frame_valid)
     k = cfg.beam_size
     new_beam = BeamState(
         s.states, s.lms, s.costs,
@@ -1163,8 +1217,10 @@ def _frame_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     frozen so the best path still returns the last partial hypothesis.
     """
     if dfst.eps_removed:
+        # frame_valid as the caller holds it: in a captured chunk a view of
+        # the runner's static mask, so that each replay reads its own.
         new_beam, prev_slot, words = _eps_free_step(cfg, dfst, dlm, beam,
-                                                    logp)
+                                                    logp, frame_valid)
     else:
         new_beam, parent, olab0, cutoff, eps_info = _emitting_step(
             cfg, dfst, dlm, beam, logp)

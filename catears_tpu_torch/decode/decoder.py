@@ -528,6 +528,10 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
     traces = None
     for off in range(0, t, c):
         n = min(c, t - off)
+        # The selection's rows a chunk steps (B x chunk, its padding too)
+        # and those whose frame is valid, the rows that do work there.
+        log.count("frame_rows_stepped", b * c)
+        log.count("frame_rows_valid", int(np.clip(len_arr - off, 0, c).sum()))
         with log.span("decode.frames", device=dev.type == "cuda", frames=n,
                       graph=runner.graph is not None):
             trace = runner.run(logp_t[off:off + n], valid[off:off + c])

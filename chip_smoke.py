@@ -217,7 +217,12 @@ and the device ms of each of the kernel's phases, read from the
 passes none); `select-kernel-b1` holds the kernel to its plain version
 on the first row alone, and `select-kernel-global` (with LM on) on 2
 synthetic rows of 100,000 lanes at beam 8192, whose table takes global
-memory.
+memory.  `select-kernel-mask-shared` and `-global` (after `select-kernel`,
+LM off) run it at the held cells' selections, 16 x 38,912 lanes at beam
+2,048 and 16 x 209,416 at 7,000, with every row valid and with a row mask
+of 5 live rows: bit-equal to the plain version under each, device ms,
+launches a call, the clusters one wave holds, each phase's ms and the
+table slots of the rows that ran.
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  Each kernel is
@@ -552,13 +557,16 @@ def loop_launches(name, launched, lm, bulk, eps_free=True):
 
 @contextlib.contextmanager
 def spied(module, name, keep):
-    """While entered, module.name(*args) also stores its last args in
-    `keep` (the tensors a kernel's wrapper is given on the main path)."""
+    """While entered, module.name(*args, **kw) also stores its last
+    positional args in `keep` (the tensors a kernel's wrapper is given on
+    the main path).  The keywords are passed on and not kept: the frames
+    the phases replay are valid in every row, so select_beam's row mask
+    (row_valid) would mask none."""
     fn = getattr(module, name)
 
-    def spy(*args):
+    def spy(*args, **kw):
         keep[:] = args
-        return fn(*args)
+        return fn(*args, **kw)
 
     setattr(module, name, spy)
     try:
@@ -958,25 +966,29 @@ def select_geometry_line(e, b):
                 << log2cap, storage="shared" if shared else "global")
 
 
-def select_phase_ms(args, calls=10):
+def select_phase_ms(args, calls=10, row_valid=None):
     """Device ms of each of frame_select.cu's phases on `args` (the mean
-    over rows and calls of the kernel's own stamps), and per row (means)
-    the radix passes and CTA 0's candidates and selected keys."""
+    over the rows row_valid keeps and over calls of the kernel's own
+    stamps), and per such row (means) the radix passes, CTA 0's
+    candidates and selected keys, and the table's slots."""
     b = args[1].shape[0]
     stamps = torch.zeros((b, tbeam.SELECT_STAMPS), dtype=torch.int64,
                          device=args[1].device)
+    rows = (np.ones(b, bool) if row_valid is None
+            else row_valid.cpu().numpy())
     spans = []
     for _ in range(calls):
-        tbeam.select_beam(*args, stamps=stamps)
+        tbeam.select_beam(*args, stamps=stamps, row_valid=row_valid)
         torch.cuda.synchronize()
-        st = stamps.cpu().numpy()
+        st = stamps.cpu().numpy()[rows]
         spans.append(np.diff(st[:, :len(SELECT_PHASES) + 1], axis=1)
                      .mean(0) / 1e6)
     ms = np.mean(spans, 0)
     return dict({f"{n}_ms": f"{m:.5f}" for n, m in zip(SELECT_PHASES, ms)},
                 radix_passes=float(st[:, -1].mean()),
                 cta0_candidates=float(st[:, 11].mean()),
-                cta0_selected=float(st[:, 12].mean()))
+                cta0_selected=float(st[:, 12].mean()),
+                row_table_slots=float(st[:, 13].mean()))
 
 
 def synthetic_select_args(seed, b, e, k, lm_on, cuda):
@@ -1092,6 +1104,47 @@ def frame_kernel_phase(dec, tg, card, cuda=torch.device("cuda:0")):
             fail(f"{name}: frame_select.cu differs from select_beam_ref at "
                  f"{b} x {e} lanes, beam {args[0].beam_size}")
     return out["expand-kernel"], out["select-kernel"]
+
+
+def select_mask_phase(card, cuda=torch.device("cuda:0")):
+    """frame_select.cu at the held cells' selections, 16 rows of frame-like
+    candidates (synthetic_select_args, LM off): bulk-lmoff's 38,912 lanes
+    at beam 2,048 (the table in shared memory) and bulk-chain's 209,416 at
+    7,000 (in global memory, sized to each row's live lanes), each with
+    every row valid and with 5 live rows of 16 (row_valid): bit-equal to
+    select_beam_ref under the same mask; device ms (CUDA graph replay),
+    launches a call, the clusters one wave of the launch holds
+    (cudaOccupancyMaxActiveClusters) and the rows' phase ms and table
+    slots from the stamps."""
+    valid = np.zeros(16, bool)
+    valid[[0, 3, 6, 9, 12]] = True
+    for name, e, k in (("select-kernel-mask-shared", 38_912, 2048),
+                       ("select-kernel-mask-global", 209_416, 7000)):
+        args = synthetic_select_args(6, 16, e, k, False, cuda)
+        for rows, mask in (("16", None),
+                           ("5-of-16", torch.from_numpy(valid).to(cuda))):
+            def fn(*a, mask=mask):
+                return tbeam.select_beam(*a, row_valid=mask)
+
+            def ref_fn(*a, mask=mask):
+                return tbeam.select_beam_ref(*a, row_valid=mask)
+
+            got, _, equal = kernel_equals_plain(fn, ref_fn, args)
+            before = tbeam.select_beam.launches
+            fn(*args)
+            launches = tbeam.select_beam.launches - before
+            t_k = device_ms(lambda: fn(*args))
+            phase(name, rows_valid=rows, lanes=e, beam=k, equal=equal,
+                  kept=int(torch.isfinite(got.costs).sum()),
+                  ms=f"{t_k:.4f}", launches=launches,
+                  wave_clusters=tbeam.select_clusters(e, k),
+                  **select_geometry_line(e, 16),
+                  **select_phase_ms(args, row_valid=mask), card=f"'{card}'")
+            if not equal:
+                fail(f"{name}: frame_select.cu differs from select_beam_ref "
+                     f"with {rows} rows valid")
+            if launches != 1:
+                fail(f"{name}: one call launched {launches} kernels")
 
 
 def backtrace_kernel_phase(traces, best, card):
@@ -2636,6 +2689,7 @@ def main():
         del dec_cpu, rec_cpu
         totals["frame_expand"], totals["frame_select"] = frame_kernel_phase(
             get_batch_decoder(rec), tg, card)
+        select_mask_phase(card)
 
         t0 = time.perf_counter()
         rec_lm = Recognizer(lm_conf, device=cuda)

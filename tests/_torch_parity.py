@@ -557,6 +557,30 @@ def beam_rows(seed, b, e, lm_on, weights=True, one_slice=False):
             w1 if weights else None, w2 if weights else None, *pay]
 
 
+def with_live_lanes(cols, live, seed):
+    """beam_rows' columns with row r holding live[r] live lanes (state <
+    SENTINEL_STATE), the rest dead (state SENTINEL_STATE, cost +inf); a
+    None keeps every lane live (the dead ones take a live lane's group and
+    a cost of 100-120).  Returns new columns; `cols` is left as it was."""
+    rng = np.random.RandomState(seed)
+    cols = [None if c is None else c.copy() for c in cols]
+    state, lmv, cost = cols[0], cols[1], cols[2]
+    for r, n in enumerate(live):
+        alive = np.flatnonzero(state[r] < SENTINEL_STATE)
+        dead = np.flatnonzero(state[r] >= SENTINEL_STATE)
+        if n is None:
+            src = rng.choice(alive, len(dead))
+            state[r, dead] = state[r, src]
+            if lmv is not None:
+                lmv[r, dead] = lmv[r, src]
+            cost[r, dead] = 100 + rng.uniform(0, 20, len(dead))
+        else:
+            kill = np.setdiff1d(alive, rng.choice(alive, n, replace=False))
+            state[r, kill] = SENTINEL_STATE
+            cost[r, kill] = np.inf
+    return cols
+
+
 def runner_trie(mode: str, lm: bool, device, chunk: int, cfg):
     """A BatchDecoder of the small planted trie (120 words, with its G'
     when `lm`) in graph mode `mode`: "eps-free" (prepare_decode_graph's),

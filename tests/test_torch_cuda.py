@@ -22,8 +22,9 @@ on tests/test_torch_frame_kernels.py's cases, both emit row layouts, LM off
 and on, with and without the hot/cold split and select_compact, be what an
 eps-free decode launches, and refuse what they do not take (the selection
 also at B = 1, 8, 16 and K = 1, 2,048, 8,192, on both table storages, on
-rows whose groups all hash into one CTA's slice, and with its phase
-stamps); the decoder on cuda, LM off and on, on
+rows whose groups all hash into one CTA's slice, with its phase
+stamps, and with a row mask at both held cells' shapes, also replayed in
+a CUDA graph with a new mask each time); the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
 costs, and its replay of one CUDA graph per chunk must equal the eager
 decode_chunk loop on the card byte for byte (also after an overflow's
@@ -43,7 +44,7 @@ import torch
 from _torch_parity import (adversarial_rows, assert_runner_equals_eager,
                            backtrace_case, beam_rows, big_lm_queries,
                            chain_delta, group_home, random_beam, runner_trie,
-                           tied_rows, walk_lanes)
+                           tied_rows, walk_lanes, with_live_lanes)
 from catears_tpu_torch.am import quant
 from catears_tpu_torch.am.model import AcousticModel
 from catears_tpu_torch.decode.beam import BeamConfig
@@ -721,21 +722,24 @@ def test_select_kernel_bit_equal(cuda, case, lm_on, weights, compact):
         assert bool(got.overflow.any())
 
 
-def _select_on_card(cuda, cfg, cols):
+def _select_on_card(cuda, cfg, cols, row_valid=None, stamps=None):
     """select_beam on the card (a non-default stream) against
-    select_beam_ref on the card, bit for bit; returns the kernel's."""
+    select_beam_ref on the card, bit for bit, both under row_valid;
+    returns the kernel's.  cols: numpy arrays or card tensors."""
     from catears_tpu_torch.decode import beam as tbeam
 
-    card_cols = [None if c is None else torch.from_numpy(
-        np.ascontiguousarray(c)).to(cuda) for c in cols]
+    card_cols = [c if c is None or isinstance(c, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(c)).to(cuda)
+                 for c in cols]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     before = tbeam.select_beam.launches
     with torch.cuda.stream(side):
-        got = tbeam.select_beam(cfg, *card_cols)
+        got = tbeam.select_beam(cfg, *card_cols, stamps=stamps,
+                                row_valid=row_valid)
     side.synchronize()
     assert tbeam.select_beam.launches == before + 1
-    ref = tbeam.select_beam_ref(cfg, *card_cols)
+    ref = tbeam.select_beam_ref(cfg, *card_cols, row_valid=row_valid)
     for name in tbeam.Selected._fields:
         r, g = getattr(ref, name), getattr(got, name)
         if r is None or g is None:
@@ -808,6 +812,113 @@ def test_select_kernel_phase_stamps(cuda):
     assert (st[:, -1] >= 1).all()  # the cost select ran
     with pytest.raises(ValueError, match="stamps"):
         tbeam.select_beam(cfg, *cols, stamps=stamps[:, :3])
+
+
+# The selections of the held cells: bulk-lmoff's 38,912 lanes at beam
+# 2,048 (8 CTAs, the table in shared memory) and bulk-chain's 209,416 at
+# 7,000 (16 CTAs, the table in global memory, sized to each row).
+MASK_SHAPES = {"shared": (38_912, 2048), "global": (209_416, 7000)}
+# Each row's live lanes (None: every lane).
+MASK_LIVE = [1, 3, 37, None, 1, 200, None, 5, 1, 1000, None, 2, 17, 90_000,
+             1, 9000]
+
+
+def _mask_rows(cuda, shape, lm_on, seed):
+    """16 rows of MASK_SHAPES[shape]'s lanes holding MASK_LIVE's live
+    lanes, on the card, and each row's live lanes."""
+    e, _ = MASK_SHAPES[shape]
+    live = [min(n, e // 2) if n else n for n in MASK_LIVE]
+    cols = with_live_lanes(beam_rows(seed, 16, e, lm_on, weights=lm_on),
+                           live, seed)
+    return ([None if c is None else torch.from_numpy(c).to(cuda)
+             for c in cols], (cols[0] < 2**30).sum(1))
+
+
+def _row_masks(seed):
+    rng = np.random.RandomState(seed)
+    one = np.zeros(16, bool)
+    one[3] = True
+    return {"random": rng.rand(16) < 0.35, "random-2": rng.rand(16) < 0.35,
+            "every-row-masked": np.zeros(16, bool), "one-live-row": one,
+            "none-masked": np.ones(16, bool), "no-mask": None}
+
+
+@pytest.mark.parametrize("shape", list(MASK_SHAPES))
+@pytest.mark.parametrize("lm_on", [False, True])
+def test_select_kernel_row_mask(cuda, shape, lm_on):
+    """csrc/frame_select.cu with row_valid == select_beam_ref under the
+    same mask, bit for bit, at both held cells' shapes (the shared table
+    and the global one), on rows with 1, a few and every lane live;
+    random masks, every row masked, one live row, none; select_compact off
+    and wider than K.  An unmasked row equals the call without a mask, and
+    each row's table slots (stamp 13) are select_row_log2cap's on the
+    global path, the shape's on the shared one, 0 where it is masked."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    e, k = MASK_SHAPES[shape]
+    cluster, cap, shared = tbeam.select_geometry(e)
+    assert (cluster, shared) == ((8, True) if shape == "shared"
+                                 else (16, False))
+    cols, live = _mask_rows(cuda, shape, lm_on, 21 + lm_on)
+    assert (live == e).sum() == 3 and live.min() == 1
+    slots = np.array([1 << tbeam.select_row_log2cap(int(n), e)
+                      for n in live])
+    if not shared:  # from C = 16 slots to the shape's 2^19
+        assert slots.min() == 16 and slots.max() == 1 << cap
+        assert len(set(slots)) >= 6
+    for c2 in (0, 2 * k + 5):
+        cfg = BeamConfig(beam_size=k, beam=16.0, select_compact=c2)
+        full = _select_on_card(cuda, cfg, cols)
+        for name, valid in _row_masks(7 + c2).items():
+            stamps = torch.zeros((16, tbeam.SELECT_STAMPS),
+                                 dtype=torch.int64, device=cuda)
+            mask = (None if valid is None
+                    else torch.from_numpy(valid).to(cuda))
+            got = _select_on_card(cuda, cfg, cols, row_valid=mask,
+                                  stamps=stamps)
+            keep = torch.ones(16, dtype=torch.bool, device=cuda) \
+                if mask is None else mask
+            for field in tbeam.Selected._fields:
+                x, y = getattr(full, field), getattr(got, field)
+                if x is not None:
+                    _same_bytes([x[keep]], [y[keep]], f"{name}: {field}")
+            expect = slots if valid is None else np.where(valid, slots, 0)
+            assert stamps[:, 13].cpu().numpy().tolist() == \
+                expect.tolist(), name
+
+
+@pytest.mark.parametrize("shape", list(MASK_SHAPES))
+def test_select_kernel_row_mask_in_a_cuda_graph(cuda, shape):
+    """select_beam captured in a CUDA graph over a static row mask, then
+    replayed with a different mask copied in each time (every row, none,
+    random ones): each replay equals select_beam_ref under the mask it
+    found, bit for bit; no replay reads a stale mask."""
+    from catears_tpu_torch.decode import beam as tbeam
+
+    e, k = MASK_SHAPES[shape]
+    cols, _ = _mask_rows(cuda, shape, True, 31)
+    cfg = BeamConfig(beam_size=k, beam=16.0)
+    mask = torch.ones(16, dtype=torch.bool, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tbeam.select_beam(cfg, *cols, row_valid=mask)  # loads the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = tbeam.select_beam(cfg, *cols, row_valid=mask)
+    rng = np.random.RandomState(5)
+    masks = [np.zeros(16, bool), rng.rand(16) < 0.3, np.ones(16, bool),
+             rng.rand(16) < 0.5, rng.rand(16) < 0.1]
+    for i, valid in enumerate(masks):
+        mask.copy_(torch.from_numpy(valid))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = tbeam.select_beam_ref(cfg, *cols, row_valid=mask)
+        for field in ("states", "lms", "costs", "prev_slot", "words",
+                      "demand"):
+            _same_bytes([getattr(ref, field)], [getattr(out, field)],
+                        f"replay {i}: {field}")
 
 
 @pytest.mark.parametrize("arc_group,lm", [(2, False), (2, True), (4, True)])

@@ -26,7 +26,13 @@ plain versions:
   radix select first; held to JAX's `_select_best` (`_select_sorts` or
   `_select_compacted`) + `_eps_free_step`'s threshold on adversarial
   rows, on rows whose costs tie in bulk, and on rows whose groups all hash
-  into one CTA's slice.
+  into one CTA's slice; the same at every table capacity from a row's
+  own width (`select_row_log2cap`, the global-table path's rule) up to
+  the shape's;
+* the row mask: select_beam_ref gives a masked row a dead row's outputs
+  and every other row the unmasked call's, and BatchDecoder, whose frame
+  step masks each row by its frame's valid flag, equals JAX's decoder on
+  a ragged batch.
 
 The card's tests (tests/test_torch_cuda.py) hold each kernel to the same
 plain versions bit for bit.
@@ -34,6 +40,7 @@ plain versions bit for bit.
 
 import bisect
 import dataclasses
+import functools
 from fractions import Fraction
 
 import jax
@@ -42,9 +49,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (SELECT_HASH, adversarial_rows, assert_same,
+from _torch_parity import (CPU, SELECT_HASH, adversarial_rows, assert_same,
                            beam_rows, dfst_from_jax, dlm_from_jax,
-                           group_home, random_beam, tied_rows, to_np)
+                           group_home, random_beam, tied_rows, to_np,
+                           with_live_lanes)
 from catears_tpu.decode import beam as jbeam
 from catears_tpu.graph.device import DeviceFst as JaxDeviceFst
 from catears_tpu.graph.device import DeviceLm as JaxDeviceLm
@@ -284,19 +292,23 @@ def claim_groups(state, lm, ck, log2cap, order):
 
 
 def select_model(state, lm, cost, w1, w2, tok, olab2, olabel, k, beam,
-                 passes=None, c2=0, cluster=8, seed=0, stats=None):
+                 passes=None, c2=0, cluster=8, seed=0, stats=None,
+                 log2cap=None):
     """(states, lms, costs, prev_slot, words, demand, overflow) of the
     kernel, row by row: a cluster of `cluster` CTAs per row, each owning a
     slice of the group table; c2: BeamConfig.select_compact; seed: the
-    order the lanes claim in.  stats, a dict, gets the most CTAs whose
-    slices held a row's groups and the longest probe."""
+    order the lanes claim in; log2cap: each row's table (a list, one per
+    row; None: the kernel's, select_row_log2cap of the row's live lanes).
+    stats, a dict, gets the most CTAs whose slices held a row's groups and
+    the longest probe."""
     passes = [] if passes is None else passes
     stats = {} if stats is None else stats
     b, e = state.shape
     c2 = max(c2, k) if c2 else 0  # the lanes, as _compact_width
     c2 = c2 if c2 < e else 0
-    log2cap = tbeam.select_geometry(e)[1]
-    slice_ = (1 << log2cap) // cluster
+    if log2cap is None:
+        log2cap = [tbeam.select_row_log2cap(int((row < SENTINEL).sum()), e)
+                   for row in state]
     rng = np.random.RandomState(seed)
     out_s = np.full((b, k), -1, np.int32)
     out_l = np.zeros((b, k), np.int32)
@@ -312,7 +324,8 @@ def select_model(state, lm, cost, w1, w2, tok, olab2, olabel, k, beam,
                 c = (c + w[r]).astype(np.float32)
         lmr = lm[r] if lm is not None else np.zeros(e, np.int32)
         ck = ordered(c)
-        table, longest = claim_groups(state[r], lmr, ck, log2cap,
+        slice_ = (1 << log2cap[r]) // cluster
+        table, longest = claim_groups(state[r], lmr, ck, log2cap[r],
                                       rng.permutation(e))
         # Each CTA's slice: its occupied slots as (cost bits, state, lm,
         # lane) keys.
@@ -607,6 +620,115 @@ def test_select_geometry():
         assert shared == ((16 << log2cap) // c <= 128 * 1024)
 
 
+def test_select_row_log2cap():
+    """A row's table on the global path: more slots than 4/3 of its live
+    lanes, at least the cluster's C = 16, at most select_geometry(e)'s cap,
+    and the least power of two that does; on the shared path the shape's
+    table whatever the row holds."""
+    e = 209_416  # bulk-chain's lanes
+    cluster, cap, shared = tbeam.select_geometry(e)
+    assert (cluster, cap, shared) == (16, 19, False)
+    assert tbeam.select_row_log2cap(142_304, e) == 18  # its fullest frame
+    assert tbeam.select_row_log2cap(e, e) == cap
+    assert tbeam.select_row_log2cap(0, e) == 4
+    assert tbeam.select_row_log2cap(11, e) == 4  # 16 slots > 14.67
+    assert tbeam.select_row_log2cap(12, e) == 5  # 16 slots = 4/3 of 12
+    for live in list(range(0, 200)) + [98_303, 98_304, 157_062, 157_063, e]:
+        got = tbeam.select_row_log2cap(live, e)
+        assert 4 <= got <= cap
+        assert 3 * (1 << got) > 4 * live or got == cap
+        assert got == 4 or 3 * (1 << (got - 1)) <= 4 * live
+    for e in (96, 38_912, 98_303):  # the shared table: the shape's
+        _, cap, shared = tbeam.select_geometry(e)
+        assert shared
+        assert {tbeam.select_row_log2cap(n, e) for n in (0, 1, e)} == {cap}
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("lm_on,c2", [(False, 0), (True, 0), (True, 150),
+                                      (False, 64)])
+def test_select_model_same_at_every_row_capacity(lm_on, c2, cluster):
+    """Rows of one live lane, a few and every lane: the kernel's model
+    gives the same outputs, bit for bit, at every table capacity from the
+    row's own width (select_row_log2cap's rule) up to the shape's, and
+    they equal JAX's and the plain version's.  Where the groups land
+    changes with the capacity; the winners do not."""
+    k, e = 64, 3000
+    cols = with_live_lanes(beam_rows(14, 4, e, lm_on, weights=lm_on),
+                           [1, 20, None, 700], 14)
+    live = (cols[0] < SENTINEL).sum(1)
+    assert live.tolist() == [1, 20, e, 700]
+    own = [max(cluster.bit_length() - 1, int(n + n // 3).bit_length())
+           for n in live]
+    shape = tbeam.select_geometry(e)[1]
+    assert own == [cluster.bit_length() - 1, 5, shape, 10]
+    ref = jax_select(k, 16.0, *cols, select_compact=c2)
+    plain, _ = port_select(k, 16.0, *cols, select_compact=c2)
+    for name, x, y in zip(SELECT_NAMES, ref, plain):
+        assert_same(x, y, f"select_beam_ref {name}")
+    for at in range(min(own), shape + 1):
+        got = select_model(*cols, k, 16.0, c2=c2, cluster=cluster, seed=at,
+                           log2cap=[max(at, o) for o in own])
+        for name, x, y in zip(SELECT_NAMES, ref, got):
+            assert_same(x, y, f"capacity 2^{at}: {name}")
+    kept = np.isfinite(ref[2]).sum(1).tolist()
+    assert kept[0] == 1 and 1 < kept[1] <= 20 and kept[2:] == [k, k]
+
+
+ROW_MASKS = {"none": [True] * 5, "all": [False] * 5,
+             "mixed": [True, False, True, False, False],
+             "one": [False, False, False, True, False]}
+
+
+@pytest.mark.parametrize("mask", list(ROW_MASKS))
+@pytest.mark.parametrize("case,lm_on,weights,c2", [
+    ("beam", False, "none", 0), ("beam", True, "both", 0),
+    ("beam", True, "w2", 150), ("adversarial", False, "none", 8),
+    ("adversarial", True, "both", 13), ("adversarial", True, "w2", 0)])
+def test_select_beam_ref_row_valid(case, lm_on, weights, c2, mask):
+    """select_beam_ref with row_valid: each masked row gets exactly the
+    outputs of the same row with every lane dead (states -1, lms 0, costs
+    +inf, prev_slot 0, words 0, demand 0, overflow False), and each
+    unmasked row those of the call without a mask, bit for bit; LM off
+    and on, w1 / w2, select_compact 0 and > 0, every row masked or
+    none."""
+    if case == "beam":
+        k = 64
+        cols = beam_rows(15, 5, 3000, lm_on, weights=weights != "none")
+        if weights == "w2":
+            cols[3] = None
+    else:
+        k = 8
+        rows = adversarial_rows(2)
+        names = ["ties", "inf-nan", "threshold", "many", "dead"]
+        cols = _stack([rows[n] for n in names], lm_on, weights)
+    valid = np.array(ROW_MASKS[mask])
+    got, sel = port_select(k, 16.0, *cols, select_compact=c2,
+                           wrapper=functools.partial(
+                               tbeam.select_beam_ref,
+                               row_valid=torch.from_numpy(valid)))
+    full, _ = port_select(k, 16.0, *cols, select_compact=c2)
+    dead_cols = [None if c is None else c.copy() for c in cols]
+    dead_cols[0][:] = SENTINEL
+    dead_cols[2][:] = np.inf
+    dead, _ = port_select(k, 16.0, *dead_cols, select_compact=c2)
+    for name, x, y, z in zip(SELECT_NAMES, got, full, dead):
+        assert_same(y[valid], x[valid], f"unmasked {name}")
+        assert_same(z[~valid], x[~valid], f"masked {name}")
+    assert (sel.overflow is None) == (not c2)
+    assert (got[0][~valid] == -1).all() and not got[1][~valid].any()
+    assert np.isinf(got[2][~valid]).all() and not got[3][~valid].any()
+    assert not got[4][~valid].any() and not got[5][~valid].any()
+    assert not got[6][~valid].any()
+    # The public name takes the same plain version on the CPU.
+    pub, _ = port_select(k, 16.0, *cols, select_compact=c2,
+                         wrapper=functools.partial(
+                             tbeam.select_beam,
+                             row_valid=torch.from_numpy(valid)))
+    for name, x, y in zip(SELECT_NAMES, got, pub):
+        assert_same(x, y, f"select_beam {name}")
+
+
 # -- the expansion against JAX ---------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -781,6 +903,52 @@ def test_eps_free_step_matches_jax(trie, lm_on, layout, knobs):
     assert not to_np(got_words)[~alive].any()
     if lm_on:
         assert (to_np(got_b.lm) > 0).any()
+
+
+@pytest.mark.parametrize("lm_on", [False, True])
+def test_batch_decoder_ragged_batch_matches_jax(lm_on):
+    """BatchDecoder on the CPU (its selection's rows masked by each
+    frame's valid flag) against JAX's decode_batch on a ragged batch:
+    rows that end inside a chunk, on a chunk's edge and at the last frame,
+    one row of a single frame, and a last chunk padded with invalid
+    frames: the same words and bit-equal costs, LM off and on.  The
+    decoder counts the selection's rows it stepped (5 rows x 13 chunks of
+    8, the padding included) and those whose frame was valid."""
+    from catears_tpu.decode import decoder as jdecoder
+    from catears_tpu_torch.decode.decoder import BatchDecoder
+    from catears_tpu_torch.tools import biggraph as tbiggraph
+    from catears_tpu_torch.utils import log
+
+    kw = dict(num_words=120, num_phones=25, bigram_states=30, variants=2)
+    tg = make_trie_graph(np.random.RandomState(1), **kw)
+    port_tg = tbiggraph.make_trie_graph(np.random.RandomState(1), **kw)
+    delta = port_delta = None
+    if lm_on:
+        delta = make_big_lm(np.random.RandomState(9),
+                            num_words=tg.num_words).delta_lm()
+        port_delta = tbiggraph.make_big_lm(
+            np.random.RandomState(9), num_words=tg.num_words).delta_lm()
+    logp, _ = plant_logp(np.random.RandomState(2), tg, 5, 100)
+    lengths = [100, 61, 1, 96, 83]
+    cfg = dict(beam_size=128, expand_size=2048, eps_expand_size=1024,
+               max_eps_iters=4, beam=12.0, lm_expand_size=64)
+    ref = jdecoder.decode_batch(tg.fst, tg.tid2pdf, logp, lengths,
+                                delta_lm=delta, config=jbeam.BeamConfig(**cfg),
+                                arc_group=2, csr_group=16, chunk_frames=8,
+                                retry_on_overflow=False)
+    dec = BatchDecoder(port_tg.fst, port_tg.tid2pdf,
+                       config=tbeam.BeamConfig(**cfg), arc_group=2,
+                       csr_group=16, delta_lm=port_delta, chunk_frames=8,
+                       device=CPU)
+    log.reset_metrics()
+    got = dec.decode(logp, lengths, retry_on_overflow=False)
+    m = log.metrics()
+    log.reset_metrics()
+    assert [h.words for h in got] == [h.words for h in ref]
+    assert [h.weight for h in got] == [h.weight for h in ref]
+    assert sum(bool(h.words) for h in got) >= 3
+    assert m["frame_rows_stepped"] == 5 * 104
+    assert m["frame_rows_valid"] == sum(lengths) == m["frames_decoded"]
 
 
 def test_public_names_take_the_plain_version_on_cpu(trie, monkeypatch):
