@@ -9,7 +9,8 @@ one generous decode.  `BatchDecoder` is the batch path: optional delta-LM
 rescoring, the overflow regrow-and-retry and the device backtrace with the
 host's final-weight pick (or the host backtrace), `decode_batch` its
 one-shot form; on a card its frame loop replays one CUDA graph per chunk
-(`_ChunkRunner`).  Both decode every mode of `prepare_decode_graph`:
+(`_ChunkRunner`).  Both set up through `build_decode_graph`, and both
+decode every mode of `prepare_decode_graph`:
 eps-free and closed graphs with the transformed graph (epsilon depth
 capped at 1), raw ones (or any graph when close_eps=False) with the
 original graph and its own epsilon depth, as the JAX decoders do.
@@ -40,6 +41,7 @@ from catears_tpu_torch.decode.hyp import (
     IncrementalBacktracker,
     assemble_words,
     best_path,
+    pick_final,
 )
 from catears_tpu_torch.decode.oracle import Hypothesis
 from catears_tpu_torch.graph.device import (DeviceFst, DeviceLm,
@@ -100,6 +102,38 @@ def _decode_graph(fst: FlatFst, close_eps: bool):
     return fst, None, None
 
 
+def _with_am_scale(config: BeamConfig, am_scale: float) -> BeamConfig:
+    if config.am_scale != am_scale:
+        config = dataclasses.replace(config, am_scale=am_scale)
+    return config
+
+
+def build_decode_graph(fst: FlatFst, tid2pdf: np.ndarray, am_scale: float,
+                       delta_lm: Optional[DeltaLmFst],
+                       config: Optional[BeamConfig], arc_group: int,
+                       close_eps: bool, csr_group: Optional[int],
+                       device: Device):
+    """(config, DeviceFst, DeviceLm or None, auto_capacity): the decoders'
+    set-up on `device` (the card unless the CPU is asked for), spanned as
+    setup.decode_graph, setup.device_fst and setup.device_lm.  The tables
+    are built from the graph `_decode_graph` picks; config None is sized
+    by safe_config from that graph (auto_capacity True: LM off it cannot
+    truncate), an explicit one takes `am_scale`."""
+    device = resolve_device(device)
+    with log.span("setup.decode_graph"):
+        dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
+    auto_capacity = config is None
+    if auto_capacity:
+        config = safe_config(dec_fst, arc_group, BeamConfig(am_scale=am_scale),
+                             delta_lm is not None, csr_group=csr_group)
+    with log.span("setup.device_fst"):
+        dfst = DeviceFst.build(
+            dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
+            csr_group=csr_group, olabel2=olab2, device=device)
+    return (_with_am_scale(config, am_scale), dfst,
+            _device_lm(delta_lm, dfst.device), auto_capacity)
+
+
 def autosize(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
              am_scale: float = 0.1,
              delta_lm: Optional[DeltaLmFst] = None,
@@ -117,9 +151,7 @@ def autosize(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
     caught by the overflow flag (BeamCapacityError).  select_compact is
     left 0, as in JAX.
     """
-    base = base or BeamConfig(am_scale=am_scale)
-    if base.am_scale != am_scale:
-        base = dataclasses.replace(base, am_scale=am_scale)
+    base = _with_am_scale(base or BeamConfig(am_scale=am_scale), am_scale)
     sizing = dataclasses.replace(
         safe_config(fst, arc_group, base, delta_lm is not None,
                     csr_group=csr_group, lm_dup_factor=8),
@@ -171,39 +203,24 @@ class Decoder:
                  device: Device = "cuda"):
         """config=None sizes the capacities by safe_config (LM off they
         cannot truncate); an explicit config relies on the overflow flag.
-        A prebuilt `dfst` (and `dlm`) is adopted, and its device used; else
-        the tables are built on `device` (the card unless the CPU is asked
-        for) from the graph `_decode_graph` picks."""
-        auto_capacity = config is None
-        if config is None:
-            config = BeamConfig(am_scale=am_scale)
-        elif config.am_scale != am_scale:
-            config = dataclasses.replace(config, am_scale=am_scale)
-        if dfst is not None:
-            # Adopt a prebuilt device graph (the runtime caches one per
-            # Recognizer so repeated utterances skip the transform+build).
-            assert not auto_capacity, \
-                "prebuilt dfst requires an explicit BeamConfig"
-            self.dfst = dfst
+        A prebuilt `dfst` is adopted with its `dlm` (built from `delta_lm`
+        when None), and its device used, and needs an explicit config;
+        else `build_decode_graph` builds them on `device`."""
+        if dfst is None:
+            config, dfst, dlm, _ = build_decode_graph(
+                fst, tid2pdf, am_scale, delta_lm, config, arc_group,
+                close_eps, csr_group, device)
         else:
-            device = resolve_device(device)
-            with log.span("setup.decode_graph"):
-                dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
-            if auto_capacity:
-                config = safe_config(dec_fst, arc_group, config,
-                                     delta_lm is not None,
-                                     csr_group=csr_group)
-            with log.span("setup.device_fst"):
-                self.dfst = DeviceFst.build(
-                    dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
-                    csr_group=csr_group, olabel2=olab2, device=device)
-        self.cfg = config
+            # The runtime caches one device graph per Recognizer, so
+            # repeated utterances skip the transform and build.
+            assert config is not None, \
+                "prebuilt dfst requires an explicit BeamConfig"
+            config = _with_am_scale(config, am_scale)
+            if dlm is None:
+                dlm = _device_lm(delta_lm, dfst.device)
+        self.cfg, self.dfst, self.dlm = config, dfst, dlm
         self.fst = fst
         self.delta_lm = delta_lm
-        if dlm is not None:
-            self.dlm = dlm
-        else:
-            self.dlm = _device_lm(delta_lm, self.dfst.device)
         self.has_lm = delta_lm is not None
         self.chunk_frames = chunk_frames
         self.initialize()
@@ -371,33 +388,27 @@ class BatchDecoder:
         """config=None sizes the capacities by safe_config (LM off they
         cannot truncate); an explicit config relies on the overflow
         retry, with its am_scale replaced by `am_scale`.  The tables are
-        built on `device` (the card unless the CPU is asked for) from the
-        graph `_decode_graph` picks; a prebuilt `dfst` is adopted instead,
-        on its own device, and `fst` must then be the graph it was built
-        from (its final weights drive the host backtrace)."""
+        built by `build_decode_graph` on `device`; a prebuilt `dfst` is
+        adopted instead, on its own device, and `fst` must then be the
+        graph it was built from (its final weights drive the host
+        backtrace, and a None config is sized from it)."""
         self.fst = fst
         self.delta_lm = delta_lm
         self.chunk_frames = chunk_frames
-        dec_fst, cap, olab2 = fst, None, None
         if dfst is None:
-            with log.span("setup.decode_graph"):
-                dec_fst, cap, olab2 = _decode_graph(fst, close_eps)
-        self.auto_capacity = config is None
-        if config is None:
-            config = safe_config(dec_fst, arc_group,
-                                 BeamConfig(am_scale=am_scale),
-                                 delta_lm is not None, csr_group=csr_group)
-        elif config.am_scale != am_scale:
-            config = dataclasses.replace(config, am_scale=am_scale)
-        self.cfg = config
-        if dfst is None:
-            with log.span("setup.device_fst"):
-                dfst = DeviceFst.build(
-                    dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
-                    csr_group=csr_group, olabel2=olab2,
-                    device=resolve_device(device))
-        self.dfst = dfst
-        self.dlm = _device_lm(delta_lm, self.dfst.device)
+            config, dfst, dlm, self.auto_capacity = build_decode_graph(
+                fst, tid2pdf, am_scale, delta_lm, config, arc_group,
+                close_eps, csr_group, device)
+        else:
+            self.auto_capacity = config is None
+            if config is None:
+                config = safe_config(fst, arc_group,
+                                     BeamConfig(am_scale=am_scale),
+                                     delta_lm is not None,
+                                     csr_group=csr_group)
+            config = _with_am_scale(config, am_scale)
+            dlm = _device_lm(delta_lm, dfst.device)
+        self.cfg, self.dfst, self.dlm = config, dfst, dlm
         self._runners: Dict[tuple, _ChunkRunner] = {}
         self._pool = None  # the runners' CUDA graph memory pool
 
@@ -691,36 +702,11 @@ def _device_backtrace(dfst: DeviceFst, delta_lm: Optional[DeltaLmFst],
                       final_fallback: bool):
     """(frame words [T, W], total cost, no final token) of each utterance
     from the decode's [1 + T, B, ...] traces: the host's exact final-weight
-    pick, then one device backtrace."""
-    b = states.shape[0]
-    dev = dfst.device
-    final = dfst.final.cpu().numpy()
-    # Exact final-weight selection on the host (a delta-LM final needs the
-    # backoff walk), then ONE backtrace on the device for the whole batch.
-    best_slots = np.zeros(b, np.int64)
-    totals = np.zeros(b, np.float64)
-    empty = np.zeros(b, bool)
-    for u in range(b):
-        total = costs[u].astype(np.float64).copy()
-        ok = states[u] >= 0
-        idx = np.where(ok, states[u], 0)
-        total += np.where(ok, final[idx], np.inf)
-        if delta_lm is not None:
-            live = np.flatnonzero(ok & np.isfinite(total))
-            lm_final = {s: delta_lm.final(int(s))
-                        for s in np.unique(lms[u, live])}
-            total[live] += [lm_final[s] for s in lms[u, live]]
-        total[~ok] = np.inf
-        if not np.isfinite(total).any():
-            if not final_fallback:
-                empty[u] = True
-                continue
-            # Partial-hypothesis selection: cheapest token regardless of
-            # final weight.
-            total = np.where(ok, costs[u], np.inf)
-        best_slots[u] = int(np.argmin(total))
-        totals[u] = total[best_slots[u]]
+    pick (a delta-LM final needs the backoff walk), then ONE backtrace on
+    the device for the whole batch."""
+    slots, totals, empty = pick_final(states, lms, costs,
+                                      dfst.final.cpu().numpy(), delta_lm,
+                                      fallback=final_fallback)
     frame_words = backtrace_device(
-        traces, torch.as_tensor(best_slots, device=dev)).cpu().numpy()
-    return [(frame_words[u], float(totals[u]), bool(empty[u]))
-            for u in range(b)]
+        traces, torch.as_tensor(slots, device=dfst.device)).cpu().numpy()
+    return list(zip(frame_words, totals.tolist(), empty.tolist()))

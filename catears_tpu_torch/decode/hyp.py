@@ -2,8 +2,9 @@
 (port of catears_tpu/decode/hyp.py).
 
 The decoder emits a per-frame backpointer trace (prev_slot, words); the
-host walks it backwards from the best final slot.  `backtrace` walks in
-Python, or in the native library from 64 frames on, as the JAX package's;
+host walks it backwards from the best final slot, which `pick_final`
+chooses for every decoder.  `backtrace` walks in Python, or in the native
+library from 64 frames on, as the JAX package's;
 `IncrementalBacktracker` refreshes a streaming partial hypothesis by
 walking only the frames since the last refresh; `assemble_words` turns the
 device backtrace of the batch path into a transcript.
@@ -123,6 +124,41 @@ class IncrementalBacktracker:
         return words
 
 
+def pick_final(states: np.ndarray, lms: np.ndarray, costs: np.ndarray,
+               final: np.ndarray, delta_lm: Optional[DeltaLmFst],
+               end_of_stream: bool = True, fallback: bool = False):
+    """Each row's best final token over [B, K] beam rows (Decoder::BestPath
+    for a batch): (slot [B] int64, total [B] float64, empty [B] bool).
+
+    The float64 total is the cost, plus the graph's `final` weight of live
+    slots at end of stream, plus the delta-LM final of the slots still
+    finite (taken once per LM state of the batch); dead slots are +inf and
+    the first minimum wins.  A row with no finite total is `empty` (slot 0,
+    total 0), unless `fallback` takes its cheapest live token regardless of
+    final weight and reports that cost.
+    """
+    ok = states >= 0
+    total = costs.astype(np.float64)
+    if end_of_stream:
+        total += np.where(ok, final[np.where(ok, states, 0)], np.inf)
+        if delta_lm is not None:
+            live = ok & np.isfinite(total)
+            uniq, inv = np.unique(lms[live], return_inverse=True)
+            lm_final = np.array([delta_lm.final(int(s)) for s in uniq],
+                                np.float64)
+            total[live] += lm_final[inv.ravel()]
+    total[~ok] = np.inf
+    empty = ~np.isfinite(total).any(axis=1)
+    if fallback:
+        total = np.where(empty[:, None], np.where(ok, costs, np.inf), total)
+        empty = np.zeros_like(empty)
+    slot = np.argmin(total, axis=1)
+    best = np.take_along_axis(total, slot[:, None], axis=1)[:, 0]
+    slot[empty] = 0
+    best[empty] = 0.0
+    return slot, best, empty
+
+
 def best_path(
     traces: List[HostTrace],
     states: np.ndarray,  # i32 [K] final beam HCLG states
@@ -133,24 +169,19 @@ def best_path(
     end_of_stream: bool = True,
     tracker: Optional[IncrementalBacktracker] = None,
 ) -> Hypothesis:
-    """Pick the best final token and backtrace it (Decoder::BestPath).
+    """Pick the best final token (`pick_final` on one row) and backtrace it
+    (Decoder::BestPath).
 
     Pass a persistent `tracker` when calling repeatedly over a growing
     trace list (streaming partial hypotheses): the walk then costs the
     frames since the last call instead of the whole stream.
     """
-    total = costs.astype(np.float64).copy()
-    if end_of_stream:
-        valid = states >= 0
-        idx = np.where(valid, states, 0)
-        total += np.where(valid, fst.final[idx], np.inf)
-        if delta_lm is not None:
-            for i in np.nonzero(valid & np.isfinite(total))[0]:
-                total[i] += delta_lm.final(int(lm_states[i]))
-    total[states < 0] = np.inf
-    if not np.isfinite(total).any():
+    slot, total, empty = pick_final(states[None], lm_states[None],
+                                    costs[None], fst.final, delta_lm,
+                                    end_of_stream)
+    if empty[0]:
         return Hypothesis([], 0.0)
-    best_slot = int(np.argmin(total))
+    best_slot = int(slot[0])
     words = (tracker.best_words(traces, best_slot) if tracker is not None
              else backtrace(traces, best_slot))
-    return Hypothesis(words, float(total[best_slot]))
+    return Hypothesis(words, float(total[0]))

@@ -31,13 +31,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
-import torch
-
 from catears_tpu_torch.am.model import AcousticModel, AMStream
-from catears_tpu_torch.decode.beam import BeamConfig, BeamState
-from catears_tpu_torch.decode.decoder import Decoder
-from catears_tpu_torch.decode.hyp import HostTrace, IncrementalBacktracker
+from catears_tpu_torch.decode.beam import BeamConfig
+from catears_tpu_torch.decode.decoder import Decoder, build_decode_graph
 from catears_tpu_torch.frontend.cmvn import CMVNStream
 from catears_tpu_torch.frontend.fbank import Fbank, FbankStream
 from catears_tpu_torch.graph.fst import DeltaLmFst, FlatFst, LmFst
@@ -114,13 +110,10 @@ class Recognizer:
         built once per Recognizer, not once per utterance."""
         cached = getattr(self, "_graph_cache", None)
         if cached is None:
-            dec = Decoder(
-                self.fst, self.am.tid2pdf, am_scale=self.am_scale,
-                delta_lm=self.delta_lm, config=self.beam_config,
-                chunk_frames=PARTIAL_HYP_INTERVAL,
-                arc_group=self.arc_group, csr_group=self.csr_group,
-                device=self.device)
-            cached = (dec.cfg, dec.dfst, dec.dlm)
+            cached = build_decode_graph(
+                self.fst, self.am.tid2pdf, self.am_scale, self.delta_lm,
+                self.beam_config, arc_group=self.arc_group, close_eps=True,
+                csr_group=self.csr_group, device=self.device)[:3]
             self._graph_cache = cached
         return cached
 
@@ -143,19 +136,18 @@ class Utterance:
         self.wave_reader.set_format(fmt)
         self.cmvn_stream = None
         cfg, dfst, dlm = recognizer._decode_graph()
-        self.decoder = Decoder(
-            recognizer.fst, recognizer.am.tid2pdf,
-            am_scale=recognizer.am_scale,
-            delta_lm=recognizer.delta_lm, config=cfg,
-            chunk_frames=PARTIAL_HYP_INTERVAL, dfst=dfst, dlm=dlm)
-        self.session = None
+        self.decoder = self.session = None
         if fused:
             self.session = StreamingSession(
-                recognizer.am, recognizer.fst, recognizer.delta_lm,
-                self.decoder.cfg, self.decoder.dfst, self.decoder.dlm,
-                chunk_frames=PARTIAL_HYP_INTERVAL,
+                recognizer.am, recognizer.fst, recognizer.delta_lm, cfg,
+                dfst, dlm, chunk_frames=PARTIAL_HYP_INTERVAL,
                 cmvn_stats=recognizer.cmvn_stats)
         else:
+            self.decoder = Decoder(
+                recognizer.fst, recognizer.am.tid2pdf,
+                am_scale=recognizer.am_scale,
+                delta_lm=recognizer.delta_lm, config=cfg,
+                chunk_frames=PARTIAL_HYP_INTERVAL, dfst=dfst, dlm=dlm)
             if recognizer.cmvn_stats is not None:
                 self.cmvn_stream = CMVNStream(recognizer.cmvn_stats)
             self.fbank_stream = FbankStream(recognizer.fbank)
@@ -218,19 +210,7 @@ class Utterance:
             "last_partial_at": self._last_partial_at,
         }
         if self.session is not None:
-            s = self.session
-            s._materialize()
-            state["session"] = {
-                "samples": s._samples.copy(),
-                "consumed_frames": s._consumed_frames,
-                "ctx": None if s._ctx is None else s._ctx.cpu().numpy(),
-                "beam": tuple(x.cpu().numpy() for x in s.beam),
-                "cm": tuple(x.cpu().numpy() for x in s._cm),
-                "traces": [(t.prev_slot.copy(), t.words.copy())
-                           for t in s._host_traces],
-                "num_frames_decoded": s.num_frames_decoded,
-                "flushed": s._flushed,
-            }
+            state["session"] = self.session.get_state()
         else:
             state["fbank_buffer"] = self.fbank_stream._buffer.copy()
             state["am_buffer"] = (None if self.am_stream._buffer is None
@@ -244,25 +224,7 @@ class Utterance:
         if self.cmvn_stream is not None and state["cmvn_history"] is not None:
             self.cmvn_stream._history = state["cmvn_history"].copy()
         if self.session is not None:
-            s = self.session
-            ss = state["session"]
-            dev = s.dfst.device
-
-            def to_dev(x):
-                return torch.as_tensor(np.asarray(x)).to(dev)
-
-            s._samples = ss["samples"].copy()
-            s._consumed_frames = ss["consumed_frames"]
-            s._ctx = None if ss["ctx"] is None else to_dev(ss["ctx"])
-            s.beam = BeamState(*(to_dev(x) for x in ss["beam"]))
-            if "cm" in ss:
-                s._cm = tuple(to_dev(x) for x in ss["cm"])
-            s._host_traces = [HostTrace(p, w) for p, w in ss["traces"]]
-            s._dev_traces = []
-            s.num_frames_decoded = ss["num_frames_decoded"]
-            s._flushed = ss["flushed"]
-            # The tracker memo indexes the restored trace list.
-            s._tracker = IncrementalBacktracker()
+            self.session.set_state(state["session"])
         else:
             self.fbank_stream._buffer = state["fbank_buffer"].copy()
             self.am_stream._buffer = (None if state["am_buffer"] is None

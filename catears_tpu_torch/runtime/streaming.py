@@ -1,5 +1,7 @@
 """Fused low-latency streaming sessions: one device step per frame chunk
-(port of catears_tpu/runtime/streaming.py).
+(port of catears_tpu/runtime/streaming.py).  BatchStreamingSession holds N
+live streams; StreamingSession, one utterance, is a view of a one-stream
+BatchStreamingSession.
 
 The componentized path (FbankStream -> AMStream -> Decoder) pulls every
 stage's output to the host.  Here fbank + (online CMVN) + context concat +
@@ -38,8 +40,9 @@ import numpy as np
 import torch
 
 from catears_tpu_torch.am.model import AcousticModel
-from catears_tpu_torch.decode.beam import (BeamConfig, FrameTrace,
-                                           decode_chunk, init_beam_batch)
+from catears_tpu_torch.decode.beam import (BeamConfig, BeamState,
+                                           FrameTrace, decode_chunk,
+                                           init_beam_batch)
 from catears_tpu_torch.decode.hyp import (HostTrace, IncrementalBacktracker,
                                           best_path)
 from catears_tpu_torch.decode.oracle import Hypothesis
@@ -82,10 +85,13 @@ def _device_cmvn_chunk(gsum, gcount, rings, counts, feats):
     return feats - mean, rings, counts + f
 
 
-def _host_cmvn_tail(gsum: np.ndarray, gcount: float, ring: np.ndarray,
-                    count: int, feats: np.ndarray) -> np.ndarray:
-    """Continue CMVN on the host, in float64, from a carried ring."""
-    ring = ring.astype(np.float64)  # a copy
+def _host_cmvn_tail(cm, u: int, feats: np.ndarray) -> np.ndarray:
+    """Continue stream u's CMVN on the host, in float64, from its carried
+    ring in `cm` (gsum, gcount, rings, counts)."""
+    gsum, gcount, rings, counts = cm
+    gsum = gsum.cpu().numpy().astype(np.float64)
+    gcount, count = float(gcount), int(counts[u])
+    ring = rings[u].cpu().numpy().astype(np.float64)
     out = np.empty(feats.shape, np.float32)
     base = ring.sum(axis=0)
     for i, row in enumerate(feats.astype(np.float64)):
@@ -100,12 +106,11 @@ def _host_cmvn_tail(gsum: np.ndarray, gcount: float, ring: np.ndarray,
     return out
 
 
-def _cmvn_state(cmvn_stats: Optional[np.ndarray], batch: Optional[int],
+def _cmvn_state(cmvn_stats: Optional[np.ndarray], batch: int,
                 device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """(gsum [40], gcount, ring, count) as the JAX sessions initialize them:
-    ring [600, 40] / count [] for one stream (batch None), [B, 600, 40] /
-    [B] for B streams; a [.., 1, 40] ring and unit count without CMVN."""
-    lead = () if batch is None else (batch,)
+    """(gsum [40], gcount, rings [B, 600, 40], counts [B]) as the JAX
+    batch session initializes them; [B, 1, 40] rings and a unit count
+    without CMVN."""
     if cmvn_stats is not None:
         stats = np.asarray(cmvn_stats, np.float64)
         gsum = torch.tensor(stats[:FEAT_DIM], dtype=F32)
@@ -115,8 +120,8 @@ def _cmvn_state(cmvn_stats: Optional[np.ndarray], batch: Optional[int],
         gsum = torch.zeros(FEAT_DIM, dtype=F32)
         gcount = torch.tensor(1.0, dtype=F32)
         rows = 1
-    ring = torch.zeros(lead + (rows, FEAT_DIM), dtype=F32)
-    count = torch.zeros(lead, dtype=I32)
+    ring = torch.zeros((batch, rows, FEAT_DIM), dtype=F32)
+    count = torch.zeros(batch, dtype=I32)
     return tuple(x.to(device) for x in (gsum, gcount, ring, count))
 
 
@@ -135,7 +140,7 @@ def _pull_traces(traces: List[FrameTrace]) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class _FusedStep:
-    """The fused chunk step shared by both sessions, over [B] streams."""
+    """BatchStreamingSession's fused chunk step over [B] streams."""
 
     def __init__(self, am: AcousticModel, cfg: BeamConfig, dfst: DeviceFst,
                  dlm: Optional[DeviceLm], cmvn: bool):
@@ -226,133 +231,6 @@ class _FusedStep:
                     torch.from_numpy(valid[off:off + chunk]).to(self.device),
                     self.dlm)
             yield beam, trace, int(valid[off:off + chunk, stream].sum())
-
-
-class StreamingSession:
-    """Device-resident streaming decode for one utterance."""
-
-    def __init__(self, am: AcousticModel, fst: FlatFst,
-                 delta_lm: Optional[DeltaLmFst], cfg: BeamConfig,
-                 dfst: DeviceFst, dlm: Optional[DeviceLm],
-                 chunk_frames: int = 20,
-                 cmvn_stats: Optional[np.ndarray] = None):
-        self.am = am
-        self.fst = fst
-        self.delta_lm = delta_lm
-        self.cfg = cfg
-        self.dfst = dfst
-        self.dlm = dlm
-        self.has_lm = dlm is not None
-        self.f = chunk_frames
-        self.l = am.left_context
-        self.r = am.right_context
-        self.cmvn = cmvn_stats is not None
-        self._step = _FusedStep(am, cfg, dfst, dlm, self.cmvn)
-        self._cm = _cmvn_state(cmvn_stats, None, dfst.device)
-        self._samples = np.zeros(0, np.float32)
-        self._consumed_frames = 0  # feats computed by fused steps
-        self._ctx: Optional[torch.Tensor] = None  # [L+R, 40] after step 1
-        beam, init_trace = init_beam_batch(cfg, 1, dfst, dlm)
-        self.beam = beam
-        self._host_traces: List[HostTrace] = [
-            HostTrace(init_trace.prev_slot[0].cpu().numpy(),
-                      init_trace.words[0].cpu().numpy())
-        ]
-        self._dev_traces: List[Tuple[FrameTrace, int]] = []
-        self.num_frames_decoded = 0
-        self._flushed = False
-        # Partial hypotheses walk only the frames since the last refresh.
-        self._tracker = IncrementalBacktracker()
-
-    # -- internals ---------------------------------------------------------
-
-    def _available_frames(self) -> int:
-        return num_frames(self._samples.shape[0])
-
-    def _next_window_frames(self) -> int:
-        return self.f + self.r if self._ctx is None else self.f
-
-    def _run_step(self) -> None:
-        n_frames = self._next_window_frames()
-        samples = _window_frames(self._samples, self._consumed_frames,
-                                 n_frames)
-        gsum, gcount, ring, count = self._cm
-        ctx, cm, self.beam, trace = self._step(
-            samples[None], n_frames,
-            None if self._ctx is None else self._ctx[None],
-            (gsum, gcount, ring[None], count[None]), self.beam,
-            torch.ones(1, dtype=torch.bool, device=self.dfst.device))
-        self._ctx = ctx[0]
-        self._cm = (gsum, gcount, cm[2][0], cm[3][0])
-        self._consumed_frames += n_frames
-        self.num_frames_decoded += self.f
-        log.count("frames_decoded", self.f)
-        self._dev_traces.append((trace, self.f))
-
-    def process(self, samples: np.ndarray) -> None:
-        if self._flushed:
-            return
-        if samples.size:
-            self._samples = np.concatenate(
-                [self._samples, samples.astype(np.float32)])
-        while (self._available_frames()
-               >= self._consumed_frames + self._next_window_frames()):
-            self._run_step()
-
-    def _host_cmvn_tail(self, feats: np.ndarray) -> np.ndarray:
-        gsum, gcount, ring, count = (x.cpu().numpy() for x in self._cm)
-        return _host_cmvn_tail(gsum.astype(np.float64), float(gcount), ring,
-                               int(count), feats)
-
-    def end_of_stream(self) -> None:
-        """Flush the remaining feats through the host AM path (exact
-        padding)."""
-        if self._flushed:
-            return
-        self._flushed = True
-        self._decode_host(self._step.tail_logp(
-            self._samples, self._consumed_frames, self._ctx,
-            self._host_cmvn_tail))
-
-    def _decode_host(self, logp: np.ndarray) -> None:
-        if logp.shape[0] == 0:
-            return
-        for self.beam, trace, n_valid in self._step.decode_host(
-                self.beam, logp, 0, 1, self.f):
-            self._dev_traces.append((trace, n_valid))
-            self.num_frames_decoded += n_valid
-            log.count("frames_decoded", n_valid)
-
-    def _materialize(self) -> None:
-        if not self._dev_traces:
-            return
-        prev, words = _pull_traces([t for t, _ in self._dev_traces])
-        off = 0
-        for trace, n_valid in self._dev_traces:
-            self._host_traces.extend(
-                HostTrace(prev[off + i, 0], words[off + i, 0])
-                for i in range(n_valid))
-            off += trace.prev_slot.shape[0]
-        self._dev_traces = []
-
-    @property
-    def overflowed(self) -> bool:
-        """True if any frame's arc expansion truncated (result suspect)."""
-        return bool(self.beam.overflow[0])
-
-    def best_path(self, end_of_stream: bool) -> Hypothesis:
-        if self.overflowed:
-            raise BeamCapacityError(
-                f"arc expansion overflowed capacity (expand_size="
-                f"{self.cfg.expand_size}, eps_expand_size="
-                f"{self.cfg.eps_expand_size}) after "
-                f"{self.num_frames_decoded} frames")
-        self._materialize()
-        states, lms, costs = (x[0].cpu().numpy() for x in (
-            self.beam.states, self.beam.lm, self.beam.costs))
-        return best_path(self._host_traces, states, lms, costs, self.fst,
-                         self.delta_lm, end_of_stream=end_of_stream,
-                         tracker=self._tracker)
 
 
 class BatchStreamingSession:
@@ -484,12 +362,6 @@ class BatchStreamingSession:
                     self._samples[u] = np.concatenate([self._samples[u], s])
             self._drain()
 
-    def _host_cmvn_tail(self, u: int, feats: np.ndarray) -> np.ndarray:
-        gsum, gcount, rings, counts = self._cm
-        return _host_cmvn_tail(gsum.cpu().numpy().astype(np.float64),
-                               float(gcount), rings[u].cpu().numpy(),
-                               int(counts[u]), feats)
-
     def end_of_stream(self, u: int) -> None:
         """Flush stream u's tail through the exact host AM path."""
         if self._flushed[u]:
@@ -499,7 +371,7 @@ class BatchStreamingSession:
         self._decode_host(u, self._step.tail_logp(
             self._samples[u], self._consumed[u],
             self._ctx[u] if self._started[u] else None,
-            lambda feats: self._host_cmvn_tail(u, feats)))
+            lambda feats: _host_cmvn_tail(self._cm, u, feats)))
 
     def _decode_host(self, u: int, logp: np.ndarray) -> None:
         if logp.shape[0] == 0:
@@ -565,3 +437,84 @@ class BatchStreamingSession:
                           tracker=self._trackers[u])
                 for u in range(self.b)
             ]
+
+
+class StreamingSession:
+    """Device-resident streaming decode for one utterance: a view of a
+    one-stream BatchStreamingSession, whose stream 0 it is."""
+
+    def __init__(self, am: AcousticModel, fst: FlatFst,
+                 delta_lm: Optional[DeltaLmFst], cfg: BeamConfig,
+                 dfst: DeviceFst, dlm: Optional[DeviceLm],
+                 chunk_frames: int = 20,
+                 cmvn_stats: Optional[np.ndarray] = None):
+        self._batch = BatchStreamingSession(
+            am, fst, delta_lm, cfg, dfst, dlm, 1, chunk_frames=chunk_frames,
+            cmvn_stats=cmvn_stats)
+
+    @property
+    def beam(self) -> BeamState:
+        return self._batch.beam
+
+    @property
+    def num_frames_decoded(self) -> int:
+        return self._batch.num_frames_decoded[0]
+
+    @property
+    def overflowed(self) -> bool:
+        """True if any frame's arc expansion truncated (result suspect)."""
+        return self._batch.overflowed(0)
+
+    def process(self, samples: np.ndarray) -> None:
+        self._batch.process(0, samples)
+
+    def end_of_stream(self) -> None:
+        """Flush the remaining feats through the host AM path (exact
+        padding)."""
+        self._batch.end_of_stream(0)
+
+    def best_path(self, end_of_stream: bool) -> Hypothesis:
+        return self._batch.best_path(0, end_of_stream)
+
+    def get_state(self) -> dict:
+        """The session as plain numpy structures (picklable; the JAX
+        Utterance's "session" keys and dtypes): ctx None before the first
+        chunk step, the CMVN ring [rows, 40] and a scalar count."""
+        b = self._batch
+        b._materialize()
+        gsum, gcount, rings, counts = b._cm
+        return {
+            "samples": b._samples[0].copy(),
+            "consumed_frames": b._consumed[0],
+            "ctx": b._ctx[0].cpu().numpy() if b._started[0] else None,
+            "beam": tuple(x.cpu().numpy() for x in b.beam),
+            "cm": tuple(x.cpu().numpy()
+                        for x in (gsum, gcount, rings[0], counts[0])),
+            "traces": [(t.prev_slot.copy(), t.words.copy())
+                       for t in b._host_traces[0]],
+            "num_frames_decoded": b.num_frames_decoded[0],
+            "flushed": b._flushed[0],
+        }
+
+    def set_state(self, state: dict) -> None:
+        """Restore a `get_state` snapshot."""
+        b = self._batch
+
+        def to_dev(x):
+            return torch.as_tensor(np.asarray(x)).to(b.dfst.device)
+
+        b._samples = [state["samples"].copy()]
+        b._consumed = [state["consumed_frames"]]
+        b._started = [state["ctx"] is not None]
+        b._ctx = (torch.zeros_like(b._ctx) if state["ctx"] is None
+                  else to_dev(state["ctx"])[None])
+        b.beam = BeamState(*(to_dev(x) for x in state["beam"]))
+        if "cm" in state:
+            gsum, gcount, ring, count = (to_dev(x) for x in state["cm"])
+            b._cm = (gsum, gcount, ring[None], count[None])
+        b._host_traces = [[HostTrace(p, w) for p, w in state["traces"]]]
+        b._dev_traces = []
+        b.num_frames_decoded = [state["num_frames_decoded"]]
+        b._flushed = [state["flushed"]]
+        # The tracker memo indexes the restored trace list.
+        b._trackers = [IncrementalBacktracker()]

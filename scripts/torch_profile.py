@@ -167,15 +167,15 @@ def stream_items(rec, waves, reps):
     logp_fn = lambda: batched_logp(rec.am, waves)
     items = [("batched_logp", logp_fn, 1,
               float(np.median(host_times(logp_fn, reps)))),
-             ("stream_tick", tick, solo.f, float(np.median(tick_secs))),
-             ("stream_solo_chunk", solo_chunk, solo.f,
+             ("stream_tick", tick, streams.f, float(np.median(tick_secs))),
+             ("stream_solo_chunk", solo_chunk, streams.f,
               float(np.median(solo_secs)))]
 
     def check():
         # N ticks of TICK samples hold 20 N - 1 frames: the first chunk
         # (F + R) steps at the second tick, then one chunk per tick.
-        want = [(fed[0] // cs.TICK - 1) * solo.f] * len(waves)
-        want.append((fed[1] // cs.TICK - 1) * solo.f)
+        want = [(fed[0] // cs.TICK - 1) * streams.f] * len(waves)
+        want.append((fed[1] // cs.TICK - 1) * streams.f)
         got = streams.num_frames_decoded + [solo.num_frames_decoded]
         if got != want:
             return (f"a tick did not step every stream once ({got}; "

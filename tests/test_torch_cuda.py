@@ -1068,7 +1068,7 @@ def test_fused_streaming_session_cuda_vs_cpu(cuda, toy_quant_conf):
         sess = StreamingSession(rec.am, rec.fst, None, *graph)
         before = quant.qmatmul.launches
         sess.process(samples[:4000])  # one chunk: 20 + R frames
-        ctx = sess._ctx.cpu()
+        ctx = torch.from_numpy(sess.get_state()["ctx"])
         launched = quant.qmatmul.launches - before
         sess.process(samples[4000:])
         sess.end_of_stream()

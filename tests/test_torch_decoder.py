@@ -358,3 +358,119 @@ def test_safe_config_with_lm_matches_jax(planted_lm, port_planted_lm):
         got = tdecoder.safe_config(tg2, 2, tcfg, has_lm, csr_group=16)
         assert (got.expand_size, got.eps_expand_size) == (
             ref.expand_size, ref.eps_expand_size)
+
+
+# -- the final-token pick ------------------------------------------------------
+
+
+def _jax_batch_pick(states, lms, costs, final, delta_lm, final_fallback):
+    """The final-weight pick inline in the JAX batch decoder
+    (catears_tpu/decode/decoder.py::_decode_batch_once), copied here as
+    the reference: (best_slots, totals, empty)."""
+    b = states.shape[0]
+    best_slots = np.zeros(b, np.int32)
+    totals = np.zeros(b, np.float64)
+    empty = np.zeros(b, bool)
+    for u in range(b):
+        total = costs[u].astype(np.float64).copy()
+        valid = states[u] >= 0
+        idx = np.where(valid, states[u], 0)
+        total += np.where(valid, np.asarray(final)[idx], np.inf)
+        if delta_lm is not None:
+            for i in np.nonzero(valid & np.isfinite(total))[0]:
+                total[i] += delta_lm.final(int(lms[u, i]))
+        total[~valid] = np.inf
+        if not np.isfinite(total).any():
+            if not final_fallback:
+                empty[u] = True
+                continue
+            total = np.where(valid, costs[u], np.inf)
+        best_slots[u] = int(np.argmin(total))
+        totals[u] = total[best_slots[u]]
+    return best_slots, totals, empty
+
+
+def _pick_rows(case):
+    """[B, K] beam rows (states, lms, costs) and the graph's final weights
+    for one case of the pick; every case has a dead slot in each row."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    b, k, s = 5, 12, 30
+    final = rng.uniform(0, 3, s).astype(np.float32)
+    final[rng.rand(s) < 0.3] = np.inf
+    states = rng.randint(0, s, (b, k)).astype(np.int32)
+    states[:, 3] = -1
+    states[rng.rand(b, k) < 0.2] = -1
+    costs = rng.uniform(0, 10, (b, k)).astype(np.float32)
+    lms = rng.randint(0, 40, (b, k)).astype(np.int32)
+    if case == "ties":  # equal totals on several slots: the first wins
+        final[np.isfinite(final)] = 0.5
+        costs = rng.choice(np.float32([1.0, 2.0]), (b, k))
+        costs[:, 3] = 0.0  # the dead slot would win
+    elif case == "all_dead":
+        states[1] = -1
+    elif case == "no_final":  # live slots, none in a final state
+        states[2] = np.flatnonzero(~np.isfinite(final))[0]
+        states[2, 5] = -1
+    elif case == "lm_shared":  # a few LM states shared across the batch
+        lms = rng.choice(np.int32([1, 7, 40]), (b, k))
+    elif case == "lm_distinct":
+        # every one of the 83 states of the 40-word G' below
+        lms = rng.permutation(b * k).reshape(b, k).astype(np.int32) % 83
+        lms[0, :] = 42  # the G' final state: no </s>, an infinite final
+    return states, lms, costs, final
+
+
+PICK_CASES = [(case, fb) for case in ("ties", "all_dead", "no_final",
+                                      "lm_shared", "lm_distinct")
+              for fb in (False, True)] + [("not_eos", False)]
+
+
+@pytest.mark.parametrize("case,fallback", PICK_CASES)
+def test_pick_final_matches_jax(case, fallback):
+    """hyp.pick_final over a [B, K] batch against JAX's best_path row by
+    row (without the fallback) and against the JAX batch decoder's inline
+    pick (at end of stream): slots, totals and empties equal to the bit."""
+    from types import SimpleNamespace
+
+    from catears_tpu.decode import hyp as jhyp
+    from catears_tpu_torch.decode import hyp as thyp
+
+    states, lms, costs, final = _pick_rows(case)
+    eos = case != "not_eos"
+    jdelta = tdelta = None
+    if case.startswith("lm_"):
+        jdelta = make_big_lm(np.random.RandomState(9),
+                             num_words=40).delta_lm()
+        tdelta = tbiggraph.make_big_lm(np.random.RandomState(9),
+                                       num_words=40).delta_lm()
+        assert not np.isfinite(jdelta.final(42))
+    slot, total, empty = thyp.pick_final(states, lms, costs, final, tdelta,
+                                         end_of_stream=eos,
+                                         fallback=fallback)
+    assert slot.dtype == np.int64 and total.dtype == np.float64
+    if eos:
+        want = _jax_batch_pick(states, lms, costs, final, jdelta, fallback)
+        assert np.array_equal(slot, want[0])
+        assert total.tobytes() == want[1].tobytes()
+        assert np.array_equal(empty, want[2])
+    if fallback:
+        assert not empty.any()
+        return
+    # A one-frame trace whose slot k emits word k + 1 names the slot the
+    # reference's backtrace starts from.
+    k = states.shape[1]
+    trace = [jhyp.HostTrace(np.full(k, -1, np.int32),
+                            np.arange(1, k + 1, dtype=np.int32)[:, None])]
+    port_trace = [thyp.HostTrace(t.prev_slot, t.words) for t in trace]
+    graph = SimpleNamespace(final=final)
+    for u in range(states.shape[0]):
+        ref = jhyp.best_path(trace, states[u], lms[u], costs[u], graph,
+                             jdelta, end_of_stream=eos)
+        got = thyp.best_path(port_trace, states[u], lms[u], costs[u],
+                             graph, tdelta, end_of_stream=eos)
+        assert (got.words, got.weight) == (ref.words, ref.weight)
+        assert bool(empty[u]) == (ref.words == [])
+        assert ref.words == ([] if empty[u] else [int(slot[u]) + 1])
+        assert (np.float64(ref.weight).tobytes()
+                == np.float64(total[u]).tobytes())
+    assert case not in ("all_dead", "no_final") or empty.any()

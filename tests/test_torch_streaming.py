@@ -6,7 +6,8 @@ and int8, with a tail whose bucket pad is non-trivial).  Decoder: the
 single-utterance Decoder fed the same log-probs in ragged process() calls,
 LM off and with a delta-LM; its overflow, autosize and the incremental
 backtracker.  Sessions: BatchStreamingSession under ragged pacing and group
-ticks, and a trie model streamed with a delta-LM.
+ticks, StreamingSession as its one-stream view (and its state round
+trip), and a trie model streamed with a delta-LM.
 
 Tolerances: decoder state from identical log-probs bit-equal; features 1e-4
 (against JAX and the Kaldi goldens); float log-probs 1e-4
@@ -15,6 +16,7 @@ transcripts equal strings.
 """
 
 import os
+import pickle
 
 import jax.numpy as jnp
 import numpy as np
@@ -445,6 +447,51 @@ def test_partials_equal_best_path(recognizers, data_dir):
     assert batch.num_frames_decoded[0] == solo.session.num_frames_decoded
     assert (batch.best_path(0, end_of_stream=False).words
             == solo.session.best_path(end_of_stream=False).words)
+
+
+@pytest.mark.parametrize("cmvn", [False, True])
+def test_streaming_session_is_a_one_stream_batch(tmp_path, data_dir, cmvn):
+    """A StreamingSession and a one-stream BatchStreamingSession fed the
+    same ragged chunks give equal partial and final hypotheses; get_state
+    taken before the first chunk step and mid-stream round-trips through
+    pickle and set_state into fresh sessions that decode on identically."""
+    conf = write_stream_toy(str(tmp_path), data_dir, cmvn=cmvn)
+    tr = trec.Recognizer(conf, beam_config=tbeam.BeamConfig(**STREAM_BEAM),
+                         device=CPU)
+    args = (tr.am, tr.fst, tr.delta_lm) + tuple(tr._decode_graph())
+    kw = dict(chunk_frames=20, cmvn_stats=tr.cmvn_stats)
+    _, payload = wav_payload(os.path.join(data_dir, "en-us-cat.wav"))
+    samples = _pcm(payload)
+    solo = tstreaming.StreamingSession(*args, **kw)
+    batch = tstreaming.BatchStreamingSession(*args, 1, **kw)
+    cuts = [0, 1700, 4100, 4133, 9000, 15555, 16000, 23001, samples.size]
+    resumed = []
+    for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        for sess in [solo] + resumed:
+            sess.process(samples[lo:hi])
+        batch.process(0, samples[lo:hi])
+        want = batch.best_path(0, end_of_stream=False)
+        for sess in [solo] + resumed:
+            assert sess.num_frames_decoded == batch.num_frames_decoded[0]
+            got = sess.best_path(end_of_stream=False)
+            assert (got.words, got.weight) == (want.words, want.weight), i
+        if i in (0, 4):
+            state = pickle.loads(pickle.dumps(solo.get_state()))
+            assert (state["ctx"] is None) == (i == 0)
+            assert state["beam"][0].shape[0] == 1
+            assert [np.shape(x) for x in state["cm"]] == [
+                (40,), (), (600 if cmvn else 1, 40), ()]
+            fresh = tstreaming.StreamingSession(*args, **kw)
+            fresh.set_state(state)
+            resumed.append(fresh)
+    batch.end_of_stream(0)
+    want = batch.best_path(0, end_of_stream=True)
+    assert want.words
+    for sess in [solo] + resumed:
+        sess.end_of_stream()
+        assert not sess.overflowed
+        got = sess.best_path(end_of_stream=True)
+        assert (got.words, got.weight) == (want.words, want.weight)
 
 
 def _decode_pcm(mod, rec, pcm, fused=True):
