@@ -1258,13 +1258,15 @@ def init_beam_batch(cfg: BeamConfig, batch: int, dfst: DeviceFst,
     [B] utterances (the JAX make_init_beam + init_beam_batch)."""
     k = cfg.beam_size
     dev = dfst.device
+    # Slot 0 set by fill_: assigning a Python number to an element of a
+    # card's tensor copies it from the host and waits for the card.
     states = torch.full((1, k), -1, dtype=I32, device=dev)
-    states[0, 0] = dfst.start
+    states[0, 0].fill_(dfst.start)
     lms = torch.zeros((1, k), dtype=I32, device=dev)
     if dlm is not None:
-        lms[0, 0] = dlm.start
+        lms[0, 0].fill_(dlm.start)
     costs = torch.full((1, k), INF, dtype=torch.float32, device=dev)
-    costs[0, 0] = 0.0
+    costs[0, 0].fill_(0.0)
     bp = _arange(k, dev)[None]
     beam = BeamState(states, lms, costs, bp,
                      torch.zeros(1, dtype=torch.bool, device=dev),

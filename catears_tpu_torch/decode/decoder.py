@@ -39,7 +39,7 @@ from catears_tpu_torch.decode.beam import (
 from catears_tpu_torch.decode.hyp import (
     HostTrace,
     IncrementalBacktracker,
-    assemble_words,
+    assemble_words_batch,
     best_path,
     pick_final,
 )
@@ -519,11 +519,16 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
     decode.backtrace and decode.hyps; while tracing, the read also takes
     the beam's hiwater for the `decode` span.  The frames run through the
     chunk runner `runner_for(config, initial beam, log-prob width)` gives,
-    `chunk_frames` steps at a time."""
+    `chunk_frames` steps at a time.  The host waits for the card twice
+    (counter `decode_host_syncs`): for the read and for the backtrace's
+    words; its uploads do not wait."""
     dev = dfst.device
     c = chunk_frames
     with log.span("decode.init"):
-        logp = torch.as_tensor(logp, dtype=torch.float32).to(dev)
+        # Uploads from the host's (pageable) memory are staged at once,
+        # so they need not wait for the card.
+        logp = torch.as_tensor(logp, dtype=torch.float32).to(
+            dev, non_blocking=True)
         b, t, p = logp.shape
         lengths = list(lengths) if lengths is not None else [t] * b
         beam, init_trace = init_beam_batch(config, b, dfst, dlm)
@@ -532,8 +537,9 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
         log.annotate("decode", batch=b, frames=int(len_arr.sum()), steps=t)
         # Whole chunks: the last is padded with invalid (identity) frames,
         # as the JAX decoder pads it, so one graph serves every length.
-        valid = torch.as_tensor(np.arange(-(-t // c) * c)[:, None]
-                                < len_arr[None, :], device=dev)
+        valid = torch.from_numpy(np.arange(-(-t // c) * c)[:, None]
+                                 < len_arr[None, :]).to(dev,
+                                                        non_blocking=True)
         runner = runner_for(config, beam, p)
     logp_t = logp.transpose(0, 1)
     traces = None
@@ -556,26 +562,25 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
     beam = runner.beam
 
     with log.span("decode.read"):
-        overflow = beam.overflow.cpu().numpy()
+        overflow, hiwater, states, lms, costs = _to_host(
+            runner.host, overflow=beam.overflow, hiwater=beam.hiwater,
+            states=beam.states, lm=beam.lm, costs=beam.costs)
         if log.tracing():
-            log.annotate("decode", hiwater=beam.hiwater.cpu().numpy().max(
-                axis=0).tolist(), lanes=(emit_lanes(config, dfst)
-                                         if dfst.eps_removed else None))
+            log.annotate("decode", hiwater=hiwater.max(axis=0).tolist(),
+                         lanes=(emit_lanes(config, dfst)
+                                if dfst.eps_removed else None))
         if overflow.any():
             bad = np.flatnonzero(overflow).tolist()
             raise BeamCapacityError(
                 f"arc expansion overflowed capacity (expand_size="
                 f"{config.expand_size}, eps_expand_size="
                 f"{config.eps_expand_size}) for utterances {bad}",
-                hiwater=tuple(int(x) for x in
-                              beam.hiwater.cpu().numpy().max(axis=0)))
-        states = beam.states.cpu().numpy()
-        lms = beam.lm.cpu().numpy()
-        costs = beam.costs.cpu().numpy()
+                hiwater=tuple(int(x) for x in hiwater.max(axis=0)))
     if not device_backtrace:
         with log.span("decode.backtrace"):
-            prev = traces.prev_slot.cpu().numpy()
-            word = traces.words.cpu().numpy()
+            # Every frame's trace: buffers of this decode's alone.
+            prev, word = _to_host({}, prev_slot=traces.prev_slot,
+                                  words=traces.words)
             return [
                 best_path([HostTrace(prev[f, u], word[f, u])
                            for f in range(lengths[u] + 1)],
@@ -584,14 +589,16 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                 for u in range(b)
             ]
     with log.span("decode.backtrace"):
-        frame_words = _device_backtrace(dfst, delta_lm, states, lms, costs,
-                                        traces, final_fallback)
+        frame_words, totals, empty = _device_backtrace(
+            dfst, delta_lm, states, lms, costs, traces, final_fallback,
+            runner.host)
     with log.span("decode.hyps"):
-        return [
-            Hypothesis([], 0.0) if empty
-            else Hypothesis(assemble_words(fw), total)
-            for fw, total, empty in frame_words
-        ]
+        # Utterance u's rows: the init trace and its frames; the invalid
+        # frames past them carry no words.
+        words = assemble_words_batch(frame_words, len_arr + 1)
+        return [Hypothesis([], 0.0) if e else Hypothesis(w, total)
+                for w, total, e in zip(words, totals.tolist(),
+                                       empty.tolist())]
 
 
 def _trace_buffer(init: FrameTrace, chunk: FrameTrace, t: int) -> FrameTrace:
@@ -623,7 +630,8 @@ class _ChunkRunner:
     other caller runs it, followed by copies of its output beam into the
     static beam, so replays chain with no host work between them.  `pool`
     is the CUDA graph memory pool the capture allocates its temporaries
-    and trace from (None: a private one)."""
+    and trace from (None: a private one).  `host` holds the pinned host
+    buffers its decodes read the card into (`_to_host`)."""
 
     def __init__(self, cfg: BeamConfig, dfst: DeviceFst,
                  dlm: Optional[DeviceLm], beam: BeamState, chunk: int,
@@ -638,6 +646,7 @@ class _ChunkRunner:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.trace: Optional[FrameTrace] = None
         self.launches = ()  # each of _FRAME_KERNELS' launches in a replay
+        self.host: Dict[str, torch.Tensor] = {}
         if dev.type == "cuda":
             self._capture(pool)
 
@@ -696,17 +705,50 @@ class _ChunkRunner:
         return self.trace
 
 
+def _to_host(bufs: Dict[str, torch.Tensor],
+             **tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors' values as numpy arrays after ONE wait for the card
+    (counter `decode_host_syncs`, counted on the CPU too): on a card each
+    is copied without blocking into the pinned buffer `bufs` keeps under
+    its name (made, or doubled, to fit), then the host waits once for the
+    copies; CPU tensors are read where they are.  The arrays are views of
+    those buffers, which the next read of the name overwrites."""
+    out, card = [], None
+    for name, x in tensors.items():
+        if x.device.type != "cuda":
+            out.append(x.numpy())
+            continue
+        n = x.numel()
+        buf = bufs.get(name)
+        if buf is None or buf.numel() < n:
+            grown = 2 * buf.numel() if buf is not None else 0
+            buf = bufs[name] = torch.empty(max(n, grown), dtype=x.dtype,
+                                           pin_memory=True)
+        view = buf[:n].view(x.shape)
+        view.copy_(x, non_blocking=True)
+        out.append(view.numpy())
+        card = x.device
+    if card is not None:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(card))
+        done.synchronize()
+    log.count("decode_host_syncs")
+    return out
+
+
 def _device_backtrace(dfst: DeviceFst, delta_lm: Optional[DeltaLmFst],
                       states: np.ndarray, lms: np.ndarray,
                       costs: np.ndarray, traces: FrameTrace,
-                      final_fallback: bool):
-    """(frame words [T, W], total cost, no final token) of each utterance
-    from the decode's [1 + T, B, ...] traces: the host's exact final-weight
-    pick (a delta-LM final needs the backoff walk), then ONE backtrace on
-    the device for the whole batch."""
-    slots, totals, empty = pick_final(states, lms, costs,
-                                      dfst.final.cpu().numpy(), delta_lm,
-                                      fallback=final_fallback)
-    frame_words = backtrace_device(
-        traces, torch.as_tensor(slots, device=dfst.device)).cpu().numpy()
-    return list(zip(frame_words, totals.tolist(), empty.tolist()))
+                      final_fallback: bool,
+                      host: Dict[str, torch.Tensor]):
+    """(frame words [B, T, W], total cost [B] float64, no final token [B]
+    bool) of the decode's [T, B, ...] traces: the host's exact final-weight
+    pick (the graph's final weights from their host copy; a delta-LM final
+    needs the backoff walk), then ONE backtrace on the device for the
+    whole batch, its words read with one wait into `host`'s pinned
+    buffers."""
+    slots, totals, empty = pick_final(states, lms, costs, dfst.final_host,
+                                      delta_lm, fallback=final_fallback)
+    best = torch.from_numpy(slots).to(dfst.device, non_blocking=True)
+    (frame_words,) = _to_host(host, words=backtrace_device(traces, best))
+    return frame_words, totals, empty

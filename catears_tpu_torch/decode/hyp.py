@@ -6,14 +6,16 @@ host walks it backwards from the best final slot, which `pick_final`
 chooses for every decoder.  `backtrace` walks in Python, or in the native
 library from 64 frames on, as the JAX package's;
 `IncrementalBacktracker` refreshes a streaming partial hypothesis by
-walking only the frames since the last refresh; `assemble_words` turns the
-device backtrace of the batch path into a transcript.
+walking only the frames since the last refresh; `assemble_words_batch`
+turns the device backtrace of the batch path into transcripts, one numpy
+pass for the batch (`assemble_words`: one utterance).
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -56,16 +58,31 @@ def backtrace(traces: List[HostTrace], slot: int) -> List[int]:
     return words_rev[::-1]
 
 
-def assemble_words(frame_words: np.ndarray) -> List[int]:
-    """[T, W] device-backtrace output -> transcript word-id list.
+def assemble_words_batch(frame_words: np.ndarray,
+                         rows: Sequence[int]) -> List[List[int]]:
+    """[B, T, W] device-backtrace output -> B transcript word-id lists, in
+    one numpy pass over the batch.
 
-    Each frame's W slots are newest-first, so the forward transcript walks
-    frames in order and reverses within each frame.
+    Utterance u reads its first `rows[u]` frames.  Each frame's W slots are
+    newest-first, so the forward transcript walks frames in order and
+    reverses within each frame; the ids > 0 are the words.
     """
-    out: List[int] = []
-    for row in frame_words:
-        out.extend(int(w) for w in row[::-1] if w > 0)
-    return out
+    fw = np.asarray(frame_words)
+    b, t, w = fw.shape
+    flat = fw[:, :, ::-1].reshape(b, t * w)
+    keep = ((flat > 0)
+            & (np.arange(t * w) < np.asarray(rows, np.int64)[:, None] * w))
+    counts = keep.sum(axis=1).tolist()
+    words = flat[keep].tolist()  # row-major: utterance by utterance
+    ends = itertools.accumulate(counts)
+    return [words[e - n:e] for e, n in zip(ends, counts)]
+
+
+def assemble_words(frame_words: np.ndarray) -> List[int]:
+    """[T, W] device-backtrace output -> transcript word-id list (one
+    utterance of `assemble_words_batch`, all T frames)."""
+    fw = np.asarray(frame_words)
+    return assemble_words_batch(fw[None], [fw.shape[0]])[0]
 
 
 class IncrementalBacktracker:

@@ -126,6 +126,8 @@ class DeviceFst:
 
     start: int
     final: torch.Tensor  # f32 [S]
+    # `final` on the host, bit for bit (the host's final pick reads it).
+    final_host: np.ndarray
     state_packed: torch.Tensor  # i32 [S, 4]
     over_packed: torch.Tensor  # i32 [Ro, csr_group*5]
     eps_packed: torch.Tensor  # i32 [Re, eps_group*5]
@@ -173,9 +175,12 @@ class DeviceFst:
         a missing or None emit_hot means no hot/cold split) and its static
         fields."""
         device = resolve_device(device)
+        final_host = np.array(arrays["final"])
+        final_host.setflags(write=False)
         tensors = {name: torch.tensor(np.asarray(arrays[name])).to(device)
                    for name in TABLES if arrays.get(name) is not None}
-        return cls(start=int(arrays["start"]), **tensors, **meta)
+        return cls(start=int(arrays["start"]), final_host=final_host,
+                   **tensors, **meta)
 
     @property
     def num_states(self) -> int:

@@ -3,9 +3,10 @@ catears_tpu/utils/log.py, plus the spans).
 
 A namespaced stdlib logger plus a tiny counter/timer registry: the runtime
 counts `audio_seconds` (Utterance, decode_scp), `frames_decoded` (Decoder,
-the streaming sessions, BatchDecoder) and `overflow_retries`
-(BatchDecoder), and times the `frontend`/`am`/`decode`/`process` stages of
-an Utterance — queryable via `metrics()`.
+the streaming sessions, BatchDecoder), `overflow_retries` and
+`decode_host_syncs` (BatchDecoder: the times a decode's host waits for
+the card, 2 a decode), and times the `frontend`/`am`/`decode`/`process`
+stages of an Utterance — queryable via `metrics()`.
 
 Spans name what the host is doing: `with span("decode", batch=16):`
 records a name, a start and an end in ns, the id of the enclosing span of

@@ -666,16 +666,46 @@ def runner_decode(dec, logp, lengths, **kw):
             runner.cfg)
 
 
+def loop_words(frame_words) -> list:
+    """The per-row loop the batch path assembled a transcript with before
+    its one numpy pass (the reference of hyp.assemble_words_batch): each
+    [W] row's newest-first slots reversed, the ids > 0."""
+    out = []
+    for row in frame_words:
+        out.extend(int(w) for w in row[::-1] if w > 0)
+    return out
+
+
+def reference_tail(dec, beam, traces, lengths, final_fallback):
+    """The batch decode's host tail as it was before the final weights
+    were kept on the host and the words assembled in one pass: the final
+    weights read from the device table, `pick_final`, one device
+    backtrace, then every row of each utterance through `loop_words`.
+    Asserts that the backtrace's rows past each utterance's frames carry
+    no word (the batch assembly reads only an utterance's own rows).
+    Returns [(words, weight)] an utterance."""
+    from catears_tpu_torch.decode.beam import FrameTrace, backtrace_device
+    from catears_tpu_torch.decode.hyp import pick_final
+
+    dev = dec.dfst.device
+    slots, totals, empty = pick_final(beam[0], beam[1], beam[2],
+                                      to_np(dec.dfst.final), dec.delta_lm,
+                                      fallback=final_fallback)
+    fw = to_np(backtrace_device(
+        FrameTrace(*(torch.from_numpy(x).to(dev) for x in traces)),
+        torch.as_tensor(slots, device=dev)))
+    for u, n in enumerate(lengths):
+        assert not fw[u, n + 1:].any(), u
+    return [([], 0.0) if e else (loop_words(w), total)
+            for w, total, e in zip(fw, totals.tolist(), empty.tolist())]
+
+
 def assert_runner_equals_eager(dec, logp, lengths, **kw):
     """The decode through the chunk runner (padded chunks over static
     buffers; a graph replay on a card) equals the eager loop at the config
     it decoded at, byte for byte: the final beam (overflow and hiwater
-    included), the traces, and the words and weights the device backtrace
-    gives the eager traces.  Returns the runner's result."""
-    from catears_tpu_torch.decode import decoder as tdecoder
-    from catears_tpu_torch.decode.beam import FrameTrace
-    from catears_tpu_torch.decode.hyp import assemble_words
-
+    included), the traces, and the words and weights `reference_tail`
+    gives the eager beam and traces.  Returns the runner's result."""
     got = runner_decode(dec, logp, lengths, **kw)
     hyps, beam, traces, cfg = got
     ref_beam, ref_traces = eager_frame_loop(dec, logp, lengths, cfg)
@@ -684,13 +714,6 @@ def assert_runner_equals_eager(dec, logp, lengths, **kw):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), name
     for name, x, y in zip(("prev_slot", "words"), ref_traces, traces):
         assert x.shape == y.shape and x.tobytes() == y.tobytes(), name
-    dev = dec.dfst.device
-    ref = tdecoder._device_backtrace(
-        dec.dfst, dec.delta_lm, ref_beam[0], ref_beam[1], ref_beam[2],
-        FrameTrace(*(torch.from_numpy(x).to(dev) for x in ref_traces)),
-        kw.get("final_fallback", False))
-    assert [h.words for h in hyps] == [
-        [] if empty else assemble_words(fw) for fw, _, empty in ref]
-    assert [h.weight for h in hyps] == [
-        0.0 if empty else total for _, total, empty in ref]
+    assert [(h.words, h.weight) for h in hyps] == reference_tail(
+        dec, ref_beam, ref_traces, lengths, kw.get("final_fallback", False))
     return got

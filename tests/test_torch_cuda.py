@@ -28,7 +28,8 @@ a CUDA graph with a new mask each time); the decoder on cuda, LM off and on, on
 eps-free, closed and raw graphs, must give the CPU's words and bit-equal
 costs, and its replay of one CUDA graph per chunk must equal the eager
 decode_chunk loop on the card byte for byte (also after an overflow's
-retry, and with no stale buffer between batches).  The sharded pipeline
+retry, and with no stale buffer between batches), and a warmed decode's
+host wait for the card only in its two counted reads.  The sharded pipeline
 over logical shards of the card must equal the same mesh on the CPU, and
 tools.synth's loss and gradients the CPU's.
 """
@@ -451,6 +452,40 @@ def test_batch_decoder_replay_retries_an_overflow(cuda, mode):
     assert m["overflow_retries"] == 1 and m["frame_graph_replays"] == 6
     assert m.get("frame_graph_captures", 0) == 0
     assert len(dec._runners) == 2
+
+
+@pytest.mark.parametrize("mode,lm", [("eps-free", False),
+                                     ("eps-free", True), ("closed", False)])
+def test_batch_decoder_waits_for_the_card_twice(cuda, mode, lm):
+    """A warmed decode on the card (its graph captured, its pinned host
+    buffers made) runs with every synchronising call raising
+    (torch.cuda.set_sync_debug_mode("error")): its uploads do not wait,
+    and its host waits only in its two counted reads (the beam and the
+    backtrace's words, each on an event).  Its words and weights equal
+    the warm decode's and `reference_tail`'s."""
+    from catears_tpu_torch.tools.biggraph import plant_logp
+    from catears_tpu_torch.utils import log
+
+    cfg = BeamConfig(beam_size=128, expand_size=2048, eps_expand_size=1024,
+                     max_eps_iters=4, beam=12.0,
+                     lm_expand_size=64 if lm else 0)
+    dec, tg = runner_trie(mode, lm, cuda, 16, cfg)
+    logp = plant_logp(np.random.RandomState(2), tg, 3, 60)[0]
+    lengths = [60, 41, 17]
+    warm = assert_runner_equals_eager(dec, logp, lengths,
+                                      final_fallback=True)[0]
+    log.reset_metrics()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hyps = dec.decode(logp, lengths, final_fallback=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    m = log.metrics()
+    log.reset_metrics()
+    assert m["decode_host_syncs"] == 2
+    assert [(h.words, h.weight) for h in hyps] == [
+        (h.words, h.weight) for h in warm]
+    assert any(h.words for h in hyps)
 
 
 @functools.lru_cache(maxsize=None)
