@@ -28,6 +28,13 @@ card), and counts `am_rows_full_rate` and `am_rows_subsampled`, the
 full rate); the linears count `am_flops`.  Live streaming runs only
 models of one row per 10 ms frame with no i-vector
 (`require_streamable`).
+
+The chain TDNN-LSTM (am/nnet.py's `lstmp`, `spliced_affine` and `delay`
+kinds) is such a model too.  `forward_padded(..., frames=)` tells it the
+longest utterance's valid frames, so that each recurrence steps only to
+the last row a valid output reads, not to the padded length.  Its
+subsampled part starts at the spliced affine that computes only the
+subsample layer's rows.
 """
 
 from __future__ import annotations
@@ -102,9 +109,12 @@ class AcousticModel(nn.Module):
         self.frame_subsampling_factor = frame_subsampling(nnet_def)
         self.ivector_dim = ivector_dim(nnet_def)
         # The stack's full-rate part: the layers before its first
-        # subsample layer (all of them without one).
+        # subsample layer (all of them without one), or before the spliced
+        # layer that computes only the subsample layer's rows.
         self._split = next((i for i, layer in enumerate(nnet_def)
                             if layer[0] == "subsample"), len(nnet_def))
+        if self._split in self.float_nnet.fused:
+            self._split -= 1
         self.to(device)
 
     @property
@@ -163,11 +173,12 @@ class AcousticModel(nn.Module):
         return -(-frames // self.frame_subsampling_factor)
 
     def forward_padded(self, feats: torch.Tensor,
-                       ivectors: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       ivectors: Optional[torch.Tensor] = None,
+                       frames: Optional[int] = None) -> torch.Tensor:
         """Context-padded features (and, for a model that takes them, the
         [B, dim] or [dim] i-vectors) -> log-likelihoods (see module
-        doc)."""
+        doc).  `frames`: the longest utterance's valid frames (None: the
+        padded rows are all valid)."""
         if self.quantized:
             return self.nnet(feats) - self.log_prior
         if self.ivector_dim and ivectors is None:
@@ -175,22 +186,24 @@ class AcousticModel(nn.Module):
                              f"i-vector per utterance; none given")
         n = len(self.nnet_def)
         cuda = feats.device.type == "cuda"
+        rows = None if frames is None else self.output_rows(frames)
         with log.span("am.full_rate", device=cuda):
-            x = self.nnet.run(0, self._split, feats, ivectors)
+            x = self.nnet.run(0, self._split, feats, ivectors, rows)
         log.count("am_rows_full_rate", x.shape[:-1].numel())
         if self._split < n:
             with log.span("am.subsampled", device=cuda):
-                x = self.nnet.run(self._split, n, x, ivectors)
+                x = self.nnet.run(self._split, n, x, ivectors, rows)
             log.count("am_rows_subsampled", x.shape[:-1].numel())
         return x - self.log_prior if self.has_prior else x
 
     def _padded_numpy(self, padded: np.ndarray,
-                      ivector: Optional[np.ndarray] = None) -> np.ndarray:
+                      ivector: Optional[np.ndarray] = None,
+                      frames: Optional[int] = None) -> np.ndarray:
         with torch.no_grad():
             iv = (None if ivector is None else torch.as_tensor(
                 np.asarray(ivector, np.float32)).to(self.device))
             out = self.forward_padded(torch.as_tensor(
-                np.asarray(padded, np.float32)).to(self.device), iv)
+                np.asarray(padded, np.float32)).to(self.device), iv, frames)
         return out.cpu().numpy()
 
     def forward(self, feats: np.ndarray,
@@ -204,7 +217,7 @@ class AcousticModel(nn.Module):
         padded = np.concatenate([
             self.pad_context(feats),
             np.repeat(feats[-1:], bucket(t) - t, axis=0)])
-        return self._padded_numpy(padded, ivector)[:self.output_rows(t)]
+        return self._padded_numpy(padded, ivector, t)[:self.output_rows(t)]
 
     def pad_context(self, feats: np.ndarray) -> np.ndarray:
         return np.concatenate([

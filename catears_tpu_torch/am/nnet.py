@@ -17,6 +17,21 @@ model's context).  Time offsets and strides are in input frames; after a
 subsample layer of factor f the stack runs on every f-th row, so a stride
 of s frames is s / f rows there (`layer_rates`).  Every linear counts the
 FLOPs it enqueues on `am_flops` (utils/log.py).
+
+The chain TDNN-LSTM adds three kinds: a spliced affine (the spliced
+linear with a bias), Kaldi's projected LSTM with peepholes (`lstmp`: its
+gates' input half one batched matmul over the rows, its recurrence of
+delay d frames, |d| / rate rows, am/lstm.py) and an output delay (`delay`
+d: out(t) = in(t - d), which moves no row: it only shifts the frames the
+rows stand for, so the stack's context is d more on the left and d less
+on the right).  A spliced layer directly before a subsample layer is
+computed at the kept rows only.  A recurrence starts from zero state at
+the first row its layer computes and, told the output rows the valid
+outputs have (`Nnet.run(..., out_rows=)`), steps only to the last row
+those read (`Nnet.steps`); the rows after it are zeros.  Tracing, each
+recurrence is spanned as `am.recurrence` (layer, steps, batch; CUDA
+events on a card) and counts `lstm_steps` (the sequential steps run) and
+`lstm_steps_needed` (those the valid outputs read).
 """
 
 from __future__ import annotations
@@ -27,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from catears_tpu_torch.am.lstm import lstm_recurrence
 from catears_tpu_torch.io import binfmt
 from catears_tpu_torch.io.binfmt import NnetSpec
 from catears_tpu_torch.utils import log
@@ -71,6 +87,24 @@ def build_nnet(spec: NnetSpec) -> Tuple[NnetDef, List[Dict[str, np.ndarray]]]:
         elif layer.kind == binfmt.LAYER_SPLICED_LINEAR:
             layer_defs.append(("spliced_linear", tuple(layer.offsets)))
             params.append({"w": np.asarray(layer.weight, np.float32)})
+        elif layer.kind == binfmt.LAYER_SPLICED_AFFINE:
+            layer_defs.append(("spliced_affine", tuple(layer.offsets)))
+            params.append({"w": np.asarray(layer.weight, np.float32),
+                           "b": np.asarray(layer.bias, np.float32)})
+        elif layer.kind == binfmt.LAYER_LSTMP:
+            w = np.asarray(layer.weight, np.float32)
+            rec = int(layer.rec_dim)
+            layer_defs.append(("lstmp", int(layer.delay),
+                               float(np.float32(layer.rec_scale)), rec))
+            params.append({
+                "w_x": w[:-rec], "w_r": w[-rec:],
+                "b": np.asarray(layer.bias, np.float32),
+                "peephole": np.asarray(layer.peephole, np.float32),
+                "w_rp": np.asarray(layer.projection, np.float32),
+                "b_rp": np.asarray(layer.projection_bias, np.float32)})
+        elif layer.kind == binfmt.LAYER_DELAY:
+            layer_defs.append(("delay", int(layer.delay)))
+            params.append({})
         elif layer.kind == binfmt.LAYER_TDNNF:
             layer_defs.append(("tdnnf", layer.stride,
                                float(np.float32(layer.bypass))))
@@ -91,7 +125,9 @@ def build_nnet(spec: NnetSpec) -> Tuple[NnetDef, List[Dict[str, np.ndarray]]]:
     return tuple(layer_defs), params
 
 
-TDNN_KINDS = ("spliced_linear", "tdnnf", "subsample", "ivector")
+TDNN_KINDS = ("spliced_linear", "tdnnf", "subsample", "ivector",
+              "spliced_affine", "lstmp", "delay")
+SPLICED = ("spliced_linear", "spliced_affine")
 
 
 def layer_rates(nnet_def: NnetDef) -> Tuple[int, ...]:
@@ -104,9 +140,9 @@ def layer_rates(nnet_def: NnetDef) -> Tuple[int, ...]:
         rates.append(rate)
         kind = layer[0]
         steps = ()
-        if kind == "spliced_linear":
+        if kind in SPLICED:
             steps = layer[1]
-        elif kind == "tdnnf":
+        elif kind in ("tdnnf", "lstmp"):
             steps = (layer[1],)
         elif kind in ("splice", "narrow") and rate > 1:
             raise CorruptionError(f"a {kind} layer after a subsample layer")
@@ -138,20 +174,23 @@ def ivector_dim(nnet_def: NnetDef) -> int:
 
 def context_frames(nnet_def: NnetDef) -> Tuple[int, int]:
     """(left, right) input frames of context the stack consumes: narrow
-    rows (at the input rate), spliced linears' offsets and tdnnf strides
-    (in frames)."""
+    rows (at the input rate), spliced linears' offsets, tdnnf strides and
+    output delays (in frames; a recurrence consumes none)."""
     left = right = 0
     for layer in nnet_def:
         kind = layer[0]
         if kind == "narrow":
             left += layer[1]
             right += layer[2]
-        elif kind == "spliced_linear":
+        elif kind in SPLICED:
             left += max(0, -min(layer[1]))
             right += max(0, max(layer[1]))
         elif kind == "tdnnf":
             left += layer[1]
             right += layer[1]
+        elif kind == "delay":
+            left += layer[1]
+            right -= layer[1]
     return left, right
 
 
@@ -236,24 +275,26 @@ def apply_layer(kind: str, layer: Tuple[Any, ...], x: torch.Tensor,
     raise ValueError(f"unknown layer kind {kind}")
 
 
-def _rows(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
-    return x[..., lo:lo + n, :]
+def _rows(x: torch.Tensor, lo: int, n: int, step: int = 1) -> torch.Tensor:
+    return x[..., lo:lo + step * (n - 1) + 1:step, :]
 
 
 def spliced_linear(x: torch.Tensor, w: torch.Tensor,
-                   offsets: Sequence[int]) -> torch.Tensor:
+                   offsets: Sequence[int], step: int = 1) -> torch.Tensor:
     """[..., N, D] -> [..., N - left - right, O]: out[i] is the sum over
     offsets o_j of x[i + left + o_j] @ w's j-th [D, O] block, with no
-    bias; offsets in rows."""
+    bias; offsets in rows.  `step` f > 1 computes only out[0], out[f],
+    out[2 f], ... (for a subsample layer after it)."""
     d = x.shape[-1]
     lo = max(0, -min(offsets))
     n = x.shape[-2] - lo - max(0, max(offsets))
     if n <= 0:
         raise ValueError(f"spliced linear: {x.shape[-2]} rows for offsets "
                          f"{tuple(offsets)}")
+    n = -(-n // step)
     y = None
     for j, o in enumerate(offsets):
-        part = torch.matmul(_rows(x, lo + o, n), w[j * d:(j + 1) * d])
+        part = torch.matmul(_rows(x, lo + o, n, step), w[j * d:(j + 1) * d])
         y = part if y is None else y + part
     _count_flops(y, 2 * len(offsets) * d)
     return y
@@ -286,13 +327,53 @@ def _count_flops(y: torch.Tensor, per_output: int) -> None:
     log.count("am_flops", float(y.numel()) * per_output)
 
 
+def lstmp(x: torch.Tensor, p: Dict[str, torch.Tensor], delay: int,
+          scale: float, steps: int, index: int = -1) -> torch.Tensor:
+    """The projected LSTM over [..., N, D] rows with a recurrence of
+    `delay` rows (>= 1): the gates' input half x W_x + b of the first
+    `steps` rows in one matmul, then the recurrence (am/lstm.py), each of
+    the `delay` interleaved chains of rows from zero state; [..., N,
+    R + P], the rows from `steps` on zeros."""
+    n = x.shape[-2]
+    steps = max(0, min(steps, n))
+    lead = x.shape[:-2]
+    gx = torch.matmul(x[..., :steps, :].reshape(lead.numel(), steps,
+                                                x.shape[-1]),
+                      p["w_x"]) + p["b"]
+    _count_flops(gx, 2 * x.shape[-1])
+    b, g4 = gx.shape[0], gx.shape[-1]
+    chain = -(-steps // delay)
+    if delay > 1:  # row j is step j // delay of chain j % delay
+        gx = torch.nn.functional.pad(gx, (0, 0, 0, chain * delay - steps))
+        gx = gx.view(b, chain, delay, g4).transpose(1, 2).reshape(
+            b * delay, chain, g4)
+    with log.span("am.recurrence", device=x.device.type == "cuda",
+                  layer=index, steps=chain, batch=gx.shape[0]):
+        out = lstm_recurrence(gx.contiguous(), p["w_r"], p["peephole"],
+                              p["w_rp"], p["b_rp"], scale)
+    log.count("lstm_steps", chain)
+    log.count("am_flops", 2.0 * gx.shape[0] * chain
+              * (p["w_r"].numel() + p["w_rp"].numel()))
+    oc = out.shape[-1]
+    if delay > 1:
+        out = out.view(b, delay, chain, oc).transpose(1, 2).reshape(
+            b, chain * delay, oc)[:, :steps]
+    out = torch.nn.functional.pad(out, (0, 0, 0, n - steps))
+    return out.reshape(*lead, n, oc)
+
+
 def tdnn_layer(layer: Tuple[Any, ...], x: torch.Tensor,
                p: Dict[str, torch.Tensor], rate: int,
-               ivector: Optional[torch.Tensor]) -> torch.Tensor:
-    """One of TDNN_KINDS at `rate` input frames a row."""
+               ivector: Optional[torch.Tensor], step: int = 1
+               ) -> torch.Tensor:
+    """One of TDNN_KINDS but `lstmp` at `rate` input frames a row
+    (`step`: a spliced layer's, as `spliced_linear`'s)."""
     kind = layer[0]
-    if kind == "spliced_linear":
-        return spliced_linear(x, p["w"], [o // rate for o in layer[1]])
+    if kind in SPLICED:
+        y = spliced_linear(x, p["w"], [o // rate for o in layer[1]], step)
+        return y + p["b"] if kind == "spliced_affine" else y
+    if kind == "delay":
+        return x
     if kind == "tdnnf":
         return tdnnf(x, p, layer[1] // rate, layer[2])
     if kind == "subsample":
@@ -311,8 +392,10 @@ def output_dim(nnet_def: NnetDef, params, input_dim: int) -> int:
     d = input_dim
     for layer, p in zip(nnet_def, params):
         kind = layer[0]
-        if kind in ("linear", "spliced_linear"):
+        if kind in ("linear",) + SPLICED:
             d = p["w"].shape[1]
+        elif kind == "lstmp":
+            d = p["w_rp"].shape[1]
         elif kind == "splice":
             d = d * len(layer[1])
         elif kind == "ivector":
@@ -355,6 +438,15 @@ class Nnet(nn.Module):
         super().__init__()
         self.nnet_def = tuple(nnet_def)
         self.rates = layer_rates(self.nnet_def)
+        self.factor = frame_subsampling(self.nnet_def)
+        # Subsample layers whose spliced predecessor computes only the
+        # rows they keep (and which then pass their input on).
+        self.fused = {i for i, layer in enumerate(self.nnet_def)
+                      if layer[0] == "subsample" and i
+                      and self.nnet_def[i - 1][0] in SPLICED}
+        # The context of the layers after each layer, left + right frames.
+        self.after = [sum(context_frames(self.nnet_def[i + 1:]))
+                      for i in range(len(self.nnet_def))]
         self.layer_params = nn.ModuleList()
         for p in params:
             holder = nn.Module()
@@ -366,25 +458,49 @@ class Nnet(nn.Module):
     def params(self, i: int) -> Dict[str, torch.Tensor]:
         return dict(self.layer_params[i].named_buffers())
 
+    def steps(self, i: int, out_rows: int) -> int:
+        """Rows of layer i's output that valid outputs read, where they
+        have `out_rows` rows: its first row stands for the first output
+        row's frame less the left context of the layers after it, and the
+        last one read for the last output row's frame plus their right
+        context."""
+        if out_rows <= 0:
+            return 0
+        return (self.factor * (out_rows - 1) + self.after[i]) \
+            // self.rates[i] + 1
+
     def forward_layer(self, i: int, x: torch.Tensor,
-                      ivector: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      ivector: Optional[torch.Tensor] = None,
+                      out_rows: Optional[int] = None) -> torch.Tensor:
         """Layer i alone (`ivector`: the [..., dim] i-vector an ivector
-        layer appends)."""
+        layer appends; `out_rows`: the output rows valid outputs have,
+        where a recurrence stops; None: at the last row)."""
         layer, p = self.nnet_def[i], self.params(i)
-        if layer[0] == "linear":
+        kind = layer[0]
+        if kind == "linear":
             y = torch.matmul(x, p["w"]) + p["b"]
             _count_flops(y, 2 * x.shape[-1])
             return y
-        if layer[0] in TDNN_KINDS:
-            return tdnn_layer(layer, x, p, self.rates[i], ivector)
-        return apply_layer(layer[0], layer, x, p)
+        if i in self.fused:
+            return x
+        if kind == "lstmp":
+            delay = -layer[1] // self.rates[i]
+            steps = x.shape[-2]
+            if out_rows is not None:
+                steps = self.steps(i, out_rows)
+                log.count("lstm_steps_needed", -(-steps // delay))
+            return lstmp(x, p, delay, layer[2], steps, i)
+        if kind in TDNN_KINDS:
+            return tdnn_layer(layer, x, p, self.rates[i], ivector,
+                              self.factor if i + 1 in self.fused else 1)
+        return apply_layer(kind, layer, x, p)
 
     def run(self, lo: int, hi: int, x: torch.Tensor,
-            ivector: Optional[torch.Tensor] = None) -> torch.Tensor:
+            ivector: Optional[torch.Tensor] = None,
+            out_rows: Optional[int] = None) -> torch.Tensor:
         """Layers lo..hi-1."""
         for i in range(lo, hi):
-            x = self.forward_layer(i, x, ivector)
+            x = self.forward_layer(i, x, ivector, out_rows)
         return x
 
     def forward(self, x: torch.Tensor,

@@ -19,6 +19,17 @@ files work in both frameworks):
                                    batchnorm scale + VEC0 offset
                12 subsample        i32 factor
                13 i-vector append  i32 dim
+             and 14-16 its chain TDNN-LSTM's (Kaldi's fast-lstmp-layer):
+               14 LSTMP            i32 delay (frames, < 0) + f32
+                                   recurrence scale + i32 recurrent
+                                   projection width R + MAT0 W_all
+                                   [in + R, 4 C] (gates i, f, g, o; the
+                                   input rows first) + VEC0 bias [4 C] +
+                                   MAT0 peepholes [3, C] (w_ic, w_fc,
+                                   w_oc) + MAT0 projection [C, R + P] +
+                                   VEC0 projection bias [R + P]
+               15 spliced affine   kind 10's payload + VEC0 bias [out]
+               16 delay            i32 frames d: out(t) = in(t - d)
   pk::fst_0  32-byte name + i32 section_size + i32 n_states + i32 n_arcs +
              i32 start + f32 final[n_states] + i32 first_arc_idx[n_states] +
              n_arcs x (i32 next, i32 ilabel, i32 olabel, f32 weight), arcs
@@ -52,6 +63,10 @@ LAYER_SPLICED_LINEAR = 10
 LAYER_TDNNF = 11
 LAYER_SUBSAMPLE = 12
 LAYER_IVECTOR = 13
+# The chain TDNN-LSTM's kinds (this package's; see the module docstring).
+LAYER_LSTMP = 14
+LAYER_SPLICED_AFFINE = 15
+LAYER_DELAY = 16
 
 PKFST_SECTION = b"pk::fst_0"
 
@@ -141,6 +156,12 @@ class LayerSpec:
     affine: np.ndarray = None  # tdnnf: [k*bottleneck, dim], bias `bias`
     factor: int = 0  # subsample
     dim: int = 0  # i-vector append
+    delay: int = 0  # lstmp: recurrence offset; delay: output delay (frames)
+    rec_scale: float = 1.0  # lstmp: scale of c(t + delay), r(t + delay)
+    rec_dim: int = 0  # lstmp: recurrent projection width R
+    peephole: np.ndarray = None  # lstmp: [3, C] (w_ic, w_fc, w_oc)
+    projection: np.ndarray = None  # lstmp: [C, R + P]
+    projection_bias: np.ndarray = None  # lstmp: [R + P]
 
 
 @dataclass
@@ -184,7 +205,7 @@ def read_nnet(fd: BinaryIO) -> NnetSpec:
         elif kind in (LAYER_RELU, LAYER_NORMALIZE, LAYER_SOFTMAX,
                       LAYER_LOGSOFTMAX):
             spec.layers.append(LayerSpec(kind))
-        elif kind == LAYER_SPLICED_LINEAR:
+        elif kind in (LAYER_SPLICED_LINEAR, LAYER_SPLICED_AFFINE):
             n = _read_i32(fd)
             if n <= 0:
                 raise CorruptionError("spliced linear: no time offset")
@@ -194,7 +215,37 @@ def read_nnet(fd: BinaryIO) -> NnetSpec:
                 raise CorruptionError(
                     f"spliced linear: {w.shape[0]} input rows for {n} "
                     f"offsets")
-            spec.layers.append(LayerSpec(kind, offsets=offsets, weight=w))
+            b = None
+            if kind == LAYER_SPLICED_AFFINE:
+                b = read_vec0(fd)
+                if b.size != w.shape[1]:
+                    raise CorruptionError(
+                        f"spliced affine: bias dim {b.size} != out dim "
+                        f"{w.shape[1]}")
+            spec.layers.append(LayerSpec(kind, offsets=offsets, weight=w,
+                                         bias=b))
+        elif kind == LAYER_LSTMP:
+            delay = _read_i32(fd)
+            scale = struct.unpack("<f", _read_exact(fd, 4))[0]
+            rec = _read_i32(fd)
+            w, b = read_mat0(fd), read_vec0(fd)
+            peep, proj, proj_b = read_mat0(fd), read_mat0(fd), read_vec0(fd)
+            cells = proj.shape[0]
+            if delay >= 0 or not 0 < rec <= proj.shape[1] \
+                    or w.shape[0] <= rec or w.shape[1] != 4 * cells \
+                    or b.size != 4 * cells or peep.shape != (3, cells) \
+                    or proj_b.size != proj.shape[1]:
+                raise CorruptionError(
+                    f"lstmp layer: delay {delay}, recurrent width {rec}, "
+                    f"W_all {w.shape}, bias {b.size}, peepholes "
+                    f"{peep.shape}, projection {proj.shape}, its bias "
+                    f"{proj_b.size}")
+            spec.layers.append(LayerSpec(
+                kind, delay=delay, rec_scale=scale, rec_dim=rec, weight=w,
+                bias=b, peephole=peep, projection=proj,
+                projection_bias=proj_b))
+        elif kind == LAYER_DELAY:
+            spec.layers.append(LayerSpec(kind, delay=_read_i32(fd)))
         elif kind == LAYER_TDNNF:
             stride = _read_i32(fd)
             bypass = struct.unpack("<f", _read_exact(fd, 4))[0]
@@ -248,11 +299,24 @@ def write_nnet(fd: BinaryIO, spec: NnetSpec) -> None:
         elif layer.kind == LAYER_NARROW:
             fd.write(struct.pack("<i", layer.narrow_left))
             fd.write(struct.pack("<i", layer.narrow_right))
-        elif layer.kind == LAYER_SPLICED_LINEAR:
+        elif layer.kind in (LAYER_SPLICED_LINEAR, LAYER_SPLICED_AFFINE):
             fd.write(struct.pack("<i", len(layer.offsets)))
             for o in layer.offsets:
                 fd.write(struct.pack("<i", o))
             write_mat0(fd, np.asarray(layer.weight, np.float32))
+            if layer.kind == LAYER_SPLICED_AFFINE:
+                write_vec0(fd, np.asarray(layer.bias, np.float32))
+        elif layer.kind == LAYER_LSTMP:
+            fd.write(struct.pack("<i", layer.delay))
+            fd.write(struct.pack("<f", layer.rec_scale))
+            fd.write(struct.pack("<i", layer.rec_dim))
+            write_mat0(fd, np.asarray(layer.weight, np.float32))
+            write_vec0(fd, np.asarray(layer.bias, np.float32))
+            write_mat0(fd, np.asarray(layer.peephole, np.float32))
+            write_mat0(fd, np.asarray(layer.projection, np.float32))
+            write_vec0(fd, np.asarray(layer.projection_bias, np.float32))
+        elif layer.kind == LAYER_DELAY:
+            fd.write(struct.pack("<i", layer.delay))
         elif layer.kind == LAYER_TDNNF:
             fd.write(struct.pack("<i", layer.stride))
             fd.write(struct.pack("<f", layer.bypass))

@@ -46,8 +46,10 @@ def load_waves(paths: List[str]) -> List[np.ndarray]:
 
 def _batched_logp(am, t_max: int, waves: torch.Tensor,
                   frame_counts: torch.Tensor,
-                  ivectors: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, S] padded waves + [B] frame counts (+ [B, dim] i-vectors) ->
+                  ivectors: Optional[torch.Tensor] = None,
+                  frames: Optional[int] = None) -> torch.Tensor:
+    """[B, S] padded waves + [B] frame counts (+ [B, dim] i-vectors; the
+    longest count, `frames`, for a recurrent model) ->
     [B, ceil(t_max / f), P].
 
     Padded row j of utterance u reads feats[clip(j - left, 0, t_u - 1)],
@@ -61,7 +63,7 @@ def _batched_logp(am, t_max: int, waves: torch.Tensor,
                         (frame_counts - 1)[:, None])
     idx = torch.remainder(idx, t_max)  # t_u == 0 reads the last row, as JAX
     padded = torch.gather(feats, 1, idx[..., None].expand(-1, -1, NUM_BINS))
-    return am.forward_padded(padded, ivectors)
+    return am.forward_padded(padded, ivectors, frames)
 
 
 def batched_logp(am, waves: List[np.ndarray], ivectors=None
@@ -100,7 +102,8 @@ def batched_logp(am, waves: List[np.ndarray], ivectors=None
                         f"utterances of a {dim}-wide model")
                 iv = iv.to(dev)
         with log.span("logp.am"):
-            logp = _batched_logp(am, t_bucket, wave_dev, counts, iv)
+            logp = _batched_logp(am, t_bucket, wave_dev, counts, iv,
+                                 max(frames))
         sp.set(batch=len(waves), frames=sum(frames),
                audio_s=sum(w.shape[0] for w in waves) / 16000.0)
     return logp[:, :max(max(lengths), 1)], lengths

@@ -5,8 +5,12 @@ A namespaced stdlib logger plus a tiny counter/timer registry: the runtime
 counts `audio_seconds` (Utterance, decode_scp), `frames_decoded` (Decoder,
 the streaming sessions, BatchDecoder), `overflow_retries` and
 `decode_host_syncs` (BatchDecoder: the times a decode's host waits for
-the card, 2 a decode), and times the `frontend`/`am`/`decode`/`process`
-stages of an Utterance — queryable via `metrics()`.
+the card, 2 a decode), `lstm_steps`, `lstm_steps_needed` (am/nnet.py: a
+recurrence's sequential steps run, and those its valid outputs read) and
+`lstm_recurrence_launches` (am/lstm.py), and times the
+`frontend`/`am`/`decode`/`process` stages of an Utterance — queryable via
+`metrics()`.  The AM spans each recurrence as `am.recurrence` (layer,
+steps, batch; CUDA events on a card).
 
 Spans name what the host is doing: `with span("decode", batch=16):`
 records a name, a start and an end in ns, the id of the enclosing span of

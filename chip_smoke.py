@@ -28,6 +28,17 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               (16 x 10 s, BENCH_SHAPES) and at the streaming shapes (one
               20-frame chunk window of B = 1 and 8 streams, one scale per
               stream), with their device times
+  lstm-kernel csrc/lstm_recurrence.cu (am.lstm.lstm_recurrence on cuda)
+              against its plain loop (lstm_recurrence_ref) on the card at
+              the chain TDNN-LSTM's widths (cell 1,024, projections 256 +
+              256), B 16 and 1,167 steps: the largest gap within 1e-5 of
+              the output's scale, two runs bit-equal; the launch's ms
+              (CUDA events), the plain loop's, the bound (the larger of the
+              recurrence's FLOPs at 67 TFLOP/s and its compulsory bytes at
+              3.35 TB/s) and its share; then the benchmark's TDNN-LSTM
+              (asrbench/configs/swbd-tdnnlstm-chain-lex200k.json, weights
+              from seed 0) through batched_logp on 16 utterances of 3-35 s:
+              one launch a LSTM layer and batch, the AM's ms
   am          quantized batched_logp on cuda vs the same on the CPU, for
               two utterances: max error < 1% of the output range (the CPU
               tests' bar for the int8 stack); one fused launch per linear
@@ -238,6 +249,9 @@ bench-am-int8), each counted from 0 just before its run:
   lm_walk.cu  `lm_propagate_capped`: times and bound at the bench's shape
               (lm-kernel's first line);
   backtrace.cu  `backtrace_device`: backtrace-kernel's times and bound;
+  lstm_recurrence.cu  `lstm_recurrence`: lstm-kernel's times and bound, its
+              launches those of lstm-kernel's TDNN-LSTM run (no other run
+              has a recurrent AM);
   frame_expand.cu  `expand_emitting`: expand-kernel's (LM off) times and
               bound;
   frame_select.cu  `select_beam`: select-kernel's (LM off) times and
@@ -1145,6 +1159,78 @@ def select_mask_phase(card, cuda=torch.device("cuda:0")):
                      f"with {rows} rows valid")
             if launches != 1:
                 fail(f"{name}: one call launched {launches} kernels")
+
+
+def lstm_kernel_phase(card, cuda=torch.device("cuda:0")):
+    """csrc/lstm_recurrence.cu against its plain loop on the card at the
+    TDNN-LSTM's widths, then the benchmark's TDNN-LSTM through
+    batched_logp (see the module docstring); returns (its totals, the AM
+    run's launches)."""
+    from catears_tpu_torch.am import lstm as tlstm
+    from catears_tpu_torch.runtime.batch import batched_logp
+
+    b, t, c, r, p = 16, 1167, 1024, 256, 256
+    g = torch.Generator().manual_seed(0)
+    args = [x.to(cuda) for x in (
+        torch.randn(b, t, 4 * c, generator=g),
+        torch.randn(r, 4 * c, generator=g) / np.sqrt(1280.0),
+        0.5 * torch.randn(3, c, generator=g),
+        torch.randn(c, r + p, generator=g) / np.sqrt(c),
+        0.1 * torch.randn(r + p, generator=g))]
+    got = tlstm.lstm_recurrence(*args, 0.85)
+    again = tlstm.lstm_recurrence(*args, 0.85)
+    want = tlstm.lstm_recurrence_ref(*args, 0.85)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    same = torch.equal(got, again)
+    t_k = time_ms(lambda: tlstm.lstm_recurrence(*args, 0.85), iters=5)
+    t_p = time_ms(lambda: tlstm.lstm_recurrence_ref(*args, 0.85), iters=1)
+    flops = b * t * (2.0 * r * 4 * c + 2.0 * c * (r + p) + 20 * c)
+    n_bytes = 4.0 * (r * 4 * c + c * (r + p) + r + p + 3 * c) \
+        + 4.0 * b * t * (4 * c + r + p + c)
+    t_ops, t_bytes = flops / 67e12 * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    b_ms = max(t_ops, t_bytes)
+    b_by = "operations" if t_ops >= t_bytes else "bytes"
+    phase("lstm-kernel", batch=b, steps=t, cells=c, max_abs_err=f"{err:.3e}",
+          scale=f"{scale:.3f}", bit_equal_runs=same, ms=f"{t_k:.4f}",
+          us_per_step=f"{1e3 * t_k / t:.3f}", plain_ms=f"{t_p:.4f}",
+          bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+          share_of_bound=f"{b_ms / t_k:.6f}", card=f"'{card}'")
+    if err > 1e-5 * scale or not same:
+        fail(f"lstm-kernel: gap {err!r} of {scale!r}, bit-equal runs {same}")
+    del args, got, again, want
+    totals = new_totals()
+    totals["max_abs_err"] = err
+    add_timing(totals, t_k, t_p, b_ms, b_by)
+
+    from asrbench import chain_gen, lstm_gen, lstm_system
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "asrbench", "configs",
+                           "swbd-tdnnlstm-chain-lex200k.json")) as fd:
+        am_cfg = json.load(fd)["am"]
+    rng = np.random.RandomState(3)
+    stats = chain_gen.feature_stats(rng, 1000.0, am_cfg, seconds=2.0)
+    model = lstm_gen.tdnnlstm_device(torch.Generator(cuda).manual_seed(0),
+                                     cuda, am_cfg, 7000, stats)
+    am = lstm_system.acoustic_model(model, am_cfg, 7000,
+                                    np.zeros(14001, np.int32), cuda)
+    waves = [(rng.randn(int(s * 16000)) * 1000).astype(np.float32)
+             for s in np.linspace(3.0, 35.0, 16)]
+    ivs = rng.randn(16, am_cfg["ivector_dim"]).astype(np.float32)
+    batched_logp(am, waves, ivs)
+    before = tlstm.lstm_recurrence.launches
+    logp, lengths = batched_logp(am, waves, ivs)
+    torch.cuda.synchronize()
+    launched = tlstm.lstm_recurrence.launches - before
+    t_am = time_ms(lambda: batched_logp(am, waves, ivs), iters=3)
+    phase("lstm-am", utts=16, audio_s=f"{sum(w.size for w in waves) / 16000:.1f}",
+          rows_max=max(lengths), launches=launched, ms=f"{t_am:.2f}",
+          finite=bool(torch.isfinite(logp).all()), card=f"'{card}'")
+    if launched != 3 or not torch.isfinite(logp).all():
+        fail(f"lstm-am: {launched} recurrence launches for 3 LSTM layers")
+    return totals, launched
 
 
 def backtrace_kernel_phase(traces, best, card):
@@ -2631,6 +2717,7 @@ def main():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     totals = {"matmul_s8": kernel_phase(card), "qmatmul": qkernel_phase(card)}
+    totals["lstm_recurrence"], lstm_launches = lstm_kernel_phase(card)
 
     from catears_tpu_torch.decode.decoder import BatchDecoder, Decoder
     from catears_tpu_torch.io.wav import read_scp
@@ -2792,8 +2879,9 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    def entry(name, t):
-        return {"launches": sum(run[name] for run in runs),
+    def entry(name, t, launches=None):
+        return {"launches": (sum(run[name] for run in runs)
+                             if launches is None else launches),
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": max(t["by"], key=t["by"].get),
@@ -2825,7 +2913,12 @@ def main():
                 "source": "catears_tpu_torch/csrc/frame_select.cu",
                 "replaces": "catears_tpu/decode/beam.py:257",
                 "entry_point": "select_beam",
-                **entry("frame_select", totals["frame_select"])}]
+                **entry("frame_select", totals["frame_select"])},
+               {"name": "lstm_recurrence", "route": "cuda",
+                "source": "catears_tpu_torch/csrc/lstm_recurrence.cu",
+                "replaces": None, "entry_point": "lstm_recurrence",
+                **entry("lstm_recurrence", totals["lstm_recurrence"],
+                        lstm_launches)}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1329,3 +1329,98 @@ def test_full_beam_7000_cuda_vs_cpu(cuda):
     hyps = [d.decode(logp, [t, t - 5], final_fallback=True) for d in decs]
     assert [h.words for h in hyps[0]] == [h.words for h in hyps[1]]
     assert [h.weight for h in hyps[0]] == [h.weight for h in hyps[1]]
+
+
+def _lstm_case(b, t, seed=0, c=1024, r=256, p=256):
+    """Recurrence inputs at the chain TDNN-LSTM's widths (cell 1,024,
+    projections 256 and 256): gates' input half N(0, 1), W_r and W_rp
+    randn / sqrt(fan in) (W_all's fan in 1,280), peepholes 0.5 randn."""
+    g = torch.Generator().manual_seed(seed)
+    gx = torch.randn(b, t, 4 * c, generator=g)
+    w_r = torch.randn(r, 4 * c, generator=g) / np.sqrt(1280.0)
+    peep = 0.5 * torch.randn(3, c, generator=g)
+    w_rp = torch.randn(c, r + p, generator=g) / np.sqrt(c)
+    b_rp = 0.1 * torch.randn(r + p, generator=g)
+    return gx, w_r, peep, w_rp, b_rp
+
+
+@pytest.mark.parametrize("b,t", [(16, 1167), (3, 40), (20, 60)])
+def test_lstm_recurrence_kernel_vs_plain_loop(cuda, b, t):
+    """csrc/lstm_recurrence.cu against lstm_recurrence_ref's loop run on
+    the card (cuBLAS in float32, TF32 off) at the published widths, B 16
+    and 1,167 steps (a 35 s utterance's rows), and on batches of 3 and 20
+    (two launches).  Tolerance 1e-5 of the output's scale: both sum each
+    step's products in float32 in different orders (a few eps of the
+    sums' scale for 1,024 terms), and the state carries a step's rounding
+    into the next, damped by the forget gate and the scale 0.85; the
+    largest gap read on an H100 was 2.4e-7 of a scale of 1.2."""
+    from catears_tpu_torch.am.lstm import lstm_recurrence, lstm_recurrence_ref
+
+    args = [x.to(cuda) for x in _lstm_case(b, t)]
+    before = lstm_recurrence.launches
+    got = lstm_recurrence(*args, 0.85)
+    assert lstm_recurrence.launches - before == -(-b // 16)
+    want = lstm_recurrence_ref(*args, 0.85)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    print(f"lstm_recurrence b {b} t {t}: max gap {err!r} of {scale!r}")
+    assert err <= 1e-5 * scale
+
+
+def test_lstm_recurrence_kernel_is_deterministic(cuda):
+    """Two runs give bit-equal outputs; what the kernel does not take
+    raises."""
+    from catears_tpu_torch.am.lstm import lstm_recurrence
+
+    args = [x.to(cuda) for x in _lstm_case(16, 300, seed=1)]
+    a = lstm_recurrence(*args, 0.85)
+    b = lstm_recurrence(*args, 0.85)
+    assert torch.equal(a, b)
+    gx, w_r, peep, w_rp, b_rp = args
+    with pytest.raises(ValueError):  # C = 1,020 is not a multiple of 8
+        lstm_recurrence(gx[..., :4080], w_r[:, :4080], peep[:, :1020],
+                        w_rp[:1020], b_rp, 0.85)
+    with pytest.raises(ValueError):
+        lstm_recurrence(gx.double(), w_r, peep, w_rp, b_rp, 0.85)
+
+
+def test_tdnn_lstm_stack_cuda_vs_cpu(cuda):
+    """The chain TDNN-LSTM at the recipe's widths (TDNN layers of 1,024,
+    three LSTMP layers of 1,024 cells with projections 256 + 256, 7,000
+    pdfs, a 100-wide i-vector, MFCC folded into lda, subsampling 3, output
+    delay 5) through batched_logp on the card: one recurrence launch a
+    LSTM layer and batch, each utterance's rows as on the CPU and as the
+    float64 reference's within 1e-5 of the output's scale
+    (tests/test_torch_tdnn_lstm.py's tolerance, and the kernel's above)."""
+    import tdnn_lstm_reference as ref
+    from _tdnn_lstm_parity import make_model, nnet_spec
+    from catears_tpu_torch.am.lstm import lstm_recurrence
+    from catears_tpu_torch.am.nnet import build_nnet
+
+    rng = np.random.RandomState(21)
+    model = make_model(rng, "recipe", dim=1024, cell=1024, rec=256,
+                       nonrec=256, pdfs=7000, ivector_dim=100)
+    spec = nnet_spec(model)
+    assert (spec.left_context, spec.right_context) == (21, 11)
+    nnet_def, params = build_nnet(spec)
+    waves = [(rng.randn(n) * 1000).astype(np.float32)
+             for n in (16000, 9999, 400 + 160 * 20, 3000)]
+    ivs = rng.randn(len(waves), 100).astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        am = AcousticModel(nnet_def, params, None,
+                           np.zeros(14001, np.int32), 21, 11, 50, 7000,
+                           device=dev, feature_type="mfcc")
+        before = lstm_recurrence.launches
+        out.append(batched_logp(am, waves, ivs))
+    assert lstm_recurrence.launches - before == 3
+    (cpu, lengths), (gpu, lengths_gpu) = out
+    assert lengths == lengths_gpu == [33, 20, 7, 6]
+    want = ref.logp(model, waves, ivs, cuda)
+    for u, n in enumerate(lengths):
+        scale = float(want[u].abs().max())
+        assert float((gpu[u, :n].cpu() - cpu[u, :n]).abs().max()) \
+            <= 1e-5 * scale
+        assert float((gpu[u, :n].double() - want[u]).abs().max()) \
+            <= 1e-5 * scale
