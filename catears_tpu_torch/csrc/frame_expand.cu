@@ -39,6 +39,15 @@
 //     Only the live slots are written as candidates: the two JAX branches
 //     differ on the dead ones, which hold SENTINEL_STATE here.
 //
+// Rows whose frame is invalid (row_valid[row] == 0, given a row_valid) do
+// no work: block 0 of the row writes a dead row's per-row outputs
+// (overflow 0, needed 0; with the split cold_over 0, cold_needed 0), and
+// every block of the row leaves before any scan, graph read, barrier or
+// lane write; every block reads the same flag once, so the exit is
+// uniform.  Such a row's [E] lanes are left as they were: the selection
+// (frame_select.cu) leaves the same rows before it reads a lane, and the
+// frame step throws their beam away.
+//
 // Bit-exactness: cost = fmaf(-am_scale, logp[b, pdf], tok_cost + w), the
 // sum rounded once (__fadd_rn) and the FMA once (__fmaf_rn): XLA:CPU
 // contracts JAX's `c - am_scale * l` into one FMA, which the plain version
@@ -80,6 +89,7 @@ struct Expand {
   const int* emit_hot;      // [hot_rows, row_w], or null (no split)
   unsigned char* cold_over;  // [B] (the split only)
   int* cold_needed;          // [B] (the split only)
+  const unsigned char* row_valid;  // [B] (bool), or null: every row
   int hot_rows, cold_cap;
   int k, e, g, row_w, compact, num_states, gc, over_rows, n_slots, csr, p;
   int ldp;  // logp's row stride
@@ -214,6 +224,17 @@ __global__ void __launch_bounds__(kThreads)
   int* cum = smem;
   int* rows = smem + (a.csr ? a.k : 0);
 
+  if (a.row_valid && !a.row_valid[b]) {  // a masked row: a dead row's flags
+    if (blockIdx.x == 0 && tid == 0) {
+      a.needed[b] = 0;
+      a.overflow[b] = 0;
+      if (a.emit_hot) {
+        a.cold_needed[b] = 0;
+        a.cold_over[b] = 0;
+      }
+    }
+    return;
+  }
   if (a.emit_hot) {  // each token's row, from the cold tokens before it
     const int cold = scan_tokens(a.k, rows, warp_base,
                                  [&](int t) { return is_cold(a, st[t]); });
@@ -322,14 +343,17 @@ extern "C" {
 // n_slots = ceil(expand_size / Gc) is its slot count (E's last n_slots *
 // Gc lanes).  overflow and needed report its demand, as JAX's.  emit_hot
 // non-null runs the hot/cold split over its hot_rows rows with cold_cap =
-// min(cold_expand_size, K) cold lanes (classic rows only).
+// min(cold_expand_size, K) cold lanes (classic rows only).  row_valid
+// non-null ([B] bool) masks rows: a masked row does no work and gets a
+// dead row's per-row outputs; its lanes are not written.
 int catears_frame_expand(const void* states, const void* costs,
                          const void* lms, const void* emit, const void* over,
                          const void* logp, void* o_state, void* o_cost,
                          void* o_tok, void* o_olabel, void* o_olab2,
                          void* o_lm, void* overflow, void* needed,
                          const void* emit_hot, void* cold_over,
-                         void* cold_needed, int hot_rows, int cold_cap,
+                         void* cold_needed, const void* row_valid,
+                         int hot_rows, int cold_cap,
                          int rows,
                          int k, int e, int g, int row_w, int compact,
                          int num_states, int gc, int over_rows, int n_slots,
@@ -352,6 +376,7 @@ int catears_frame_expand(const void* states, const void* costs,
                  static_cast<const int*>(emit_hot),
                  static_cast<unsigned char*>(cold_over),
                  static_cast<int*>(cold_needed),
+                 static_cast<const unsigned char*>(row_valid),
                  hot_rows,
                  cold_cap,
                  k, e, g, row_w, compact, num_states, gc, over_rows, n_slots,

@@ -637,10 +637,19 @@ def emit_lanes(cfg: BeamConfig, dfst: DeviceFst) -> int:
 
 
 def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
-                    logp: torch.Tensor, need_lm: bool) -> EmitCands:
+                    logp: torch.Tensor, need_lm: bool,
+                    row_valid: Optional[torch.Tensor] = None) -> EmitCands:
     """The eps-free frame's expansion: every live token's self-loop, its
     first-G block arcs and its CSR overflow arcs, with
     cost = fma(-am_scale, logp[b, pdf], token cost + arc weight).
+    `row_valid`, a contiguous bool [B] tensor on the beam's device (None:
+    every row), masks rows: a masked row's per-row outputs are those of a
+    row whose every token is dead (overflow False, needed 0, cold_over
+    False, cold_needed 0), and the kernel does no work for it and leaves
+    its [E] lanes unwritten (the plain version gives them a dead row's
+    lanes: state SENTINEL_STATE, cost +inf, the rest 0).  Only a caller
+    whose readers of the lanes skip the same rows may pass one: the
+    selection under the same row_valid does.
 
     CPU tensors take the plain version (expand_emitting_ref); CUDA tensors
     launch the hand-written kernel (csrc/frame_expand.cu: one thread per
@@ -688,8 +697,14 @@ def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
         raise ValueError(f"expand_emitting: needs beam [B, {cfg.beam_size}] "
                          f"and logp [B, P]; got {tuple(states.shape)}, "
                          f"{tuple(logp.shape)}")
+    if row_valid is not None and (
+            row_valid.device != dev or row_valid.dtype != torch.bool
+            or tuple(row_valid.shape) != (b,)
+            or not row_valid.is_contiguous()):
+        raise ValueError("expand_emitting: row_valid must be a contiguous "
+                         "bool [B] tensor on the beam's device")
     if dev.type == "cpu":
-        return expand_emitting_ref(cfg, dfst, beam, logp, need_lm)
+        return expand_emitting_ref(cfg, dfst, beam, logp, need_lm, row_valid)
     if not (dfst.emit_block.is_contiguous()
             and dfst.over_packed.is_contiguous()
             and (not split or dfst.emit_hot.is_contiguous())):
@@ -726,6 +741,7 @@ def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
                                    for x in c[:8]),
                 dfst.emit_hot.data_ptr() if split else None,
                 *(x.data_ptr() if x is not None else None for x in c[8:]),
+                None if row_valid is None else row_valid.data_ptr(),
                 dfst.hot_rows if split else 0,
                 min(cfg.cold_expand_size, k) if split else 0,
                 b, k, e, g, row_w, int(compact), dfst.num_states, gc,
@@ -742,27 +758,37 @@ def expand_emitting(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
 # take the count.
 expand_emitting.launches = 0
 _EXPAND_COUNTER = expand_emitting
-_EXPAND_ARGTYPES = {"catears_frame_expand": [ctypes.c_void_p] * 17
+_EXPAND_ARGTYPES = {"catears_frame_expand": [ctypes.c_void_p] * 18
                     + [ctypes.c_int] * 15 + [ctypes.c_float,
                                              ctypes.c_void_p]}
 
 
 def expand_emitting_ref(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState,
-                        logp: torch.Tensor, need_lm: bool) -> EmitCands:
+                        logp: torch.Tensor, need_lm: bool,
+                        row_valid: Optional[torch.Tensor] = None
+                        ) -> EmitCands:
     """Plain version of expand_emitting: _expand (the hot/cold split
-    included), _acoustic and _fms, with the dead lanes masked."""
+    included), _acoustic and _fms, with the dead lanes masked; a row that
+    row_valid masks gets a dead row's lanes and per-row outputs."""
     c = _expand(cfg, dfst, beam, cfg.expand_size, True, need_lm=need_lm,
                 need_bp=False, need_eps=True)
     cost = _fms(c.cost, cfg.am_scale, _acoustic(logp, c.pdf))
     v = c.valid
+    if row_valid is not None:
+        v = v & row_valid[:, None]
 
     def live(x):
         return torch.where(v, x, 0)
 
+    def row(x):
+        return (x if row_valid is None or x is None
+                else torch.where(row_valid, x, torch.zeros_like(x)))
+
     return EmitCands(torch.where(v, c.next_state, SENTINEL_STATE),
                      torch.where(v, cost, INF), live(c.tok), live(c.olabel),
                      live(c.eps), live(c.lm) if need_lm else None,
-                     c.overflow, c.needed, c.cold_over, c.cold_needed)
+                     row(c.overflow), row(c.needed), row(c.cold_over),
+                     row(c.cold_needed))
 
 
 class Selected(NamedTuple):
@@ -977,12 +1003,15 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst, dlm: Optional[DeviceLm],
     dedup + top-K + beam threshold (select_beam): on a card two hand
     kernels, with or without the hot/cold split and select_compact.
     `frame_valid` [B] (None: every row) reaches select_beam as its
-    row_valid: the rows whose frame is invalid, which the caller throws
-    away, get a dead row's selection, and on a card cost it nothing.
+    row_valid, and with no LM expand_emitting too: the rows whose frame is
+    invalid, which the caller throws away, get a dead row's selection,
+    and on a card cost either kernel nothing.  With an LM the expansion
+    runs every row: the delta-LM walks read every lane.
 
     Returns (beam', prev_slot [B, K], words [B, K, 2] newest-first).
     """
-    c = expand_emitting(cfg, dfst, beam, logp, dlm is not None)
+    c = expand_emitting(cfg, dfst, beam, logp, dlm is not None,
+                        row_valid=frame_valid if dlm is None else None)
     overflow, hiwater = _emit_telemetry(beam, c)
     lm_state = w1 = w2 = None
     if dlm is not None:

@@ -233,7 +233,13 @@ LM off) run it at the held cells' selections, 16 x 38,912 lanes at beam
 2,048 and 16 x 209,416 at 7,000, with every row valid and with a row mask
 of 5 live rows: bit-equal to the plain version under each, device ms,
 launches a call, the clusters one wave holds, each phase's ms and the
-table slots of the rows that ran.
+table slots of the rows that ran.  `expand-kernel-mask` (after them)
+runs frame_expand.cu at bulk-chain's expansion on the trie (16 rows of
+7,000 live tokens, 209,416 lanes a row) with every row valid and with 5
+live rows of 16: bit-equal to the plain version under each mask on the
+rows that ran, a masked row's flags 0, device and plain ms, the bytes
+bound of the rows that ran and its share, the blocks launched and those
+that work.
 
 Before the last line come {"kernels": [...]} and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  Each kernel is
@@ -1159,6 +1165,79 @@ def select_mask_phase(card, cuda=torch.device("cuda:0")):
                      f"with {rows} rows valid")
             if launches != 1:
                 fail(f"{name}: one call launched {launches} kernels")
+
+
+def expand_mask_phase(dec, num_pdfs, card, b=16, k=7000, expand=188_416,
+                      cuda=torch.device("cuda:0")):
+    """frame_expand.cu at bulk-chain's expansion, on the decoder's graph
+    (the 50k-word trie): 16 rows of 7,000 live tokens (half on states with
+    more arcs than the first-G block), expand 188,416, 209,416 lanes a
+    row, acoustic scale 1.0; with every row valid and with a row mask of 5
+    live rows of 16 (expand_emitting(..., row_valid=)).  The kernel's
+    unmasked rows bit-equal to expand_emitting_ref's under the same mask,
+    a masked row's overflow and needed 0; device ms (CUDA graph replay),
+    the plain version's ms on the card, the bytes bound of the rows that
+    ran (expand_bytes) and its share, and the blocks the launch holds and
+    those that work."""
+    dfst = dec.dfst
+    rng = np.random.RandomState(7)
+    cfg = tbeam.BeamConfig(beam_size=k, expand_size=expand, am_scale=1.0)
+    e = tbeam.emit_lanes(cfg, dfst)
+    if e != k + k * dfst.group + expand:  # 209,416 at bulk-chain's shape
+        fail(f"expand-kernel-mask: {e} lanes a row, not {k} + {k} x "
+             f"{dfst.group} + {expand}")
+    n_emit = dfst.state_packed[:, 3].cpu().numpy()
+    wide = np.flatnonzero(n_emit > dfst.group)
+    states = np.where(rng.rand(b, k) < 0.5, rng.choice(wide, (b, k)),
+                      rng.randint(0, dfst.num_states, (b, k)))
+    beam = tbeam.BeamState(
+        torch.from_numpy(states.astype(np.int32)).to(cuda),
+        torch.zeros((b, k), dtype=torch.int32, device=cuda),
+        torch.from_numpy(rng.uniform(0, 12, (b, k)).astype(np.float32))
+        .to(cuda),
+        torch.arange(k, dtype=torch.int32, device=cuda).expand(b, k),
+        torch.zeros(b, dtype=torch.bool, device=cuda),
+        torch.zeros((b, 5), dtype=torch.int32, device=cuda))
+    logp = torch.from_numpy(np.log(rng.dirichlet(np.ones(num_pdfs), b))
+                            .astype(np.float32)).to(cuda)
+    valid = np.zeros(b, bool)
+    valid[::3][:5] = True  # rows 0, 3, 6, 9 and 12 of 16
+    per_row = -(-e // 4096)  # frame_expand.cu kLanesPerBlock
+    args = (cfg, dfst, beam, logp, False)
+    for rows, mask in (("16", None),
+                       ("5-of-16", torch.from_numpy(valid).to(cuda))):
+        def fn(*a, mask=mask):
+            return tbeam.expand_emitting(*a, row_valid=mask)
+
+        def ref_fn(*a, mask=mask):
+            return tbeam.expand_emitting_ref(*a, row_valid=mask)
+
+        got, ref = fn(*args), ref_fn(*args)
+        torch.cuda.synchronize()
+        keep = (torch.ones(b, dtype=torch.bool, device=cuda) if mask is None
+                else mask)
+        equal = all(same_bytes([r[keep]], [g[keep]])
+                    for r, g in zip(ref, got) if r is not None)
+        dead_flags = mask is None or not (
+            got.overflow[~keep].any() or got.needed[~keep].any())
+        t_k = device_ms(lambda: fn(*args))
+        t_p = time_ms(lambda: ref_fn(*args), iters=3)
+        sub = (cfg, dfst, tbeam.BeamState(*(x[keep] for x in beam)),
+               logp[keep], False)
+        n_bytes, counted = expand_bytes(
+            sub, tbeam.EmitCands(*(None if x is None else x[keep]
+                                   for x in got)))
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        phase("expand-kernel-mask", rows_valid=rows, lanes=e, beam=k,
+              **counted, needed_max=int(got.needed[keep].max()),
+              equal=equal, dead_flags=dead_flags, ms=f"{t_k:.4f}",
+              plain_ms=f"{t_p:.4f}", bound_ms=f"{b_ms:.5f}",
+              bound_by="bytes", share_of_bound=f"{b_ms / t_k:.4f}",
+              blocks=per_row * b, blocks_working=per_row * int(keep.sum()),
+              card=f"'{card}'")
+        if not (equal and dead_flags):
+            fail(f"expand-kernel-mask: frame_expand.cu differs from "
+                 f"expand_emitting_ref with {rows} rows valid")
 
 
 def lstm_kernel_phase(card, cuda=torch.device("cuda:0")):
@@ -2777,6 +2856,8 @@ def main():
         totals["frame_expand"], totals["frame_select"] = frame_kernel_phase(
             get_batch_decoder(rec), tg, card)
         select_mask_phase(card)
+        expand_mask_phase(get_batch_decoder(rec),
+                          int(np.asarray(rec.am.tid2pdf).max()) + 1, card)
 
         t0 = time.perf_counter()
         rec_lm = Recognizer(lm_conf, device=cuda)

@@ -645,13 +645,19 @@ def _frame_tables(layout, dev):
 
 
 @pytest.mark.parametrize("layout", list(FRAME_LAYOUTS))
-@pytest.mark.parametrize("expand_size,need_lm", [(512, True), (48, False)])
+@pytest.mark.parametrize("expand_size,need_lm", [(512, True), (48, False),
+                                                 (9000, False)])
 def test_expand_kernel_bit_equal(cuda, layout, expand_size, need_lm):
     """csrc/frame_expand.cu (expand_emitting on cuda, on a non-default
     stream) == expand_emitting_ref on the card and on the CPU in every lane
     (dead lanes are masked alike), with a CSR tail (overflowing at 48
-    slots), the hot/cold split (5 cold lanes at 48 slots, which overflow),
-    pdfs past logp's width, and logp as a frame of a [T, B, P] view."""
+    slots; at 9000 slots three blocks a row), the hot/cold split (5 cold
+    lanes at 48 slots, which overflow), pdfs past logp's width, and logp
+    as a frame of a [T, B, P] view.  With a row mask (row_valid) the
+    kernel's unmasked rows equal the plain version's under the mask, and
+    the unmasked call's, byte for byte on the card and on the CPU; a
+    masked row reads a dead row's overflow, needed, cold_over and
+    cold_needed (0), its lanes unread."""
     from catears_tpu_torch.decode import beam as tbeam
 
     cpu = torch.device("cpu")
@@ -697,6 +703,76 @@ def test_expand_kernel_bit_equal(cuda, layout, expand_size, need_lm):
     assert (got.cold_over is not None) == bool(cold)
     if cold:
         assert bool(got.cold_over.any()) == (cold == 5)
+    assert (got.needed > 0).all()  # so a masked row's 0 is written
+    # The same rows with row 1 masked: a dead row's per-row outputs there,
+    # the unmasked call's lanes and flags on rows 0 and 2.
+    valid = torch.tensor([True, False, True])
+    unmasked = got
+    with torch.cuda.stream(side):
+        got = tbeam.expand_emitting(cfg, td, beam_on(cuda), logp, need_lm,
+                                    row_valid=valid.to(cuda))
+    side.synchronize()
+    assert tbeam.expand_emitting.launches == before + 2
+    want = tbeam.expand_emitting_ref(cfg, td_cpu, beam_on(cpu), logp_cpu,
+                                     need_lm, valid)
+    on_card = tbeam.expand_emitting_ref(cfg, td, beam_on(cuda), logp,
+                                        need_lm, valid.to(cuda))
+    for ref, what in ((want, "cpu"), (on_card, "card"),
+                      (unmasked, "unmasked")):
+        for name, r, g in zip(tbeam.EmitCands._fields, ref, got):
+            if r is None or g is None:
+                assert r is None and g is None, name
+                continue
+            _same_bytes([r[valid.to(r.device)]], [g[valid.to(cuda)]],
+                        f"masked call vs {what}: {name}")
+    for name in ("overflow", "needed", "cold_over", "cold_needed"):
+        x = getattr(got, name)
+        if x is not None:
+            assert not x[1].item(), name
+
+
+@pytest.mark.parametrize("beam_size,expand_size", [(128, 2048),
+                                                   (1024, 16384)])
+def test_ragged_batch_replays_mask_the_expansion(cuda, beam_size,
+                                                 expand_size):
+    """A ragged batch (rows ending at 60, 41, 17, 33 frames and after one)
+    through BatchDecoder on the card, LM off: its chunk runner's graph is
+    captured once and replayed for each chunk of 8 frames, whose frame
+    masks change from chunk to chunk and reach both frame kernels as
+    row_valid (one block a row at 2,432 lanes, five at 19,456).  The
+    words and costs equal the CPU decode's, and the expansion ran as many
+    launches as the selection."""
+    from catears_tpu_torch.decode import beam as tbeam
+    from catears_tpu_torch.tools.biggraph import plant_logp
+    from catears_tpu_torch.utils import log
+
+    cfg = BeamConfig(beam_size=beam_size, expand_size=expand_size,
+                     eps_expand_size=1024, max_eps_iters=4, beam=12.0)
+    lengths = [60, 41, 17, 1, 33]
+    hyps, metrics = [], []
+    for dev in (torch.device("cpu"), cuda):
+        dec, tg = runner_trie("eps-free", False, dev, 8, cfg)
+        logp = plant_logp(np.random.RandomState(4), tg, 5, 60)[0]
+        for _ in range(1 + (dev.type == "cuda")):
+            log.reset_metrics()
+            before = (tbeam.expand_emitting.launches,
+                      tbeam.select_beam.launches)
+            hyps.append(dec.decode(logp, lengths, final_fallback=True))
+            metrics.append(log.metrics())
+            log.reset_metrics()
+    launched = (tbeam.expand_emitting.launches - before[0],
+                tbeam.select_beam.launches - before[1])
+    # The second decode on the card: its captured graph's 8 replays.
+    m = metrics[-1]
+    assert m.get("frame_graph_captures", 0) == 0
+    assert m["frame_graph_replays"] == 8
+    assert metrics[1]["frame_graph_captures"] == 1
+    assert m["frame_rows_valid"] == sum(lengths)
+    assert launched == (64, 64)
+    for got in hyps[1:]:
+        assert [h.words for h in hyps[0]] == [h.words for h in got]
+        assert [h.weight for h in hyps[0]] == [h.weight for h in got]
+    assert sum(bool(h.words) for h in hyps[0]) >= 2
 
 
 def _select_cases():

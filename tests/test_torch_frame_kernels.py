@@ -88,11 +88,14 @@ def fma32(a, x, c):
 
 
 def expand_model(states, costs, lms, emit, over, logp, k, g, gc, compact,
-                 n_slots, csr, am_scale, emit_hot=None, cold_cap=0):
+                 n_slots, csr, am_scale, emit_hot=None, cold_cap=0,
+                 row_valid=None):
     """The kernel's lanes, row by row: (state, cost, tok, olabel, olab2,
     lm or None, overflow, needed, cold_over or None, cold_needed or None)
     as numpy arrays; emit_hot given: the hot/cold split with cold_cap
-    cold lanes."""
+    cold lanes.  A row that row_valid masks leaves at once with a dead
+    row's per-row outputs; its lanes, which the kernel does not write,
+    hold a dead row's here."""
     b = states.shape[0]
     e = k + k * g + n_slots * gc
     num_states, p = emit.shape[0], logp.shape[1]
@@ -113,6 +116,8 @@ def expand_model(states, costs, lms, emit, over, logp, k, g, gc, compact,
         return min(max(int(s), 0), num_states - 1)
 
     for r in range(b):
+        if row_valid is not None and not row_valid[r]:
+            continue
         st, co = states[r], costs[r]
         lm = lms[r] if lms is not None else np.zeros(k, np.int32)
         # Each token's row: the split's from the cold tokens before it.
@@ -849,6 +854,160 @@ def test_expand_model_reads_zero_past_logp(trie):
     assert valid.sum() > 50
 
 
+EXPAND_MASKS = {"mixed": [True, False, True], "all": [False] * 3,
+                "one": [False, True, False]}
+
+
+@pytest.mark.parametrize("mask", list(EXPAND_MASKS))
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("expand_size,need_lm", [(512, True), (48, False)])
+def test_expand_emitting_ref_row_valid(trie, layout, expand_size, need_lm,
+                                       mask):
+    """expand_emitting_ref with row_valid: each masked row is dead in
+    every lane (state SENTINEL_STATE, cost +inf, tok, olabel, olab2 and lm
+    0) and reads 0 in overflow, needed, cold_over and cold_needed; each
+    unmasked row is byte-equal to the call without a mask; the kernel's
+    numpy model under the same mask and the public name on the CPU agree
+    in full.  Both row layouts, the hot/cold split and a CSR tail (at 48
+    slots an overflowing one)."""
+    _, td = _tables(trie, layout)
+    b, k = 3, 32
+    states, costs, lms = random_beam(td, 5, b, k)
+    rng = np.random.RandomState(6)
+    p = int(to_np(trie[0].tid2pdf).max()) + 1 - 4
+    logp = torch.from_numpy(np.log(rng.dirichlet(np.ones(p), b))
+                            .astype(np.float32))
+    cold = (5 if expand_size == 48 else 100) if td.hot_rows else 0
+    cfg = tbeam.BeamConfig(beam_size=k, expand_size=expand_size,
+                           am_scale=0.1, cold_expand_size=cold)
+    beam = tbeam.BeamState(torch.from_numpy(states), torch.from_numpy(lms),
+                           torch.from_numpy(costs),
+                           torch.arange(k, dtype=torch.int32).expand(b, k),
+                           torch.zeros(b, dtype=torch.bool),
+                           torch.zeros((b, 5), dtype=torch.int32))
+    valid = np.array(EXPAND_MASKS[mask])
+    rv = torch.from_numpy(valid)
+    full = tbeam.expand_emitting_ref(cfg, td, beam, logp, need_lm)
+    got = tbeam.expand_emitting_ref(cfg, td, beam, logp, need_lm, rv)
+    assert (to_np(full.needed) > 0).all()  # the mask has work to undo
+    assert to_np(full.overflow).any() == (expand_size == 48)
+    dead = {"state": SENTINEL, "cost": np.inf}
+    for name, x, y in zip(tbeam.EmitCands._fields, full, got):
+        if x is None:
+            assert y is None, name
+            continue
+        x, y = to_np(x), to_np(y)
+        assert_same(x[valid], y[valid], f"unmasked {name}")
+        assert x.dtype == y.dtype, name
+        assert (y[~valid] == dead.get(name, 0)).all(), f"masked {name}"
+    assert (got.cold_over is None) == (not cold)
+    model = expand_model(states, costs, lms if need_lm else None,
+                         to_np(td.emit_block), to_np(td.over_packed),
+                         to_np(logp), k, td.group, td.csr_group,
+                         td.emit_compact, -(-expand_size // td.csr_group),
+                         True, 0.1, to_np(td.emit_hot) if cold else None,
+                         min(cold, k), row_valid=valid)
+    pub = tbeam.expand_emitting(cfg, td, beam, logp, need_lm, row_valid=rv)
+    for name, x, y, z in zip(tbeam.EmitCands._fields, got, model, pub):
+        if x is not None or y is not None:
+            assert_same(x, y, f"model {name}")
+        assert_same(x, z, f"expand_emitting {name}")
+
+
+def _ragged_chunk(trie, lengths, frames):
+    """Planted log-probs [T, B, P] of len(lengths) utterances and the
+    [T, B] mask of their valid frames."""
+    logp, _ = plant_logp(np.random.RandomState(3), trie[0], len(lengths),
+                         frames)
+    lp = torch.from_numpy(np.ascontiguousarray(np.transpose(logp, (1, 0, 2))))
+    valid = np.arange(frames)[:, None] < np.array(lengths)[None]
+    return lp, torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("layout,knobs", [
+    ("compact", {}), ("classic-g4", {}), ("classic-g2", {"beam": 1e9}),
+    ("classic-hot", {"cold_expand_size": 10, "select_compact": 300})])
+def test_decode_chunk_same_with_and_without_the_expansion_mask(
+        trie, monkeypatch, layout, knobs):
+    """LM off, decode_chunk on the CPU (each _frame_step handing its
+    frame's valid flags to expand_emitting as row_valid) gives the beam
+    and trace, bit for bit, of the same chunk whose expansion is given no
+    mask, on a ragged batch (rows that end early, one of a single frame);
+    so does one more _frame_step from the chunk's beam with rows masked.
+    The expansion's overflow and needed of a masked row are thrown away
+    with its beam, so the decode is the unmasked one's."""
+    _, td = _tables(trie, layout)
+    cfg = tbeam.BeamConfig(**dict(dict(
+        beam_size=64, expand_size=256, eps_expand_size=64, max_eps_iters=4,
+        beam=12.0), **knobs))
+    lengths = [12, 7, 1, 9]
+    lp, valid = _ragged_chunk(trie, lengths, 12)
+    real = tbeam.expand_emitting
+    masks = []
+
+    def spy(*args, **kw):
+        masks.append(kw.get("row_valid"))
+        return real(*args, **kw)
+
+    def unmasked(*args, row_valid=None):
+        return real(*args)
+
+    runs = []
+    for wrapper in (spy, unmasked):
+        monkeypatch.setattr(tbeam, "expand_emitting", wrapper)
+        beam, _ = tbeam.init_beam_batch(cfg, 4, td)
+        beam, trace = tbeam.decode_chunk(cfg, td, beam, lp, valid)
+        step_valid = torch.tensor([True, False, True, False])
+        runs.append((beam, trace) + tbeam._frame_step(
+            cfg, td, None, beam, lp[3], step_valid))
+    monkeypatch.undo()
+    assert len(masks) == 13
+    assert all(m is not None for m in masks)
+    assert [int(m.sum()) for m in masks[:12]] == valid.sum(1).tolist()
+    assert (to_np(runs[0][0].costs[:, 0]) < np.inf).all()
+    for (what, x), y in zip((("chunk beam", runs[0][0]),
+                             ("chunk trace", runs[0][1]),
+                             ("step beam", runs[0][2]),
+                             ("step trace", runs[0][3])), runs[1][:4]):
+        for name, u, v in zip(x._fields, x, y):
+            assert_same(u, v, f"{what} {name}")
+
+
+@pytest.mark.parametrize("lm_on", [False, True])
+def test_eps_free_step_masks_the_expansion_only_without_an_lm(
+        trie, monkeypatch, lm_on):
+    """_frame_step hands its frame's valid flags to expand_emitting as
+    row_valid with no LM, and no mask with a delta-LM (whose walks read
+    every lane); the selection takes the mask either way."""
+    _, td = _tables(trie, "compact")
+    dlm = dlm_from_jax(trie[3]) if lm_on else None
+    cfg = tbeam.BeamConfig(beam_size=64, expand_size=256,
+                           eps_expand_size=64, max_eps_iters=4, beam=12.0,
+                           lm_expand_size=64 if lm_on else 0)
+    lp, valid = _ragged_chunk(trie, [3, 1, 2], 3)
+    seen = {"expand_emitting": [], "select_beam": []}
+
+    def spy(name):
+        real = getattr(tbeam, name)
+
+        def call(*args, **kw):
+            seen[name].append(kw.get("row_valid"))
+            return real(*args, **kw)
+        return call
+
+    for name in seen:
+        monkeypatch.setattr(tbeam, name, spy(name))
+    beam, _ = tbeam.init_beam_batch(cfg, 3, td, dlm)
+    tbeam.decode_chunk(cfg, td, beam, lp, valid, dlm)
+    assert len(seen["expand_emitting"]) == len(seen["select_beam"]) == 3
+    for f, (ex, sel) in enumerate(zip(*seen.values())):
+        assert to_np(sel).tolist() == to_np(valid[f]).tolist()
+        if lm_on:
+            assert ex is None
+        else:
+            assert ex is sel
+
+
 # -- the step and the public names ----------------------------------------
 
 def _mid_beam(trie, jd, jl, k, frames=6):
@@ -1017,6 +1176,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(trie):
     with pytest.raises(ValueError, match="neither the compact"):
         tbeam.expand_emitting(cfg, dataclasses.replace(
             td4, emit_block=td4.emit_block[:, :-1]), beam, logp, False)
+    for bad in (torch.ones(2, dtype=torch.int32),
+                torch.ones(3, dtype=torch.bool),
+                torch.ones(4, dtype=torch.bool)[::2]):
+        with pytest.raises(ValueError, match="row_valid must be"):
+            tbeam.expand_emitting(cfg, td, beam, logp, False, row_valid=bad)
     e = torch.zeros((2, 12), dtype=torch.int32)
     c = torch.zeros((2, 12))
     with pytest.raises(ValueError, match="unsupported device"):
