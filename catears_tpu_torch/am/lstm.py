@@ -15,7 +15,7 @@ batched GEMM, am/nnet.py): with s the recurrence scale, c(-1) = r(-1) = 0,
 CPU tensors take the plain version (`lstm_recurrence_ref`, a Python loop
 of T steps); CUDA tensors launch the hand-written kernel
 (csrc/lstm_recurrence.cu: the whole time loop in one cooperative launch
-for each group of up to 16 batch rows) or raise.  `lstm_recurrence.launches`
+for up to 1,024 batch rows) or raise.  `lstm_recurrence.launches`
 counts the launches, as does the `lstm_recurrence_launches` counter.
 """
 
@@ -31,9 +31,14 @@ from catears_tpu_torch.utils import log
 F32 = torch.float32
 # The kernel's geometry (csrc/lstm_recurrence.cu): a CTA of 256 threads
 # owns 8 cells (32 gate columns) and, in the projection, its share of the
-# R + P output columns, at most 8; at most 16 batch rows a launch.
+# R + P output columns, at most 8; its gates are taken 16 batch rows at a
+# time (the narrow form, up to 16 rows) or 32 (the wide form), from
+# s r(t-1) of up to 128 rows held at once; at most 1,024 batch rows a
+# launch.
 CELLS_PER_CTA = 8
-MAX_BATCH = 16
+NARROW = 16
+MAX_PASS = 128
+MAX_BATCH = 1024
 MAX_COLS_PER_CTA = 8
 SMEM_LIMIT = 232_448
 
@@ -74,10 +79,11 @@ def lstm_recurrence(gx: torch.Tensor, w_r: torch.Tensor,
             f"{CELLS_PER_CTA} and of 4, R and R + P multiples of 4 and at "
             f"most {MAX_COLS_PER_CTA} projection columns a CTA; got C {c}, "
             f"R {r}, R + P {oc}")
-    smem = smem_bytes(r, c, cols)
+    smem = smem_bytes(r, c, cols, min(b, MAX_BATCH))
     if smem > SMEM_LIMIT:
         raise ValueError(f"lstm_recurrence: {smem} bytes of shared memory "
-                         f"a CTA (R {r}, C {c}), above {SMEM_LIMIT}")
+                         f"a CTA (R {r}, C {c}, {min(b, MAX_BATCH)} rows), "
+                         f"above {SMEM_LIMIT}")
     out = torch.empty((b, t, oc), dtype=F32, device=gx.device)
     if not out.numel():
         return out
@@ -107,12 +113,16 @@ _ARGTYPES = {"catears_lstm_recurrence": [ctypes.c_void_p] * 8
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]}
 
 
-def smem_bytes(r: int, c: int, cols: int) -> int:
-    """Dynamic shared memory of one CTA: its W_r columns [R, 32], its W_rp
-    columns [C, cols], s r(t-1) [16, R], the gates [16, 32] and the cells'
-    state [16, 8] (csrc/lstm_recurrence.cu)."""
-    return 4 * (r * 4 * CELLS_PER_CTA + c * cols + MAX_BATCH * r
-                + MAX_BATCH * 4 * CELLS_PER_CTA + MAX_BATCH * CELLS_PER_CTA)
+def smem_bytes(r: int, c: int, cols: int, batch: int) -> int:
+    """Dynamic shared memory of one CTA for a launch of `batch` rows: its
+    W_r columns [R, 32], its W_rp columns [C, cols], s r(t-1) of the rows
+    held at once [min(batch, 128) rounded up to the group, R], one group's
+    gates [group, 32] (group 16 up to 16 rows, else 32) and the cells'
+    state of every row [batch, 8] (csrc/lstm_recurrence.cu)."""
+    group = NARROW if batch <= NARROW else 2 * NARROW
+    held = -(-min(batch, MAX_PASS) // group) * group
+    return 4 * (r * 4 * CELLS_PER_CTA + c * cols + held * r
+                + group * 4 * CELLS_PER_CTA + batch * CELLS_PER_CTA)
 
 
 def lstm_recurrence_ref(gx: torch.Tensor, w_r: torch.Tensor,

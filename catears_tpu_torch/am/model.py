@@ -35,17 +35,29 @@ longest utterance's valid frames, so that each recurrence steps only to
 the last row a valid output reads, not to the padded length.  Its
 subsampled part starts at the spliced affine that computes only the
 subsample layer's rows.
+
+The chain BLSTM (a `blstmp` layer, NN02 kind 17) cannot run looped: its
+configuration gives Kaldi's chunk settings (`frames_per_chunk`,
+`extra_left_context`, `extra_right_context`, `extra_left_context_initial`,
+`extra_right_context_final`; am/chunks.py), without which it is refused,
+and `forward_padded(..., lengths=)`, told each utterance's frames
+(`batched_logp` passes them), cuts every utterance into its chunks,
+gathers all chunk windows' inputs in one gather, runs the stack over the
+windows, the layers after the last recurrence (the output affine) at the
+kept rows only, and scatters those into [B, rows_max, P].  A chunked
+stack consumes its context and subsamples before its first recurrence.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from catears_tpu_torch.am.nnet import (TDNN_KINDS, NnetDef, Nnet,
+from catears_tpu_torch.am.chunks import ChunkOptions, plan_chunks
+from catears_tpu_torch.am.nnet import (RECURRENT, TDNN_KINDS, NnetDef, Nnet,
                                        build_nnet, context_frames,
                                        fold_feature_map, frame_subsampling,
                                        ivector_dim)
@@ -67,7 +79,8 @@ class AcousticModel(nn.Module):
                  log_prior: Optional[np.ndarray], tid2pdf: np.ndarray,
                  left_context: int, right_context: int, chunk_size: int,
                  num_pdfs: int, quantized: bool = False,
-                 device: Device = "cuda", feature_type: str = "fbank"):
+                 device: Device = "cuda", feature_type: str = "fbank",
+                 chunking: Optional[ChunkOptions] = None):
         """params: per-layer dicts of numpy float arrays (build_nnet);
         quantized=True quantizes every linear's weights to int8 here and
         keeps the float stack too, for `calibrate`.  The model lives on
@@ -75,7 +88,9 @@ class AcousticModel(nn.Module):
         a chain model's, outputs taken as they are.  A stack of TDNN-F
         layers must consume exactly the given context.  feature_type
         "mfcc": frontend.mfcc's map is folded into the first linear
-        (am.nnet.fold_feature_map)."""
+        (am.nnet.fold_feature_map).  chunking: Kaldi's chunk settings
+        (am/chunks.py), which a stack with a backward recurrence needs and
+        no other takes."""
         device = resolve_device(device)
         super().__init__()
         if feature_type not in ("fbank", "mfcc"):
@@ -90,6 +105,8 @@ class AcousticModel(nn.Module):
         if quantized and tdnnf_stack:
             raise NotImplementedError_(
                 "quantized = true takes the plain TDNN layer kinds only")
+        self.chunking = chunking
+        self._tail = chunked_tail(nnet_def, chunking)
         if feature_type == "mfcc":
             params = fold_feature_map(nnet_def, params, mfcc_matrix())
         self.nnet_def = nnet_def
@@ -139,7 +156,8 @@ class AcousticModel(nn.Module):
         return cls(nnet_def, params, log_prior, tid2pdf, left, right, chunk,
                    num_pdfs, quantized=quantized, device=device,
                    feature_type=conf.get_string("feature_type",
-                                                "fbank").lower())
+                                                "fbank").lower(),
+                   chunking=ChunkOptions.from_config(conf))
 
     def calibrate(self, padded_feats, margin: float = 0.05,
                   guard: bool = False) -> None:
@@ -160,7 +178,13 @@ class AcousticModel(nn.Module):
 
     def require_streamable(self, what: str) -> None:
         """Raise NotImplementedError_ unless the model gives one row per
-        10 ms frame and takes no i-vector (what live streaming runs)."""
+        10 ms frame, takes no i-vector and runs looped (what live
+        streaming runs)."""
+        if self.chunking is not None:
+            raise NotImplementedError_(
+                f"{what} runs a model looped; this one has a backward "
+                f"recurrence, evaluated in chunks: decode it on the batch "
+                f"path (--batch)")
         if self.frame_subsampling_factor != 1 or self.ivector_dim:
             raise NotImplementedError_(
                 f"{what} decodes one row per 10 ms frame with no i-vector; "
@@ -174,16 +198,21 @@ class AcousticModel(nn.Module):
 
     def forward_padded(self, feats: torch.Tensor,
                        ivectors: Optional[torch.Tensor] = None,
-                       frames: Optional[int] = None) -> torch.Tensor:
+                       frames: Optional[int] = None,
+                       lengths: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
         """Context-padded features (and, for a model that takes them, the
         [B, dim] or [dim] i-vectors) -> log-likelihoods (see module
         doc).  `frames`: the longest utterance's valid frames (None: the
-        padded rows are all valid)."""
+        padded rows are all valid); `lengths`: each utterance's, which a
+        chunked model reads (None: `frames` for every one)."""
         if self.quantized:
             return self.nnet(feats) - self.log_prior
         if self.ivector_dim and ivectors is None:
             raise ValueError(f"the model takes a {self.ivector_dim}-wide "
                              f"i-vector per utterance; none given")
+        if self.chunking is not None:
+            return self._forward_chunked(feats, ivectors, frames, lengths)
         n = len(self.nnet_def)
         cuda = feats.device.type == "cuda"
         rows = None if frames is None else self.output_rows(frames)
@@ -195,6 +224,51 @@ class AcousticModel(nn.Module):
                 x = self.nnet.run(self._split, n, x, ivectors, rows)
             log.count("am_rows_subsampled", x.shape[:-1].numel())
         return x - self.log_prior if self.has_prior else x
+
+    def _forward_chunked(self, feats: torch.Tensor,
+                         ivectors: Optional[torch.Tensor],
+                         frames: Optional[int],
+                         lengths: Optional[Sequence[int]]) -> torch.Tensor:
+        """forward_padded in Kaldi's chunks (am/chunks.py)."""
+        one = feats.dim() == 2
+        if one:
+            feats = feats[None]
+            ivectors = None if ivectors is None else ivectors.reshape(1, -1)
+        b, padded_len, dim = feats.shape
+        if lengths is None:
+            valid = padded_len - self.left_context - self.right_context
+            lengths = [valid if frames is None else frames] * b
+        if len(lengths) != b:
+            raise ValueError(f"{len(lengths)} lengths for {b} utterances")
+        rows = [self.output_rows(t) for t in lengths]
+        plan = plan_chunks(rows, self.chunking, self.frame_subsampling_factor)
+        cuda = feats.device.type == "cuda"
+        n, width = plan.chunks, plan.width
+        attrs = dict(chunks=n, window=width, batch=b)
+        with log.span("am.chunks", device=cuda, part="gather", **attrs):
+            index = plan.upload(lengths, self.left_context,
+                                self.right_context, padded_len, feats.device)
+            x = feats.reshape(-1, dim)[index.rows_in]
+            iv = None if ivectors is None else ivectors[index.utt]
+        log.count("am_chunks", n)
+        log.count("am_chunk_rows", n * width)
+        log.count("am_chunk_rows_needed", int(plan.rows.sum()))
+        with log.span("am.full_rate", device=cuda):
+            x = self.nnet.run(0, self._split, x, iv)
+        log.count("am_rows_full_rate", x.shape[:-1].numel())
+        with log.span("am.subsampled", device=cuda):
+            x = self.nnet.run(self._split, self._tail, x, iv,
+                              lengths=index.rows)
+            x = x.reshape(-1, x.shape[-1])[index.src]
+            x = self.nnet.run(self._tail, len(self.nnet_def), x)
+        log.count("am_rows_subsampled", x.shape[0])
+        with log.span("am.chunks", device=cuda, part="scatter", **attrs):
+            out = x.new_zeros((b * plan.rows_max, x.shape[-1]))
+            out.index_copy_(0, index.dst, x)
+        out = out.view(b, plan.rows_max, -1)
+        if self.has_prior:
+            out = out - self.log_prior
+        return out[0] if one else out
 
     def _padded_numpy(self, padded: np.ndarray,
                       ivector: Optional[np.ndarray] = None,
@@ -225,6 +299,40 @@ class AcousticModel(nn.Module):
             feats,
             np.repeat(feats[-1:], self.right_context, axis=0),
         ])
+
+
+def chunked_tail(nnet_def: NnetDef,
+                 chunking: Optional[ChunkOptions]) -> Optional[int]:
+    """The index after a chunked stack's last recurrent layer (the layers
+    from it on run on the kept rows only); None for a stack run looped.
+    Raises CorruptionError where a stack with a backward recurrence has
+    no chunk settings, where a stack without one has them, and where a
+    chunked stack consumes context or subsamples at or after its first
+    recurrence, or ends in layers that do not act row by row (the
+    planner's window holds each row's input only at the stack's input)."""
+    kinds = [layer[0] for layer in nnet_def]
+    if "blstmp" not in kinds:
+        if chunking is not None:
+            raise CorruptionError(
+                "frames_per_chunk: only a model with a backward recurrence "
+                "(NN02 kind 17) is evaluated in chunks; this one runs looped")
+        return None
+    if chunking is None:
+        raise CorruptionError(
+            "the nnet has a backward recurrence (NN02 kind 17, blstmp), "
+            "which is evaluated in Kaldi's chunks: the configuration needs "
+            "frames_per_chunk (and extra_left_context, extra_right_context, "
+            "extra_left_context_initial, extra_right_context_final)")
+    first = min(i for i, k in enumerate(kinds) if k in RECURRENT)
+    last = max(i for i, k in enumerate(kinds) if k in RECURRENT)
+    rowwise = ("linear", "relu", "normalize", "softmax", "logsoftmax",
+               "batchnorm")
+    bad = [k for k in kinds[first:] if k not in RECURRENT + rowwise]
+    if bad:
+        raise CorruptionError(
+            f"a chunked stack takes only recurrences and row-wise layers "
+            f"from its first recurrence on; found {', '.join(bad)}")
+    return last + 1
 
 
 class AMStream:

@@ -32,6 +32,15 @@ those read (`Nnet.steps`); the rows after it are zeros.  Tracing, each
 recurrence is spanned as `am.recurrence` (layer, steps, batch; CUDA
 events on a card) and counts `lstm_steps` (the sequential steps run) and
 `lstm_steps_needed` (those the valid outputs read).
+
+The chain BLSTM adds one kind, `blstmp` (NN02 kind 17): a forward LSTMP
+(recurrence from row t - d) and a backward one (from row t + d) on one
+input, their outputs appended ([forward; backward], the xconfig's
+`Append`).  The backward one is the forward recurrence over each batch
+row's rows reversed within its own length (`reverse_rows`: told each
+row's rows, `Nnet.run(..., lengths=)`, so that each backward chain
+starts at its row's last row and never in the batch's padding).  A stack
+with one is evaluated in Kaldi's chunks (am/chunks.py, am/model.py).
 """
 
 from __future__ import annotations
@@ -92,16 +101,19 @@ def build_nnet(spec: NnetSpec) -> Tuple[NnetDef, List[Dict[str, np.ndarray]]]:
             params.append({"w": np.asarray(layer.weight, np.float32),
                            "b": np.asarray(layer.bias, np.float32)})
         elif layer.kind == binfmt.LAYER_LSTMP:
-            w = np.asarray(layer.weight, np.float32)
-            rec = int(layer.rec_dim)
             layer_defs.append(("lstmp", int(layer.delay),
-                               float(np.float32(layer.rec_scale)), rec))
-            params.append({
-                "w_x": w[:-rec], "w_r": w[-rec:],
-                "b": np.asarray(layer.bias, np.float32),
-                "peephole": np.asarray(layer.peephole, np.float32),
-                "w_rp": np.asarray(layer.projection, np.float32),
-                "b_rp": np.asarray(layer.projection_bias, np.float32)})
+                               float(np.float32(layer.rec_scale)),
+                               int(layer.rec_dim)))
+            params.append(_lstmp_params(layer))
+        elif layer.kind == binfmt.LAYER_BLSTMP:
+            back = layer.backward
+            layer_defs.append((
+                "blstmp", -int(layer.delay),
+                float(np.float32(layer.rec_scale)), int(layer.rec_dim),
+                float(np.float32(back.rec_scale)), int(back.rec_dim)))
+            params.append({f"{side}_{k}": v for side, part in
+                           (("fw", layer), ("bw", back))
+                           for k, v in _lstmp_params(part).items()})
         elif layer.kind == binfmt.LAYER_DELAY:
             layer_defs.append(("delay", int(layer.delay)))
             params.append({})
@@ -125,9 +137,20 @@ def build_nnet(spec: NnetSpec) -> Tuple[NnetDef, List[Dict[str, np.ndarray]]]:
     return tuple(layer_defs), params
 
 
+def _lstmp_params(layer) -> Dict[str, np.ndarray]:
+    w = np.asarray(layer.weight, np.float32)
+    rec = int(layer.rec_dim)
+    return {"w_x": w[:-rec], "w_r": w[-rec:],
+            "b": np.asarray(layer.bias, np.float32),
+            "peephole": np.asarray(layer.peephole, np.float32),
+            "w_rp": np.asarray(layer.projection, np.float32),
+            "b_rp": np.asarray(layer.projection_bias, np.float32)}
+
+
 TDNN_KINDS = ("spliced_linear", "tdnnf", "subsample", "ivector",
-              "spliced_affine", "lstmp", "delay")
+              "spliced_affine", "lstmp", "delay", "blstmp")
 SPLICED = ("spliced_linear", "spliced_affine")
+RECURRENT = ("lstmp", "blstmp")
 
 
 def layer_rates(nnet_def: NnetDef) -> Tuple[int, ...]:
@@ -142,7 +165,7 @@ def layer_rates(nnet_def: NnetDef) -> Tuple[int, ...]:
         steps = ()
         if kind in SPLICED:
             steps = layer[1]
-        elif kind in ("tdnnf", "lstmp"):
+        elif kind in ("tdnnf",) + RECURRENT:
             steps = (layer[1],)
         elif kind in ("splice", "narrow") and rate > 1:
             raise CorruptionError(f"a {kind} layer after a subsample layer")
@@ -328,12 +351,15 @@ def _count_flops(y: torch.Tensor, per_output: int) -> None:
 
 
 def lstmp(x: torch.Tensor, p: Dict[str, torch.Tensor], delay: int,
-          scale: float, steps: int, index: int = -1) -> torch.Tensor:
+          scale: float, steps: int, index: int = -1,
+          direction: str = "forward") -> torch.Tensor:
     """The projected LSTM over [..., N, D] rows with a recurrence of
     `delay` rows (>= 1): the gates' input half x W_x + b of the first
     `steps` rows in one matmul, then the recurrence (am/lstm.py), each of
     the `delay` interleaved chains of rows from zero state; [..., N,
-    R + P], the rows from `steps` on zeros."""
+    R + P], the rows from `steps` on zeros.  `direction` only labels the
+    span: a backward recurrence is a forward one over reversed rows
+    (`reverse_rows`)."""
     n = x.shape[-2]
     steps = max(0, min(steps, n))
     lead = x.shape[:-2]
@@ -348,7 +374,8 @@ def lstmp(x: torch.Tensor, p: Dict[str, torch.Tensor], delay: int,
         gx = gx.view(b, chain, delay, g4).transpose(1, 2).reshape(
             b * delay, chain, g4)
     with log.span("am.recurrence", device=x.device.type == "cuda",
-                  layer=index, steps=chain, batch=gx.shape[0]):
+                  layer=index, steps=chain, batch=gx.shape[0],
+                  direction=direction):
         out = lstm_recurrence(gx.contiguous(), p["w_r"], p["peephole"],
                               p["w_rp"], p["b_rp"], scale)
     log.count("lstm_steps", chain)
@@ -360,6 +387,40 @@ def lstmp(x: torch.Tensor, p: Dict[str, torch.Tensor], delay: int,
             b, chain * delay, oc)[:, :steps]
     out = torch.nn.functional.pad(out, (0, 0, 0, n - steps))
     return out.reshape(*lead, n, oc)
+
+
+def reverse_rows(x: torch.Tensor,
+                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, N, D] with each batch row's first lengths[b] rows reversed and
+    the rows after them (its padding) left in place (None: all N rows
+    reversed); its own inverse."""
+    if lengths is None:
+        return torch.flip(x, dims=(-2,))
+    n = x.shape[-2]
+    j = torch.arange(n, device=x.device)
+    last = lengths.to(x.device)[:, None] - 1
+    idx = torch.where(j[None, :] <= last, last - j[None, :], j[None, :])
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def blstmp(x: torch.Tensor, p: Dict[str, torch.Tensor],
+           layer: Tuple[Any, ...], delay: int, index: int = -1,
+           lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bidirectional LSTMP layer over [B, N, D] rows: the forward
+    LSTMP (recurrence from row t - delay) and the backward one (from row
+    t + delay), each from zero state, the backward chains starting at
+    each batch row's last row (`lengths[b] - 1`; None: row N - 1), never
+    in its padding; [B, N, R + P + R' + P'], [forward; backward]."""
+    n = x.shape[-2]
+    fw = lstmp(x, _side(p, "fw"), delay, layer[2], n, index)
+    bw = lstmp(reverse_rows(x, lengths), _side(p, "bw"), delay, layer[4], n,
+               index, "backward")
+    return torch.cat([fw, reverse_rows(bw, lengths)], dim=-1)
+
+
+def _side(p: Dict[str, torch.Tensor], side: str) -> Dict[str, torch.Tensor]:
+    return {k[len(side) + 1:]: v for k, v in p.items()
+            if k.startswith(side + "_")}
 
 
 def tdnn_layer(layer: Tuple[Any, ...], x: torch.Tensor,
@@ -396,6 +457,8 @@ def output_dim(nnet_def: NnetDef, params, input_dim: int) -> int:
             d = p["w"].shape[1]
         elif kind == "lstmp":
             d = p["w_rp"].shape[1]
+        elif kind == "blstmp":
+            d = p["fw_w_rp"].shape[1] + p["bw_w_rp"].shape[1]
         elif kind == "splice":
             d = d * len(layer[1])
         elif kind == "ivector":
@@ -471,10 +534,14 @@ class Nnet(nn.Module):
 
     def forward_layer(self, i: int, x: torch.Tensor,
                       ivector: Optional[torch.Tensor] = None,
-                      out_rows: Optional[int] = None) -> torch.Tensor:
+                      out_rows: Optional[int] = None,
+                      lengths: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """Layer i alone (`ivector`: the [..., dim] i-vector an ivector
         layer appends; `out_rows`: the output rows valid outputs have,
-        where a recurrence stops; None: at the last row)."""
+        where a forward-only recurrence stops; None: at the last row;
+        `lengths`: [B] each batch row's rows at a bidirectional layer's
+        rate, where its backward chains start; None: all rows)."""
         layer, p = self.nnet_def[i], self.params(i)
         kind = layer[0]
         if kind == "linear":
@@ -490,6 +557,10 @@ class Nnet(nn.Module):
                 steps = self.steps(i, out_rows)
                 log.count("lstm_steps_needed", -(-steps // delay))
             return lstmp(x, p, delay, layer[2], steps, i)
+        if kind == "blstmp":
+            delay = layer[1] // self.rates[i]
+            log.count("lstm_steps_needed", 2 * -(-x.shape[-2] // delay))
+            return blstmp(x, p, layer, delay, i, lengths)
         if kind in TDNN_KINDS:
             return tdnn_layer(layer, x, p, self.rates[i], ivector,
                               self.factor if i + 1 in self.fused else 1)
@@ -497,10 +568,11 @@ class Nnet(nn.Module):
 
     def run(self, lo: int, hi: int, x: torch.Tensor,
             ivector: Optional[torch.Tensor] = None,
-            out_rows: Optional[int] = None) -> torch.Tensor:
+            out_rows: Optional[int] = None,
+            lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Layers lo..hi-1."""
         for i in range(lo, hi):
-            x = self.forward_layer(i, x, ivector, out_rows)
+            x = self.forward_layer(i, x, ivector, out_rows, lengths)
         return x
 
     def forward(self, x: torch.Tensor,

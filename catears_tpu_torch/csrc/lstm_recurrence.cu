@@ -32,8 +32,18 @@
 //   B  its output columns (a warp per 2 batch rows, lanes over C, a
 //      butterfly reduction), written to out(t);
 //   -- grid barrier --
-// Every sum is taken by fixed threads in a fixed order: the output is
-// bit-equal from run to run.  Data written by other CTAs during the launch
+// Each thread's gate inputs gx(t) are loaded ahead, while step t - 1's B
+// runs, so that their latency (they are read once, from HBM) is hidden.
+// A batch of more than 16 rows (a chunked BLSTM's windows, about 90 a
+// batch) runs in the same launch, as the kernel's wide form: phase A
+// takes the rows 32 at a time (each thread 4 rows of one column; s r(t-1)
+// of up to kMaxPass rows loaded into shared memory at once, the cells'
+// state of every row kept there), phase B gives each warp 4 rows at a time;
+// still two grid barriers a step.  Up to 16 rows take the narrow form, the
+// design above.  Every sum is taken by fixed threads in a fixed order, the
+// same for a row in either form and whatever the batch: the output is
+// bit-equal from run to run, and a row's output does not depend on the
+// rows beside it.  Data written by other CTAs during the launch
 // is read with ld.global.cg (L2), never through L1.  The barrier is an
 // arrival counter in global memory (zeroed by the caller, never reset: the
 // k-th barrier waits for k x gridDim.x arrivals); the cooperative launch
@@ -48,7 +58,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCells = 8;             // cells a CTA owns
 constexpr int kCols = 4 * kCells;     // their gate columns
-constexpr int kMaxB = 16;             // batch rows a launch
+constexpr int kMaxPass = 128;         // rows of s r(t-1) held at once
+constexpr int kMaxB = 1024;           // batch rows a launch
 constexpr int kMaxOc = 8;             // projection columns a CTA
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -69,6 +80,30 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count,
   __syncthreads();
 }
 
+// Phase A's gate inputs of rows 2q + 16h and 2q + 16h + 1 of the group of
+// gn rows from row `first` at step t (a row past the group reads its last
+// row, and is not used).
+template <int kHalves>
+__device__ __forceinline__ void load_gates(float (&gxv)[kHalves][2],
+                                           const float* __restrict__ gx,
+                                           int first, int gn, int t,
+                                           int t_len, size_t g4, size_t acol,
+                                           int aq) {
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = first + min(2 * aq + 16 * h + e, gn - 1);
+      gxv[h][e] = __ldg(gx + (static_cast<size_t>(row) * t_len + t) * g4 +
+                        acol);
+    }
+  }
+}
+
+// kGroup: rows of a phase-A group (16: narrow, 32: wide; each thread
+// kGroup / 8 rows of one gate column); kRows: rows a phase-B warp takes at
+// a time (2 or 4).
+template <int kGroup, int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_recurrence_kernel(const float* __restrict__ gx,
                            const float* __restrict__ w_r,
@@ -77,13 +112,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ b_rp, float* out,
                            float* m_buf, unsigned int* bar, int batch, int t_len,
                            int c_dim, int r_dim, int oc, int cols, float s) {
+  constexpr int kHalves = kGroup / 16;  // 2-row sets a phase-A thread takes
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const int pass = min(batch, kMaxPass);  // rows of s r(t-1) held at once
+  const int held = (pass + kGroup - 1) / kGroup * kGroup;
   float* sw = smem;                     // [R][32] this CTA's W_r columns
-  float* sr = sw + r_dim * kCols;       // [16][R] s r(t-1)
-  float* sp = sr + kMaxB * r_dim;       // [cols][C] its W_rp columns
-  float* sg = sp + cols * c_dim;        // [16][32] gates
-  float* sc = sg + kMaxB * kCols;       // [16][8] c(t-1)
+  float* sr = sw + r_dim * kCols;       // [held][R] s r(t-1)
+  float* sp = sr + held * r_dim;        // [cols][C] its W_rp columns
+  float* sg = sp + cols * c_dim;        // [kGroup][32] one group's gates
+  float* sc = sg + kGroup * kCols;      // [batch][8] c(t-1)
   const int tid = threadIdx.x;
   const int cell0 = blockIdx.x * kCells;
   const int col0 = blockIdx.x * cols;
@@ -99,121 +137,175 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int j = i / c_dim, k = i % c_dim;
     sp[i] = j < ncol ? w_rp[static_cast<size_t>(k) * oc + col0 + j] : 0.0f;
   }
-  for (int i = tid; i < kMaxB * kCells; i += kThreads) sc[i] = 0.0f;
-  // The cell update's thread: batch row tid / 8, cell cell0 + tid % 8.
+  for (int i = tid; i < batch * kCells; i += kThreads) sc[i] = 0.0f;
+  // The cell update's thread: row tid / 8 of a group, cell cell0 + tid % 8.
   const int ub = tid / kCells, ucell = cell0 + tid % kCells;
-  const bool updates = tid < batch * kCells;
-  const float w_ic = updates ? peep[ucell] : 0.0f;
-  const float w_fc = updates ? peep[c_dim + ucell] : 0.0f;
-  const float w_oc = updates ? peep[2 * c_dim + ucell] : 0.0f;
-  // Phase A's thread: gate column j, batch rows 2q and 2q + 1.
+  const float w_ic = peep[ucell];
+  const float w_fc = peep[c_dim + ucell];
+  const float w_oc = peep[2 * c_dim + ucell];
+  // Phase A's thread: gate column j, rows 2q + 16h and 2q + 16h + 1 of a
+  // group, h < kHalves.
   const int aj = tid % kCols, aq = tid / kCols;
-  const int ab0 = 2 * aq, ab1 = min(2 * aq + 1, batch - 1);
   const size_t acol = (aj / kCells) * c_dim + cell0 + aj % kCells;
-  // Phase B's warp: batch rows 2 w and 2 w + 1.
+  // Phase B's warp: rows kRows p .. kRows p + kRows - 1 for p = w, w + 8, ...
   const int warp = tid / 32, lane = tid % 32;
-  const int bb0 = 2 * warp, bb1 = min(2 * warp + 1, batch - 1);
+  const int sets = (batch + kRows - 1) / kRows;
   const unsigned int grid = gridDim.x;
   unsigned int arrivals = 0;
   __syncthreads();
 
+  // Phase A's gate inputs, each group's loaded ahead of its use: the
+  // first group's of a step during the previous step's phase B.
+  float gxv[kHalves][2];
+  load_gates<kHalves>(gxv, gx, 0, min(kGroup, pass), 0, t_len, g4, acol, aq);
   for (int t = 0; t < t_len; ++t) {
-    // s r(t-1) into shared memory (r(-1) = 0).
-    const int r4 = r_dim / 4;
-    for (int i = tid; i < batch * r4; i += kThreads) {
-      const int b = i / r4, k4 = i % r4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (t > 0) {
-        v = __ldcg(reinterpret_cast<const float4*>(
-                       out + (static_cast<size_t>(b) * t_len + t - 1) * oc) +
-                   k4);
-        v.x *= s;
-        v.y *= s;
-        v.z *= s;
-        v.w *= s;
+    for (int p0 = 0; p0 < batch; p0 += pass) {
+      const int pn = min(pass, batch - p0);
+      if (p0 > 0) {
+        load_gates<kHalves>(gxv, gx, p0, min(kGroup, pn), t, t_len, g4, acol,
+                            aq);
       }
-      reinterpret_cast<float4*>(sr + b * r_dim)[k4] = v;
-    }
-    __syncthreads();
+      // s r(t-1) of rows p0 .. p0 + pn - 1 into shared memory (r(-1) = 0).
+      const int r4 = r_dim / 4;
+      for (int i = tid; i < pn * r4; i += kThreads) {
+        const int b = i / r4, k4 = i % r4;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (t > 0) {
+          v = __ldcg(reinterpret_cast<const float4*>(
+                         out + (static_cast<size_t>(p0 + b) * t_len + t - 1) *
+                                   oc) +
+                     k4);
+          v.x *= s;
+          v.y *= s;
+          v.z *= s;
+          v.w *= s;
+        }
+        reinterpret_cast<float4*>(sr + b * r_dim)[k4] = v;
+      }
+      __syncthreads();
 
-    // A: the gates.
-    if (ab0 < batch) {
-      const float* x0 = sr + ab0 * r_dim;
-      const float* x1 = sr + ab1 * r_dim;
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+      for (int g0 = 0; g0 < pn; g0 += kGroup) {
+        const int gn = min(kGroup, pn - g0);
+        if (g0 > 0) {
+          load_gates<kHalves>(gxv, gx, p0 + g0, gn, t, t_len, g4, acol, aq);
+        }
+        // A: the gates of rows p0 + g0 .. p0 + g0 + gn - 1.
+        if (2 * aq < gn) {
+          const float* x0[kHalves];
+          const float* x1[kHalves];
+          float a[kHalves][4];
+#pragma unroll
+          for (int h = 0; h < kHalves; ++h) {
+            const int r0 = min(2 * aq + 16 * h, gn - 1);
+            const int r1 = min(2 * aq + 16 * h + 1, gn - 1);
+            x0[h] = sr + (g0 + r0) * r_dim;
+            x1[h] = sr + (g0 + r1) * r_dim;
+            a[h][0] = a[h][1] = a[h][2] = a[h][3] = 0.0f;
+          }
 #pragma unroll 4
-      for (int k = 0; k < r_dim; k += 4) {
-        const float4 u = *reinterpret_cast<const float4*>(x0 + k);
-        const float4 v = *reinterpret_cast<const float4*>(x1 + k);
-        const float w0 = sw[k * kCols + aj], w1 = sw[(k + 1) * kCols + aj];
-        const float w2 = sw[(k + 2) * kCols + aj];
-        const float w3 = sw[(k + 3) * kCols + aj];
-        a0 = fmaf(u.x, w0, a0);
-        a1 = fmaf(u.y, w1, a1);
-        a2 = fmaf(v.x, w0, a2);
-        a3 = fmaf(v.y, w1, a3);
-        a0 = fmaf(u.z, w2, a0);
-        a1 = fmaf(u.w, w3, a1);
-        a2 = fmaf(v.z, w2, a2);
-        a3 = fmaf(v.w, w3, a3);
+          for (int k = 0; k < r_dim; k += 4) {
+            const float w0 = sw[k * kCols + aj], w1 = sw[(k + 1) * kCols + aj];
+            const float w2 = sw[(k + 2) * kCols + aj];
+            const float w3 = sw[(k + 3) * kCols + aj];
+#pragma unroll
+            for (int h = 0; h < kHalves; ++h) {
+              const float4 u = *reinterpret_cast<const float4*>(x0[h] + k);
+              const float4 v = *reinterpret_cast<const float4*>(x1[h] + k);
+              a[h][0] = fmaf(u.x, w0, a[h][0]);
+              a[h][1] = fmaf(u.y, w1, a[h][1]);
+              a[h][2] = fmaf(v.x, w0, a[h][2]);
+              a[h][3] = fmaf(v.y, w1, a[h][3]);
+              a[h][0] = fmaf(u.z, w2, a[h][0]);
+              a[h][1] = fmaf(u.w, w3, a[h][1]);
+              a[h][2] = fmaf(v.z, w2, a[h][2]);
+              a[h][3] = fmaf(v.w, w3, a[h][3]);
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < kHalves; ++h) {
+            const int r0 = 2 * aq + 16 * h;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (r0 + e < gn) {
+                sg[(r0 + e) * kCols + aj] =
+                    gxv[h][e] + (a[h][2 * e] + a[h][2 * e + 1]);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        if (tid < gn * kCells) {
+          const int row = p0 + g0 + ub;
+          const float* g = sg + ub * kCols + tid % kCells;
+          float* cell = sc + (p0 + g0) * kCells + tid;
+          const float cp = s * *cell;
+          const float gi = sigmoid(g[0] + w_ic * cp);
+          const float gf = sigmoid(g[kCells] + w_fc * cp);
+          const float cn = gf * cp + gi * tanhf(g[2 * kCells]);
+          const float go = sigmoid(g[3 * kCells] + w_oc * cn);
+          *cell = cn;
+          m_buf[static_cast<size_t>(row) * c_dim + ucell] = go * tanhf(cn);
+        }
+        __syncthreads();
       }
-      const size_t row0 = (static_cast<size_t>(ab0) * t_len + t) * g4;
-      sg[ab0 * kCols + aj] = __ldg(gx + row0 + acol) + (a0 + a1);
-      if (2 * aq + 1 < batch) {
-        const size_t row1 = (static_cast<size_t>(ab1) * t_len + t) * g4;
-        sg[ab1 * kCols + aj] = __ldg(gx + row1 + acol) + (a2 + a3);
-      }
-    }
-    __syncthreads();
-    if (updates) {
-      const float* g = sg + ub * kCols + tid % kCells;
-      const float cp = s * sc[tid];
-      const float gi = sigmoid(g[0] + w_ic * cp);
-      const float gf = sigmoid(g[kCells] + w_fc * cp);
-      const float cn = gf * cp + gi * tanhf(g[2 * kCells]);
-      const float go = sigmoid(g[3 * kCells] + w_oc * cn);
-      sc[tid] = cn;
-      m_buf[static_cast<size_t>(ub) * c_dim + ucell] = go * tanhf(cn);
     }
     arrivals += grid;
     grid_barrier(bar, arrivals);
+    // The next step's first gate inputs, loaded while B runs (not before
+    // the barrier: its fence would wait for them).
+    if (t + 1 < t_len) {
+      load_gates<kHalves>(gxv, gx, 0, min(kGroup, pass), t + 1, t_len, g4,
+                          acol, aq);
+    }
 
     // B: this CTA's output columns.
-    if (bb0 < batch && ncol > 0) {
-      const float* m0 = m_buf + static_cast<size_t>(bb0) * c_dim;
-      const float* m1 = m_buf + static_cast<size_t>(bb1) * c_dim;
-      float acc0[kMaxOc], acc1[kMaxOc];
+    for (int p = warp; p < sets && ncol > 0; p += kThreads / 32) {
+      const float* m[kRows];
+      float acc[kRows][kMaxOc];
 #pragma unroll
-      for (int j = 0; j < kMaxOc; ++j) acc0[j] = acc1[j] = 0.0f;
+      for (int i = 0; i < kRows; ++i) {
+        m[i] = m_buf +
+               static_cast<size_t>(min(kRows * p + i, batch - 1)) * c_dim;
+#pragma unroll
+        for (int j = 0; j < kMaxOc; ++j) acc[i][j] = 0.0f;
+      }
 #pragma unroll 4
       for (int k = lane; k < c_dim; k += 32) {
-        const float x0 = __ldcg(m0 + k), x1 = __ldcg(m1 + k);
+        float x[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) x[i] = __ldcg(m[i] + k);
 #pragma unroll
         for (int j = 0; j < kMaxOc; ++j) {
           if (j < cols) {
             const float w = sp[j * c_dim + k];
-            acc0[j] = fmaf(x0, w, acc0[j]);
-            acc1[j] = fmaf(x1, w, acc1[j]);
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(x[i], w, acc[i][j]);
           }
         }
       }
 #pragma unroll
       for (int j = 0; j < kMaxOc; ++j) {
+        if (j < cols) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          acc0[j] += __shfl_xor_sync(0xffffffffu, acc0[j], off);
-          acc1[j] += __shfl_xor_sync(0xffffffffu, acc1[j], off);
+          for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+            }
+          }
         }
       }
       if (lane == 0) {
-        float* o0 = out + (static_cast<size_t>(bb0) * t_len + t) * oc + col0;
-        float* o1 = out + (static_cast<size_t>(bb1) * t_len + t) * oc + col0;
-        const bool second = 2 * warp + 1 < batch;
 #pragma unroll
-        for (int j = 0; j < kMaxOc; ++j) {
-          if (j < ncol) {
-            o0[j] = acc0[j] + b_rp[col0 + j];
-            if (second) o1[j] = acc1[j] + b_rp[col0 + j];
+        for (int i = 0; i < kRows; ++i) {
+          if (kRows * p + i < batch) {
+            float* o = out +
+                       (static_cast<size_t>(kRows * p + i) * t_len + t) * oc +
+                       col0;
+#pragma unroll
+            for (int j = 0; j < kMaxOc; ++j) {
+              if (j < ncol) o[j] = acc[i][j] + b_rp[col0 + j];
+            }
           }
         }
       }
@@ -221,6 +313,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     arrivals += grid;
     grid_barrier(bar, arrivals);
   }
+}
+
+template <int kGroup, int kRows>
+int launch(const float* gx, const float* w_r, const float* peep,
+           const float* w_rp, const float* b_rp, float* out, float* m_buf,
+           unsigned int* bar, int batch, int t_len, int c_dim, int r_dim,
+           int oc, int cols, float s, cudaStream_t stream) {
+  const int pass = batch < kMaxPass ? batch : kMaxPass;
+  const int held = (pass + kGroup - 1) / kGroup * kGroup;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(r_dim) * kCols +
+                       static_cast<size_t>(held) * r_dim +
+                       static_cast<size_t>(cols) * c_dim + kGroup * kCols +
+                       static_cast<size_t>(batch) * kCells);
+  auto kernel = lstm_recurrence_kernel<kGroup, kRows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&gx,    &w_r,   &peep,  &w_rp,  &b_rp, &out,  &m_buf, &bar,
+                  &batch, &t_len, &c_dim, &r_dim, &oc,   &cols, &s};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(c_dim / kCells), dim3(kThreads), args,
+                                    smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -237,32 +355,15 @@ int catears_lstm_recurrence(const void* gx, const void* w_r, const void* peep,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ctas = c_dim / kCells;
-  int cols = (oc + ctas - 1) / ctas;
+  const int cols = (oc + ctas - 1) / ctas;
   if (cols > kMaxOc) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(r_dim) * kCols + kMaxB * r_dim +
-                       static_cast<size_t>(cols) * c_dim + kMaxB * kCols +
-                       kMaxB * kCells);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* a_gx = static_cast<const float*>(gx);
-  const float* a_wr = static_cast<const float*>(w_r);
-  const float* a_peep = static_cast<const float*>(peep);
-  const float* a_wrp = static_cast<const float*>(w_rp);
-  const float* a_brp = static_cast<const float*>(b_rp);
-  float* a_out = static_cast<float*>(out);
-  float* a_m = static_cast<float*>(m_buf);
-  unsigned int* a_bar = static_cast<unsigned int*>(bar);
-  void* args[] = {&a_gx, &a_wr,  &a_peep, &a_wrp, &a_brp, &a_out, &a_m,
-                  &a_bar, &batch, &t_len, &c_dim, &r_dim, &oc,    &cols,
-                  &s};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(lstm_recurrence_kernel), dim3(ctas),
-      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  auto run = batch <= 16 ? launch<16, 2> : launch<32, 4>;
+  return run(static_cast<const float*>(gx), static_cast<const float*>(w_r),
+             static_cast<const float*>(peep), static_cast<const float*>(w_rp),
+             static_cast<const float*>(b_rp), static_cast<float*>(out),
+             static_cast<float*>(m_buf), static_cast<unsigned int*>(bar),
+             batch, t_len, c_dim, r_dim, oc, cols, s,
+             static_cast<cudaStream_t>(stream));
 }
 
 const char* catears_error_string(int code) {

@@ -30,6 +30,15 @@ files work in both frameworks):
                                    VEC0 projection bias [R + P]
                15 spliced affine   kind 10's payload + VEC0 bias [out]
                16 delay            i32 frames d: out(t) = in(t - d)
+             and 17 its chain BLSTM's (two fast-lstmp-layers, delays -d
+             and +d, on one input, their outputs appended):
+               17 BLSTMP           i32 d (frames, > 0) + the forward
+                                   LSTMP's payload after its delay (f32
+                                   scale + i32 R + MAT0 W_all + VEC0 bias
+                                   + MAT0 peepholes + MAT0 projection +
+                                   VEC0 projection bias, as kind 14) +
+                                   the backward LSTMP's, the same; the
+                                   output is [forward; backward]
   pk::fst_0  32-byte name + i32 section_size + i32 n_states + i32 n_arcs +
              i32 start + f32 final[n_states] + i32 first_arc_idx[n_states] +
              n_arcs x (i32 next, i32 ilabel, i32 olabel, f32 weight), arcs
@@ -67,6 +76,8 @@ LAYER_IVECTOR = 13
 LAYER_LSTMP = 14
 LAYER_SPLICED_AFFINE = 15
 LAYER_DELAY = 16
+# The chain BLSTM's kind (this package's; see the module docstring).
+LAYER_BLSTMP = 17
 
 PKFST_SECTION = b"pk::fst_0"
 
@@ -162,6 +173,7 @@ class LayerSpec:
     peephole: np.ndarray = None  # lstmp: [3, C] (w_ic, w_fc, w_oc)
     projection: np.ndarray = None  # lstmp: [C, R + P]
     projection_bias: np.ndarray = None  # lstmp: [R + P]
+    backward: "LayerSpec" = None  # blstmp: the backward LSTMP (delay > 0)
 
 
 @dataclass
@@ -169,6 +181,38 @@ class NnetSpec:
     left_context: int
     right_context: int
     layers: List[LayerSpec] = field(default_factory=list)
+
+
+def _read_lstmp(fd: BinaryIO, kind: int, delay: int) -> LayerSpec:
+    """An LSTMP payload after its delay (kinds 14 and 17)."""
+    scale = struct.unpack("<f", _read_exact(fd, 4))[0]
+    rec = _read_i32(fd)
+    w, b = read_mat0(fd), read_vec0(fd)
+    peep, proj, proj_b = read_mat0(fd), read_mat0(fd), read_vec0(fd)
+    cells = proj.shape[0]
+    if not 0 < rec <= proj.shape[1] \
+            or w.shape[0] <= rec or w.shape[1] != 4 * cells \
+            or b.size != 4 * cells or peep.shape != (3, cells) \
+            or proj_b.size != proj.shape[1]:
+        raise CorruptionError(
+            f"lstmp layer: delay {delay}, recurrent width {rec}, "
+            f"W_all {w.shape}, bias {b.size}, peepholes "
+            f"{peep.shape}, projection {proj.shape}, its bias "
+            f"{proj_b.size}")
+    return LayerSpec(kind, delay=delay, rec_scale=scale, rec_dim=rec,
+                     weight=w, bias=b, peephole=peep, projection=proj,
+                     projection_bias=proj_b)
+
+
+def _write_lstmp(fd: BinaryIO, layer: LayerSpec) -> None:
+    """An LSTMP payload after its delay (kinds 14 and 17)."""
+    fd.write(struct.pack("<f", layer.rec_scale))
+    fd.write(struct.pack("<i", layer.rec_dim))
+    write_mat0(fd, np.asarray(layer.weight, np.float32))
+    write_vec0(fd, np.asarray(layer.bias, np.float32))
+    write_mat0(fd, np.asarray(layer.peephole, np.float32))
+    write_mat0(fd, np.asarray(layer.projection, np.float32))
+    write_vec0(fd, np.asarray(layer.projection_bias, np.float32))
 
 
 def read_nnet(fd: BinaryIO) -> NnetSpec:
@@ -226,24 +270,22 @@ def read_nnet(fd: BinaryIO) -> NnetSpec:
                                          bias=b))
         elif kind == LAYER_LSTMP:
             delay = _read_i32(fd)
-            scale = struct.unpack("<f", _read_exact(fd, 4))[0]
-            rec = _read_i32(fd)
-            w, b = read_mat0(fd), read_vec0(fd)
-            peep, proj, proj_b = read_mat0(fd), read_mat0(fd), read_vec0(fd)
-            cells = proj.shape[0]
-            if delay >= 0 or not 0 < rec <= proj.shape[1] \
-                    or w.shape[0] <= rec or w.shape[1] != 4 * cells \
-                    or b.size != 4 * cells or peep.shape != (3, cells) \
-                    or proj_b.size != proj.shape[1]:
+            if delay >= 0:
+                raise CorruptionError(f"lstmp layer: delay {delay}")
+            spec.layers.append(_read_lstmp(fd, kind, delay))
+        elif kind == LAYER_BLSTMP:
+            delay = _read_i32(fd)
+            if delay <= 0:
+                raise CorruptionError(f"blstmp layer: delay {delay}")
+            layer = _read_lstmp(fd, kind, -delay)
+            layer.backward = _read_lstmp(fd, LAYER_LSTMP, delay)
+            if layer.weight.shape[0] - layer.rec_dim != \
+                    layer.backward.weight.shape[0] - layer.backward.rec_dim:
                 raise CorruptionError(
-                    f"lstmp layer: delay {delay}, recurrent width {rec}, "
-                    f"W_all {w.shape}, bias {b.size}, peepholes "
-                    f"{peep.shape}, projection {proj.shape}, its bias "
-                    f"{proj_b.size}")
-            spec.layers.append(LayerSpec(
-                kind, delay=delay, rec_scale=scale, rec_dim=rec, weight=w,
-                bias=b, peephole=peep, projection=proj,
-                projection_bias=proj_b))
+                    f"blstmp layer: input widths "
+                    f"{layer.weight.shape[0] - layer.rec_dim} and "
+                    f"{layer.backward.weight.shape[0] - layer.backward.rec_dim}")
+            spec.layers.append(layer)
         elif kind == LAYER_DELAY:
             spec.layers.append(LayerSpec(kind, delay=_read_i32(fd)))
         elif kind == LAYER_TDNNF:
@@ -308,13 +350,11 @@ def write_nnet(fd: BinaryIO, spec: NnetSpec) -> None:
                 write_vec0(fd, np.asarray(layer.bias, np.float32))
         elif layer.kind == LAYER_LSTMP:
             fd.write(struct.pack("<i", layer.delay))
-            fd.write(struct.pack("<f", layer.rec_scale))
-            fd.write(struct.pack("<i", layer.rec_dim))
-            write_mat0(fd, np.asarray(layer.weight, np.float32))
-            write_vec0(fd, np.asarray(layer.bias, np.float32))
-            write_mat0(fd, np.asarray(layer.peephole, np.float32))
-            write_mat0(fd, np.asarray(layer.projection, np.float32))
-            write_vec0(fd, np.asarray(layer.projection_bias, np.float32))
+            _write_lstmp(fd, layer)
+        elif layer.kind == LAYER_BLSTMP:
+            fd.write(struct.pack("<i", -layer.delay))
+            _write_lstmp(fd, layer)
+            _write_lstmp(fd, layer.backward)
         elif layer.kind == LAYER_DELAY:
             fd.write(struct.pack("<i", layer.delay))
         elif layer.kind == LAYER_TDNNF:

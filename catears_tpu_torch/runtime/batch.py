@@ -16,7 +16,9 @@ sliding window is sequential per utterance.
 A chain model (am/model.py) gives ceil(T_u / f) rows per utterance at its
 frame subsampling factor f, and takes one i-vector per utterance
 (`ivectors`, [B, dim]; `decode_scp` reads them by utterance name from a
-Kaldi text archive, `read_ivectors`).
+Kaldi text archive, `read_ivectors`).  The model is told the longest
+utterance's frames and each utterance's: a chunked one (a BLSTM,
+am/chunks.py) cuts each utterance into its own chunks.
 """
 
 from __future__ import annotations
@@ -47,10 +49,12 @@ def load_waves(paths: List[str]) -> List[np.ndarray]:
 def _batched_logp(am, t_max: int, waves: torch.Tensor,
                   frame_counts: torch.Tensor,
                   ivectors: Optional[torch.Tensor] = None,
-                  frames: Optional[int] = None) -> torch.Tensor:
+                  frames: Optional[int] = None,
+                  lengths: Optional[List[int]] = None) -> torch.Tensor:
     """[B, S] padded waves + [B] frame counts (+ [B, dim] i-vectors; the
-    longest count, `frames`, for a recurrent model) ->
-    [B, ceil(t_max / f), P].
+    longest count, `frames`, for a recurrent model; the counts on the
+    host, `lengths`, for a chunked one) -> [B, ceil(t_max / f), P]
+    ([B, ceil(max(lengths) / f), P] for a chunked model).
 
     Padded row j of utterance u reads feats[clip(j - left, 0, t_u - 1)],
     so output row i < ceil(t_u / f) (input frame f i) sees the
@@ -63,7 +67,7 @@ def _batched_logp(am, t_max: int, waves: torch.Tensor,
                         (frame_counts - 1)[:, None])
     idx = torch.remainder(idx, t_max)  # t_u == 0 reads the last row, as JAX
     padded = torch.gather(feats, 1, idx[..., None].expand(-1, -1, NUM_BINS))
-    return am.forward_padded(padded, ivectors, frames)
+    return am.forward_padded(padded, ivectors, frames, lengths)
 
 
 def batched_logp(am, waves: List[np.ndarray], ivectors=None
@@ -103,7 +107,7 @@ def batched_logp(am, waves: List[np.ndarray], ivectors=None
                 iv = iv.to(dev)
         with log.span("logp.am"):
             logp = _batched_logp(am, t_bucket, wave_dev, counts, iv,
-                                 max(frames))
+                                 max(frames), frames)
         sp.set(batch=len(waves), frames=sum(frames),
                audio_s=sum(w.shape[0] for w in waves) / 16000.0)
     return logp[:, :max(max(lengths), 1)], lengths

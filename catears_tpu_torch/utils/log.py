@@ -7,10 +7,14 @@ the streaming sessions, BatchDecoder), `overflow_retries` and
 `decode_host_syncs` (BatchDecoder: the times a decode's host waits for
 the card, 2 a decode), `lstm_steps`, `lstm_steps_needed` (am/nnet.py: a
 recurrence's sequential steps run, and those its valid outputs read) and
-`lstm_recurrence_launches` (am/lstm.py), and times the
-`frontend`/`am`/`decode`/`process` stages of an Utterance — queryable via
-`metrics()`.  The AM spans each recurrence as `am.recurrence` (layer,
-steps, batch; CUDA events on a card).
+`lstm_recurrence_launches` (am/lstm.py), `am_chunks`, `am_chunk_rows` and
+`am_chunk_rows_needed` (am/model.py: a chunked model's windows, the rows
+its recurrences step, padding included, and the windows' own rows), and
+times the `frontend`/`am`/`decode`/`process` stages of an Utterance —
+queryable via `metrics()`.  The AM spans each recurrence as
+`am.recurrence` (layer, steps, batch, direction; CUDA events on a card)
+and a chunked model's window gather and output scatter as `am.chunks`
+(part, chunks, window, batch; CUDA events).
 
 Spans name what the host is doing: `with span("decode", batch=16):`
 records a name, a start and an end in ns, the id of the enclosing span of

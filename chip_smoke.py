@@ -39,6 +39,16 @@ lm_expand_size = 384), and checks every phase; exits non-zero if any fails:
               (asrbench/configs/swbd-tdnnlstm-chain-lex200k.json, weights
               from seed 0) through batched_logp on 16 utterances of 3-35 s:
               one launch a LSTM layer and batch, the AM's ms
+  blstm-kernel the same kernel at a chunked BLSTM's batch, 87 windows of
+              20-84 rows x 84 steps, forward and backward (each window's
+              rows reversed within its length): one launch, within 1e-5 of
+              the plain loop's scale, each row bit-equal to launches of 16
+              rows; its ms, the 16-row launches' ms, the plain loop's, the
+              bound and its share; then the benchmark's BLSTM
+              (asrbench/configs/swbd-blstm-chain-lex200k.json, weights from
+              seed 0, Kaldi's 150-frame chunks) through batched_logp on 16
+              utterances of 1.5-35 s: one launch a layer and direction
+              (6), the AM's ms
   am          quantized batched_logp on cuda vs the same on the CPU, for
               two utterances: max error < 1% of the output range (the CPU
               tests' bar for the int8 stack); one fused launch per linear
@@ -256,8 +266,9 @@ bench-am-int8), each counted from 0 just before its run:
               (lm-kernel's first line);
   backtrace.cu  `backtrace_device`: backtrace-kernel's times and bound;
   lstm_recurrence.cu  `lstm_recurrence`: lstm-kernel's times and bound, its
-              launches those of lstm-kernel's TDNN-LSTM run (no other run
-              has a recurrent AM);
+              launches those of lstm-kernel's TDNN-LSTM run; nested,
+              `chunk_batch`: blstm-kernel's (backward) times and bound, its
+              launches those of blstm-am's BLSTM run;
   frame_expand.cu  `expand_emitting`: expand-kernel's (LM off) times and
               bound;
   frame_select.cu  `select_beam`: select-kernel's (LM off) times and
@@ -1309,6 +1320,102 @@ def lstm_kernel_phase(card, cuda=torch.device("cuda:0")):
           finite=bool(torch.isfinite(logp).all()), card=f"'{card}'")
     if launched != 3 or not torch.isfinite(logp).all():
         fail(f"lstm-am: {launched} recurrence launches for 3 LSTM layers")
+    return totals, launched
+
+
+def blstm_kernel_phase(card, cuda=torch.device("cuda:0")):
+    """csrc/lstm_recurrence.cu at a chunked BLSTM's batch: 87 chunk windows
+    of up to 84 rows in one launch, forward and backward (each window's
+    rows reversed within its own length, `am.nnet.reverse_rows`), against
+    the plain loop; then the benchmark's BLSTM through batched_logp (see
+    the module docstring); returns (its totals, the AM run's launches)."""
+    from catears_tpu_torch.am import lstm as tlstm
+    from catears_tpu_torch.am.nnet import reverse_rows
+    from catears_tpu_torch.runtime.batch import batched_logp
+
+    b, t, c, r, p = 87, 84, 1024, 256, 256
+    g = torch.Generator().manual_seed(1)
+    weights = [x.to(cuda) for x in (
+        torch.randn(r, 4 * c, generator=g) / np.sqrt(1280.0),
+        0.5 * torch.randn(3, c, generator=g),
+        torch.randn(c, r + p, generator=g) / np.sqrt(c),
+        0.1 * torch.randn(r + p, generator=g))]
+    gx = torch.randn(b, t, 4 * c, generator=g).to(cuda)
+    lengths = torch.as_tensor(np.random.RandomState(1).randint(20, t + 1, b),
+                              device=cuda)
+    lengths[0] = t
+    worst = 0.0
+    for direction in ("forward", "backward"):
+        x = gx if direction == "forward" else reverse_rows(gx, lengths)
+        before = tlstm.lstm_recurrence.launches
+        got = tlstm.lstm_recurrence(x, *weights, 0.85)
+        launched = tlstm.lstm_recurrence.launches - before
+        want = tlstm.lstm_recurrence_ref(x, *weights, 0.85)
+        narrow = torch.cat([tlstm.lstm_recurrence(x[lo:lo + 16], *weights,
+                                                  0.85)
+                            for lo in range(0, b, 16)])
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        rows_equal = torch.equal(got, narrow)
+        t_k = time_ms(lambda: tlstm.lstm_recurrence(x, *weights, 0.85),
+                      iters=5)
+        t_n = time_ms(lambda: [tlstm.lstm_recurrence(x[lo:lo + 16],
+                                                     *weights, 0.85)
+                               for lo in range(0, b, 16)], iters=3)
+        t_p = time_ms(lambda: tlstm.lstm_recurrence_ref(x, *weights, 0.85),
+                      iters=1)
+        flops = b * t * (2.0 * r * 4 * c + 2.0 * c * (r + p) + 20 * c)
+        n_bytes = 4.0 * (r * 4 * c + c * (r + p) + r + p + 3 * c) \
+            + 4.0 * b * t * (4 * c + r + p + c)
+        t_ops, t_bytes = flops / 67e12 * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        b_ms = max(t_ops, t_bytes)
+        phase("blstm-kernel", direction=direction, batch=b, steps=t,
+              launches=launched, max_abs_err=f"{err:.3e}",
+              scale=f"{scale:.3f}", rows_equal_to_16_row_launches=rows_equal,
+              ms=f"{t_k:.4f}", us_per_step=f"{1e3 * t_k / t:.3f}",
+              ms_16_row_launches=f"{t_n:.4f}", plain_ms=f"{t_p:.4f}",
+              bound_ms=f"{b_ms:.6f}", share_of_bound=f"{b_ms / t_k:.6f}",
+              card=f"'{card}'")
+        if err > 1e-5 * scale or not rows_equal or launched != 1:
+            fail(f"blstm-kernel {direction}: gap {err!r} of {scale!r}, "
+                 f"rows equal to 16-row launches {rows_equal}, {launched} "
+                 f"launches")
+    del gx, got, want, narrow
+    totals = new_totals()
+    totals["max_abs_err"] = worst
+    add_timing(totals, t_k, t_p, b_ms,
+               "operations" if t_ops >= t_bytes else "bytes")
+
+    from asrbench import blstm_gen, blstm_system, chain_gen
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "asrbench", "configs",
+                           "swbd-blstm-chain-lex200k.json")) as fd:
+        cfg = json.load(fd)
+    am_cfg = cfg["am"]
+    rng = np.random.RandomState(3)
+    stats = chain_gen.feature_stats(rng, 1000.0, am_cfg, seconds=2.0)
+    model = blstm_gen.blstm_device(torch.Generator(cuda).manual_seed(0),
+                                   cuda, am_cfg, 7000, stats)
+    am = blstm_system.acoustic_model(model, am_cfg, cfg["chunk"], 7000,
+                                     np.zeros(14001, np.int32), cuda)
+    waves = [(rng.randn(int(s * 16000)) * 1000).astype(np.float32)
+             for s in np.linspace(1.5, 35.0, 16)]
+    ivs = rng.randn(16, am_cfg["ivector_dim"]).astype(np.float32)
+    batched_logp(am, waves, ivs)
+    before = tlstm.lstm_recurrence.launches
+    logp, lengths = batched_logp(am, waves, ivs)
+    torch.cuda.synchronize()
+    launched = tlstm.lstm_recurrence.launches - before
+    t_am = time_ms(lambda: batched_logp(am, waves, ivs), iters=3)
+    phase("blstm-am", utts=16,
+          audio_s=f"{sum(w.size for w in waves) / 16000:.1f}",
+          rows_max=max(lengths), launches=launched, ms=f"{t_am:.2f}",
+          finite=bool(torch.isfinite(logp).all()), card=f"'{card}'")
+    if launched != 6 or not torch.isfinite(logp).all():
+        fail(f"blstm-am: {launched} recurrence launches for 3 BLSTM layers")
     return totals, launched
 
 
@@ -2797,6 +2904,8 @@ def main():
 
     totals = {"matmul_s8": kernel_phase(card), "qmatmul": qkernel_phase(card)}
     totals["lstm_recurrence"], lstm_launches = lstm_kernel_phase(card)
+    totals["lstm_recurrence_chunks"], blstm_launches = \
+        blstm_kernel_phase(card)
 
     from catears_tpu_torch.decode.decoder import BatchDecoder, Decoder
     from catears_tpu_torch.io.wav import read_scp
@@ -2999,7 +3108,10 @@ def main():
                 "source": "catears_tpu_torch/csrc/lstm_recurrence.cu",
                 "replaces": None, "entry_point": "lstm_recurrence",
                 **entry("lstm_recurrence", totals["lstm_recurrence"],
-                        lstm_launches)}]
+                        lstm_launches),
+                "chunk_batch": entry("lstm_recurrence",
+                                     totals["lstm_recurrence_chunks"],
+                                     blstm_launches)}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1420,28 +1420,56 @@ def _lstm_case(b, t, seed=0, c=1024, r=256, p=256):
     return gx, w_r, peep, w_rp, b_rp
 
 
-@pytest.mark.parametrize("b,t", [(16, 1167), (3, 40), (20, 60)])
+@pytest.mark.parametrize("b,t", [(16, 1167), (3, 40), (20, 60), (87, 84)])
 def test_lstm_recurrence_kernel_vs_plain_loop(cuda, b, t):
     """csrc/lstm_recurrence.cu against lstm_recurrence_ref's loop run on
     the card (cuBLAS in float32, TF32 off) at the published widths, B 16
-    and 1,167 steps (a 35 s utterance's rows), and on batches of 3 and 20
-    (two launches).  Tolerance 1e-5 of the output's scale: both sum each
-    step's products in float32 in different orders (a few eps of the
-    sums' scale for 1,024 terms), and the state carries a step's rounding
-    into the next, damped by the forget gate and the scale 0.85; the
-    largest gap read on an H100 was 2.4e-7 of a scale of 1.2."""
-    from catears_tpu_torch.am.lstm import lstm_recurrence, lstm_recurrence_ref
+    and 1,167 steps (a 35 s utterance's rows), on batches of 3 and 20, and
+    at a chunked BLSTM's batch, 87 windows x 84 steps; one launch each (up
+    to 1,024 rows a launch).  Tolerance 1e-5 of the output's scale: both
+    sum each step's products in float32 in different orders (a few eps of
+    the sums' scale for 1,024 terms), and the state carries a step's
+    rounding into the next, damped by the forget gate and the scale 0.85;
+    the largest gap read on an H100 was 2.4e-7 of a scale of 1.2."""
+    from catears_tpu_torch.am.lstm import (MAX_BATCH, lstm_recurrence,
+                                           lstm_recurrence_ref)
 
     args = [x.to(cuda) for x in _lstm_case(b, t)]
     before = lstm_recurrence.launches
     got = lstm_recurrence(*args, 0.85)
-    assert lstm_recurrence.launches - before == -(-b // 16)
+    assert lstm_recurrence.launches - before == -(-b // MAX_BATCH) == 1
     want = lstm_recurrence_ref(*args, 0.85)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     print(f"lstm_recurrence b {b} t {t}: max gap {err!r} of {scale!r}")
     assert err <= 1e-5 * scale
+
+
+# sha256 of the output bytes of csrc/lstm_recurrence.cu as it was before
+# the kernel took more than 16 rows a launch, on _lstm_case(16, 84,
+# seed=2) at scale 0.85 (NVIDIA H100 80GB HBM3, nvcc of CUDA 12.8): up to
+# 16 rows the kernel computes exactly as it did.
+NARROW_DIGEST = ("94cc2ffd20a8697450120e39f67bd3b57e145fcbb3cfa1613a752b8"
+                 "77ca1c922")
+
+
+def test_lstm_recurrence_narrow_batches_keep_their_bits(cuda):
+    """Up to 16 rows: the output is bit for bit the earlier kernel's
+    (`NARROW_DIGEST`); and each row of a wide launch is bit for bit that
+    row in a launch of up to 16 rows."""
+    import hashlib
+
+    from catears_tpu_torch.am.lstm import lstm_recurrence
+
+    gx, *weights = [x.to(cuda) for x in _lstm_case(16, 84, seed=2)]
+    out = lstm_recurrence(gx, *weights, 0.85).cpu().numpy()
+    assert hashlib.sha256(out.tobytes()).hexdigest() == NARROW_DIGEST
+    wide = torch.cat([gx] * 6)[:90]
+    got = lstm_recurrence(wide, *weights, 0.85)
+    for lo in range(0, 90, 16):
+        assert torch.equal(got[lo:lo + 16],
+                           lstm_recurrence(wide[lo:lo + 16], *weights, 0.85))
 
 
 def test_lstm_recurrence_kernel_is_deterministic(cuda):
@@ -1494,6 +1522,84 @@ def test_tdnn_lstm_stack_cuda_vs_cpu(cuda):
     (cpu, lengths), (gpu, lengths_gpu) = out
     assert lengths == lengths_gpu == [33, 20, 7, 6]
     want = ref.logp(model, waves, ivs, cuda)
+    for u, n in enumerate(lengths):
+        scale = float(want[u].abs().max())
+        assert float((gpu[u, :n].cpu() - cpu[u, :n]).abs().max()) \
+            <= 1e-5 * scale
+        assert float((gpu[u, :n].double() - want[u]).abs().max()) \
+            <= 1e-5 * scale
+
+
+def test_blstmp_both_directions_at_the_chunk_batch(cuda):
+    """am.nnet.blstmp over 87 chunk windows of 20-84 rows x 84 at the
+    published widths (cell 1,024, projections 256 + 256, input 1,024) on
+    the card: one recurrence launch a direction, each backward chain from
+    its window's own last row, the same as the layer on the CPU within
+    1e-5 of the output's scale (the kernel's tolerance above)."""
+    from catears_tpu_torch.am.lstm import lstm_recurrence
+    from catears_tpu_torch.am.nnet import blstmp
+
+    g = torch.Generator().manual_seed(4)
+    c, r, d = 1024, 256, 1024
+
+    def side():
+        return {"w_x": torch.randn(d, 4 * c, generator=g) / np.sqrt(d + r),
+                "w_r": torch.randn(r, 4 * c, generator=g) / np.sqrt(d + r),
+                "b": 0.1 * torch.randn(4 * c, generator=g),
+                "peephole": torch.randn(3, c, generator=g),
+                "w_rp": torch.randn(c, 2 * r, generator=g) / np.sqrt(c),
+                "b_rp": 0.1 * torch.randn(2 * r, generator=g)}
+
+    p = {f"{k}_{n}": v for k in ("fw", "bw") for n, v in side().items()}
+    x = torch.randn(87, 84, d, generator=g)
+    lengths = torch.as_tensor(np.random.RandomState(4).randint(20, 85, 87))
+    layer = ("blstmp", 3, 0.85, r, 0.85, r)
+    want = blstmp(x, p, layer, 1, lengths=lengths)
+    before = lstm_recurrence.launches
+    got = blstmp(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, layer, 1,
+                 lengths=lengths.to(cuda))
+    assert lstm_recurrence.launches - before == 2
+    mask = torch.arange(84)[None, :] < lengths[:, None]
+    err = float((got.cpu() - want).abs()[mask].max())
+    assert err <= 1e-5 * float(want[mask].abs().max()), err
+
+
+def test_blstm_stack_cuda_vs_cpu(cuda):
+    """The chain BLSTM at the recipe's widths (three BLSTM layers of 1,024
+    cells a direction with projections 256 + 256, 7,000 pdfs, a 100-wide
+    i-vector, MFCC folded into lda, subsampling 3) in the recipe's chunks
+    (150 frames, 50 of extra context, none at the edges) through
+    batched_logp on the card: one recurrence launch a layer and direction,
+    each utterance's rows as on the CPU and as the float64 reference's
+    within 1e-5 of the output's scale (tests/test_torch_blstm.py's
+    tolerance, and the kernel's above)."""
+    import blstm_reference as ref
+    from _blstm_parity import RECIPE_CHUNK, make_model, nnet_spec
+    from catears_tpu_torch.am.chunks import ChunkOptions
+    from catears_tpu_torch.am.lstm import lstm_recurrence
+    from catears_tpu_torch.am.nnet import build_nnet
+
+    rng = np.random.RandomState(22)
+    model = make_model(rng, layers=3, cell=1024, rec=256, nonrec=256,
+                       pdfs=7000, ivector_dim=100)
+    spec = nnet_spec(model)
+    assert (spec.left_context, spec.right_context) == (2, 2)
+    nnet_def, params = build_nnet(spec)
+    waves = [(rng.randn(n) * 1000).astype(np.float32)
+             for n in (48000, 16000, 400 + 160 * 149, 3000)]
+    ivs = rng.randn(len(waves), 100).astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        am = AcousticModel(nnet_def, params, None,
+                           np.zeros(14001, np.int32), 2, 2, 50, 7000,
+                           device=dev, feature_type="mfcc",
+                           chunking=ChunkOptions(**RECIPE_CHUNK))
+        before = lstm_recurrence.launches
+        out.append(batched_logp(am, waves, ivs))
+    assert lstm_recurrence.launches - before == 6
+    (cpu, lengths), (gpu, lengths_gpu) = out
+    assert lengths == lengths_gpu == [100, 33, 50, 6]
+    want = ref.logp(model, waves, ivs, cuda, RECIPE_CHUNK)
     for u, n in enumerate(lengths):
         scale = float(want[u].abs().max())
         assert float((gpu[u, :n].cpu() - cpu[u, :n]).abs().max()) \
